@@ -21,7 +21,25 @@ package.  Phases, one line each (or one per kernel):
    its plain version on exactly those inputs; the times in the ``kernels``
    line are taken at the largest of them.
 
-Then the card's name and power limit (nvidia-smi), one JSON line listing
+The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
+``torch.Generator``):
+
+6. kernel flash_attention: the flash kernel against its plain version at
+   fixed shapes (S=32,768 causal, and with window 4,096, in bf16; S=4,096
+   in float32 at head_dim 64), timed against the plain scan and against
+   ``scaled_dot_product_attention``;
+7. lm prefill: ``Model.prefill_logits`` on 2 prompts of 4,096 tokens with
+   every launch count read around it (28 flash launches), then profiled;
+8. lm agreement: a float32 copy of the model, prefill logits at S=64
+   against 64 ``decode_step``s (2e-3);
+9. lm serve: ``ServingEngine.serve`` with the package-query scheduler, 16
+   requests, per-tick admission and decode numbers, then the first tick
+   again from the same seed (identical admission and tokens), then one
+   short batch profiled;
+10. lm main-path inputs: the prefill rerun keeping every flash call's
+    arguments, each held against the plain version.
+
+Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without CUDA, or without the
 package beside the script, it exits non-zero and prints no result.
@@ -41,10 +59,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and float64 outside
-# the tensor cores (every kernel here is float64 vector code)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float64 and float32
+# outside the tensor cores (the LP and partitioning kernels are float64
+# vector code), and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
+PEAK_OPS = {"float64": F64_OPS_PER_S, "float32": 67e12, "bfloat16": 989e12}
 
 REL_TOL = 1e-12           # float64 sums vs the plain version, relative
 ATTRS = ["price", "quantity", "discount", "tax"]
@@ -57,7 +77,9 @@ SOURCES = {"pricing": ("src/repro_torch/csrc/pricing.cu",
            "segment_stats": ("src/repro_torch/csrc/segstats.cu",
                              "src/repro/kernels/segstats.py:25"),
            "dlv_scan": ("src/repro_torch/csrc/dlv_scan.cu",
-                        "src/repro/core/dlv.py:46")}
+                        "src/repro/core/dlv.py:46"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                               "src/repro/kernels/attention.py:32")}
 TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "bfrt_histogram": "q, flip mask, has_cross exact vs the "
                                "sequential rule; counts exact; sums 1e-12 "
@@ -65,7 +87,19 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "segment_stats": "counts exact; sums 1e-12 of the group's sum "
                               "of |v|; sums of squares 1e-12 relative",
              "dlv_scan": "cuts bit-equal to dlv_scan_plain and to the "
-                         "row-step scan"}
+                         "row-step scan",
+             "flash_attention": "bfloat16: |kernel - plain| <= 2^-7 |plain| "
+                                "+ 1e-3 rms(plain) (one bf16 ulp and a "
+                                "floor), ||kernel - plain|| <= 5e-3 "
+                                "||plain||; float32: 2e-3 + 2e-3 |plain| "
+                                "(the reference's bar), norm 1e-4"}
+# the flash kernel against its plain version, by dtype: an elementwise
+# limit (see flash_agreement) and a bar on the relative norm of the error
+FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
+# the kernels of the package-query path (phases 4-5); flash_attention is
+# the LM slice's (phases 6-10)
+PQ_KERNELS = ("pricing", "bfrt_histogram", "segment_stats", "dlv_scan")
+ARCH = "qwen2-1.5b"
 
 
 def fail(msg: str) -> None:
@@ -78,9 +112,13 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One line of results, stamped with the seconds since the start."""
+    print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in kv.items())
+          + f" at_s={time.perf_counter() - T0:.1f}", flush=True)
 
 
 def smi() -> str:
@@ -106,14 +144,15 @@ def timed_ms(fn, reps: int, warm: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak: float = F64_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F64_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _numbers(shape, nbytes, ops, ms, plain_ms, library_ms=None, **extra):
-    b, by = bound_ms(nbytes, ops)
+def _numbers(shape, nbytes, ops, ms, plain_ms, library_ms=None,
+             peak=F64_OPS_PER_S, **extra):
+    b, by = bound_ms(nbytes, ops, peak)
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
             "bound_by": by, "library_ms": library_ms, **extra}
 
@@ -515,9 +554,9 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
     if r5.feasible:
         check(q5.check_package(table, r5.idx, r5.mult),
               "full: h=5 package fails check_package")
-    for name, n in counts.items():
-        check(n > 0, f"full: kernel {name} was never launched on the main "
-                     "path")
+    for name in PQ_KERNELS:
+        check(counts[name] > 0, f"full: kernel {name} was never launched "
+                                "on the main path")
 
     # where the time goes: device busy time of a second partition and a
     # second h=3 solve under torch.profiler, against the unprofiled walls
@@ -527,9 +566,10 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
                 table, ATTRS, d_f=100, alpha=alpha, seed=0,
                 device=device).partition()),
             ("solve h=3", s3, lambda: solve(eng, q3))):
-        busy_ms, reads, ours, top = device_profile(fn)
+        busy_ms, ops, reads, ours, top = device_profile(fn)
         say(f"profile {label}", wall_s=wall, device_busy_s=busy_ms / 1e3,
-            idle_share=1.0 - busy_ms / 1e3 / wall, device_to_host=reads,
+            idle_share=1.0 - busy_ms / 1e3 / wall, device_ops=ops,
+            device_to_host=reads,
             kernels=json.dumps(ours), top=json.dumps(top))
     say("profile pivots", layer_lps=eng.hierarchy.L,
         layer_lp_pivots=r3.ps_stats.lp_iters)
@@ -537,10 +577,14 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
 
 
 def device_profile(fn):
-    """(device busy ms, device-to-host copies, device ms and calls of this
-    repo's kernels, top device ops) of one call of ``fn``, from
-    torch.profiler's CUDA activity (kernels, copies and fills)."""
+    """(device busy ms, device ops run, device-to-host copies, device ms
+    and calls of this repo's kernels, top device ops) of one call of
+    ``fn``, from
+    torch.profiler's CUDA activity (kernels, copies and fills).  Only
+    device events count: a host op's device time is its kernels' time,
+    which their own rows already hold."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -548,11 +592,13 @@ def device_profile(fn):
         torch.cuda.synchronize()
     rows, reads, ours = [], 0, {}
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
         if ev.key.startswith("Memcpy DtoH"):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
         if name.startswith(("pricing_kernel", "bfrt_hist_", "segstats_",
-                            "dlv_scan_kernel")):
+                            "dlv_scan_kernel", "flash_fwd_kernel")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
                                         0.0) / 1e3, n0 + ev.count)
@@ -562,7 +608,8 @@ def device_profile(fn):
             rows.append((us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     top = [{"op": k[:60], "ms": ms, "calls": n} for ms, k, n in rows[:8]]
-    return sum(r[0] for r in rows), reads, ours, top
+    return sum(r[0] for r in rows), sum(r[2] for r in rows), reads, ours, \
+        top
 
 
 # --------------------------------------------------------------- phase 5
@@ -572,7 +619,9 @@ CALL_SITES = {"pricing": ("repro_torch.core.lp_kernel", "pricing"),
               "bfrt_histogram": ("repro_torch.core.lp_kernel",
                                  "bfrt_select"),
               "segment_stats": ("repro_torch.core.dlv", "segment_stats"),
-              "dlv_scan": ("repro_torch.core.dlv", "dlv_scan")}
+              "dlv_scan": ("repro_torch.core.dlv", "dlv_scan"),
+              "flash_attention": ("repro_torch.models.attention",
+                                  "flash_attention_op")}
 
 
 def _copy(a):
@@ -583,12 +632,13 @@ def _copy(a):
 
 
 @contextlib.contextmanager
-def capturing():
-    """Keep a copy of the arguments of every kernel call made inside the
-    block: {kernel name: [(args, kwargs), ...]}."""
-    calls = {name: [] for name in CALL_SITES}
+def capturing(names=PQ_KERNELS):
+    """Keep a copy of the arguments of every call of the kernels ``names``
+    made inside the block: {kernel name: [(args, kwargs), ...]}."""
+    calls = {name: [] for name in names}
     saved = []
-    for name, (modname, attr) in CALL_SITES.items():
+    for name in names:
+        modname, attr = CALL_SITES[name]
         mod = importlib.import_module(modname)
         fn = getattr(mod, attr)
 
@@ -658,6 +708,330 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
     return out
 
 
+# ----------------------------------------------- LM slice: flash kernel
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps, per batch row and head."""
+    if not causal:
+        return S * S
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_agreement(got, want) -> tuple:
+    """(max abs error, largest error over its elementwise limit, relative
+    norm of the error, whether both bars hold) of a flash output ``got``
+    against the plain version's ``want``.
+
+    In bfloat16 both outputs are float32 results rounded once, so a sound
+    kernel is at most one bf16 ulp (<= 2^-7 |plain|) away, plus a floor of
+    1e-3 rms(plain) for elements near zero; a fixed absolute bar would be
+    as large as the outputs of rows that attend thousands of keys.  In
+    float32 the bar is the reference's, 2e-3 + 2e-3 |plain|."""
+    dt = str(want.dtype).split(".")[-1]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dt == "bfloat16":
+        limit = 2.0 ** -7 * want.abs() + 1e-3 * want.square().mean().sqrt()
+    else:
+        limit = 2e-3 + 2e-3 * want.abs()
+    over = float((diff / limit).max())
+    rel = float(diff.norm() / want.norm())
+    return (float(diff.max()), over, rel,
+            over <= 1.0 and rel <= FLASH_NORM_TOL[dt])
+
+
+def flash_check(q, k, v, *, causal=True, window=0) -> tuple:
+    """Kernel vs plain flash attention on (q, k, v): (max abs error, max
+    error over its limit, relative norm error); fails beyond the bars of
+    ``flash_agreement`` or on a non-finite output."""
+    import torch
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.ops import flash_attention_op
+    got = flash_attention_op(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    check(bool(torch.isfinite(got).all()), "flash_attention: non-finite "
+                                           "output")
+    err, over, rel, ok = flash_agreement(got, want)
+    check(ok, f"flash_attention disagrees with its plain version at "
+              f"{tuple(q.shape)} {q.dtype} window={window} (max abs err "
+              f"{err}, {over} of its limit, relative norm {rel})")
+    return err, over, rel
+
+
+def sdpa_call(q, k, v, *, causal, window):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same inputs (heads-first views).  The window needs an explicit
+    mask, and with a mask the call is pinned to the memory-efficient
+    backend over K/V expanded to every head (expanded outside the timed
+    call): the math backend would hold (H, S, S) scores."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    rep = q.shape[2] // k.shape[2]
+    ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, ke, ve,
+                                                  attn_mask=mask)
+    return call
+
+
+def flash_times(q, k, v, *, causal=True, window=0, reps=3) -> dict:
+    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.ops import flash_attention_op
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    dt = str(q.dtype).split(".")[-1]
+    nbytes = (2 * B * S * H * d + 2 * B * S * KV * d) * q.element_size()
+    ops = 4 * d * flash_pairs(S, causal, window) * B * H
+    lib, lib_note = None, "scaled_dot_product_attention"
+    try:
+        lib = timed_ms(sdpa_call(q, k, v, causal=causal, window=window),
+                       reps)
+    except RuntimeError as exc:      # the yardstick only: noted, not hidden
+        lib_note = f"scaled_dot_product_attention failed: {exc}"[:200]
+    return _numbers(
+        f"B={B} S={S} H={H} KV={KV} d={d} {dt} "
+        f"{'causal' if causal else 'full'} window={window}",
+        nbytes, ops,
+        timed_ms(lambda: flash_attention_op(q, k, v, causal=causal,
+                                            window=window), reps),
+        timed_ms(lambda: flash_attention_plain(q, k, v, causal=causal,
+                                               window=window), 1),
+        lib, peak=PEAK_OPS[dt], library=lib_note)
+
+
+FLASH_FIXED = (("32k bf16 causal", (1, 12, 2, 32768, 128, "bfloat16", 0)),
+               ("32k bf16 window 4096",
+                (1, 12, 2, 32768, 128, "bfloat16", 4096)),
+               ("4k f32 d64", (2, 9, 3, 4096, 64, "float32", 0)))
+
+
+def kernel_flash(dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    out, worst = {}, 0.0
+    for label, (B, H, KV, S, d, dt, window) in FLASH_FIXED:
+        q, k, v = (torch.randn((B, S, h, d), generator=g, device=dev)
+                   .to(getattr(torch, dt)) for h in (H, KV, KV))
+        err, over, rel = flash_check(q, k, v, window=window)
+        worst = max(worst, err)
+        out[label] = flash_times(q, k, v, window=window)
+        say(f"kernel flash_attention[{label}]", max_abs_err=err,
+            err_over_limit=over, rel_norm_err=rel, **out[label])
+        del q, k, v
+        torch.cuda.empty_cache()
+    return worst, out
+
+
+# --------------------------------------------------- LM slice: the model
+
+
+def lm_model(dev):
+    """qwen2-1.5b at full width, bf16, random init from a seeded
+    generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    model = Model(get_config(ARCH), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say("lm model", arch=ARCH, params=model.param_count(),
+        dtype=model.cfg.param_dtype, init_s=time.perf_counter() - t0,
+        layers=model.cfg.num_layers, d_model=model.cfg.d_model,
+        heads=model.cfg.num_heads, kv_heads=model.cfg.num_kv_heads,
+        head_dim=model.cfg.resolved_head_dim,
+        vocab=model.cfg.padded_vocab)
+    return model
+
+
+def phase_lm_prefill(model, B: int = 2, S: int = 4096):
+    """The prefill path: launch counts reset just before and read just
+    after one ``prefill_logits``; then a warm run and a profiled run."""
+    import torch
+    from repro_torch import kernels
+    cfg = model.cfg
+    g = torch.Generator(device=model.device).manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                         device=model.device)
+    batch = {"tokens": toks}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits = model.prefill_logits(batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
+          and logits.dtype == torch.float32, "lm prefill: logits shape")
+    check(bool(torch.isfinite(logits).all()), "lm prefill: non-finite "
+                                              "logits")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"lm prefill: {counts['flash_attention']} flash launches, "
+          f"expected {cfg.num_layers}")
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    t0 = time.perf_counter()
+    model.prefill_logits(batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    say("lm prefill", B=B, S=S, wall_ms_first=first * 1e3,
+        wall_ms=warm * 1e3, tokens_per_s=B * S / warm,
+        launches=json.dumps(counts), peak_mem_gib=peak / 2**30)
+    busy_ms, ops, reads, ours, top = device_profile(
+        lambda: model.prefill_logits(batch))
+    say("profile lm prefill", wall_ms=warm * 1e3, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / 1e3 / warm, device_ops=ops,
+        device_to_host=reads,
+        kernels=json.dumps(ours), top=json.dumps(top))
+    return counts, batch
+
+
+def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3) -> float:
+    """A float32 copy of the model: prefill logits at S tokens against S
+    decode steps (the reference's prefill-vs-decode test at full width)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(model.cfg, param_dtype="float32")
+    m32 = Model(cfg, device=model.device).load_params(model.params)
+    g = torch.Generator(device=model.device).manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
+                         device=model.device)
+    full = m32.prefill_logits({"tokens": toks})
+    cache = m32.init_cache(1, S)
+    worst, rel = 0.0, 0.0
+    for t in range(S):
+        logits, cache = m32.decode_step(cache, toks[:, t:t + 1])
+        diff = (logits - full[:, t]).abs()
+        worst = max(worst, float(diff.max()))
+        rel = max(rel, float((diff / (tol + tol * full[:, t].abs())).max()))
+    say("lm agreement", dtype="float32", S=S, max_abs_err=worst,
+        max_err_over_bar=rel, logits_absmax=float(full.abs().max()))
+    check(rel <= 1.0, f"lm agreement: prefill and decode logits differ by "
+                      f"{worst} (bar {tol} abs + {tol} rel)")
+    del m32, full, cache
+    torch.cuda.empty_cache()
+    return worst
+
+
+def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None):
+    """16 requests (prompts of 64-256 tokens, 16-64 new), max_batch 8,
+    cache_len 1024, an HBM budget of 0.05 x the card's memory; ``ticks``
+    admission ticks, by default as many as answer every request."""
+    import torch
+    from repro_torch.serving import PackageScheduler, Request, ServingEngine
+    cfg = model.cfg
+    memory = torch.cuda.get_device_properties(model.device).total_memory
+    sched = PackageScheduler(cfg, hbm_budget_bytes=0.05 * memory,
+                             flop_budget=5e13, max_batch=8)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid, int(rng.integers(64, 257)), int(rng.integers(16, 65)),
+                    float(rng.uniform(0.1, 1.0))) for rid in range(requests)]
+    for r in reqs:
+        sched.submit(r)
+    engine = ServingEngine(model, cache_len=1024, seed=seed)
+    t0 = time.perf_counter()
+    done = engine.serve(sched, ticks=ticks or -(-requests // sched.max_batch))
+    return reqs, done, engine, sched, time.perf_counter() - t0
+
+
+def phase_lm_serve(model):
+    from repro_torch import kernels
+    from repro_torch.core import guard
+    cfg = model.cfg
+    kernels.reset_launches()
+    reqs, done, engine, sched, wall = serve_once(model)
+    counts = kernels.launch_counts()
+    for i, t in enumerate(engine.tick_log):
+        per_tok = t.decode_s / max(t.steps - 1, 1)
+        say(f"lm serve tick {i}", admitted=t.admitted,
+            solve_ms=t.solve_s * 1e3, status=t.status,
+            prompt_len=t.prompt_len, steps=t.steps, tokens=t.tokens,
+            ttft_ms=t.prefill_s * 1e3, decode_ms_per_token=per_tok * 1e3,
+            tokens_per_s=t.tokens / max(t.prefill_s + t.decode_s, 1e-9))
+        check(t.status == guard.OK, f"lm serve: tick {i} status {t.status}")
+    want = {r.rid: r.max_new_tokens for r in reqs}
+    got = {g.rid: g.tokens for g in done}
+    check(set(got) == set(want) and not sched.queue,
+          f"lm serve: answered {sorted(got)} of {sorted(want)}")
+    for rid, toks in got.items():
+        check(len(toks) == want[rid], f"lm serve: rid {rid} got "
+                                      f"{len(toks)} of {want[rid]} tokens")
+        check(all(0 <= x < cfg.vocab_size for x in toks),
+              f"lm serve: rid {rid} has out-of-vocabulary tokens")
+    # determinism: the first tick again from the same seed (its admission
+    # and its batch's tokens) proves what a whole second run would, at
+    # half its cost
+    _, again, _, _, again_s = serve_once(model, ticks=1)
+    first = [(g.rid, g.tokens) for g in done[:engine.tick_log[0].admitted]]
+    check([(g.rid, g.tokens) for g in again] == first,
+          "lm serve: tick 0 rerun with the same seed gave other admissions "
+          "or tokens")
+    tokens = sum(want.values())
+    say("lm serve", requests=len(reqs), answered=len(done), wall_s=wall,
+        generated_tokens=tokens, tokens_per_s=tokens / wall,
+        tick0_rerun="identical", tick0_rerun_s=again_s,
+        launches=json.dumps(counts))
+    # a short batch: the profiler's bookkeeping grows with the ~2,400
+    # device ops of every decode step
+    new = 2
+    prompts = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (8, 2)).astype(np.int32)
+    t0 = time.perf_counter()
+    engine.generate_batch(prompts, new)
+    gen_s = time.perf_counter() - t0
+    busy_ms, ops, reads, _, top = device_profile(
+        lambda: engine.generate_batch(prompts, new))
+    steps = prompts.shape[1] + new - 1
+    say(f"profile lm serve (batch 8, {prompts.shape[1]} prompt + {new} "
+        f"new)", wall_s=gen_s,
+        device_busy_s=busy_ms / 1e3, idle_share=1.0 - busy_ms / 1e3 / gen_s,
+        decode_steps=steps, device_ops_per_step=ops / steps,
+        device_to_host=reads, top=json.dumps(top))
+    return counts
+
+
+def phase_lm_main_inputs(model, batch, counts):
+    """The prefill rerun keeping every flash call's arguments, each held
+    against the plain version; numbers at the largest call."""
+    import torch
+    from repro_torch import kernels
+    kernels.reset_launches()
+    with capturing(("flash_attention",)) as calls:
+        model.prefill_logits(batch)
+    torch.cuda.synchronize()
+    again = kernels.launch_counts()
+    kept = calls["flash_attention"]
+    check(len(kept) == model.cfg.num_layers,
+          f"lm main path: {len(kept)} flash calls kept")
+    t0 = time.perf_counter()
+    errs, overs, rels = zip(*(flash_check(*a, **kw) for a, kw in kept))
+    torch.cuda.synchronize()
+    sizes = [a[0].numel() for a, _ in kept]
+    (a, kw) = kept[int(np.argmax(sizes))]
+    nums = flash_times(*a, **kw)
+    say("main-path flash_attention", calls=len(kept),
+        launches_as_in_prefill=again["flash_attention"]
+        == counts["flash_attention"], max_abs_err=max(errs),
+        err_over_limit=max(overs), rel_norm_err=max(rels),
+        check_s=time.perf_counter() - t0, **nums)
+    del calls, kept
+    torch.cuda.empty_cache()
+    return max(errs), nums
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -670,6 +1044,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
+    # float32 products in full float32 (the agreement bar assumes it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
     build_s = _build.build_all()
@@ -678,20 +1055,40 @@ def main() -> None:
         card=json.dumps(card))
     print(card, flush=True)
 
+    phase_s = {"build": build_s}
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, its seconds (to the card's last op) kept under
+        ``label``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
     fixed = {}
     for name, fn in (("pricing", kernel_pricing),
                      ("bfrt_histogram", kernel_bfrt),
                      ("segment_stats", kernel_segstats),
-                     ("dlv_scan", kernel_dlv_scan)):
-        fixed[name] = fn(dev)
-        torch.cuda.synchronize()
+                     ("dlv_scan", kernel_dlv_scan),
+                     ("flash_attention", kernel_flash)):
+        fixed[name] = phase(f"kernel {name}", fn, dev)
 
-    phase_parity()
-    torch.cuda.synchronize()
-    counts, inputs = phase_full()
-    torch.cuda.synchronize()
-    main_nums = phase_main_inputs(counts, *inputs)
-    torch.cuda.synchronize()
+    phase("parity", phase_parity)
+    counts, inputs = phase("full", phase_full)
+    main_nums = phase("main-path inputs", phase_main_inputs, counts,
+                      *inputs)
+    del inputs
+
+    model = phase("lm model", lm_model, dev)
+    lm_counts, batch = phase("lm prefill", phase_lm_prefill, model)
+    counts["flash_attention"] = lm_counts["flash_attention"]
+    phase("lm agreement", phase_lm_agreement, model)
+    phase("lm serve", phase_lm_serve, model)
+    main_nums["flash_attention"] = phase(
+        "lm main-path inputs", phase_lm_main_inputs, model, batch, lm_counts)
+    say("phase seconds", **{k.replace(" ", "_"): v
+                            for k, v in phase_s.items()})
 
     entries = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,0 +1,50 @@
+"""Architecture registry: ``--arch <id>`` resolves through here.
+
+The port registers the dense GQA archs that its model stack runs today
+(qwen2, danube, smollm and glm4).
+The other archs of the reference's registry join with the slices that
+port their families; asking for one raises ``KeyError`` naming the
+ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import importlib
+from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeConfig,
+                                      shape_applicable)
+
+_ARCH_MODULES = {
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+}
+
+# archs of the reference's registry whose family is not ported yet
+_PENDING = {
+    "mixtral-8x22b": "ROADMAP queue 1 item 10b (MoE)",
+    "deepseek-v3-671b": "ROADMAP queue 1 items 10b-10c (MoE, MLA)",
+    "jamba-1.5-large-398b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
+    "mamba2-1.3b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
+    "whisper-base": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
+    "paligemma-3b": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id.endswith("-smoke"):
+        return get_config(arch_id[: -len("-smoke")]).smoke()
+    if arch_id in _PENDING:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: "
+                       f"{_PENDING[arch_id]}")
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; "
+                       f"known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch_id]).CONFIG
+
+
+__all__ = [
+    "ArchConfig", "ShapeConfig", "SHAPES", "ARCH_IDS",
+    "get_config", "shape_applicable",
+]

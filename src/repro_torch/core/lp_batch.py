@@ -3,11 +3,13 @@
 Branch & bound, the Dual Reducer's auxiliary re-solves and the shading
 ladder generate flights of LPs that share one ``(c, A)`` and differ only
 in variable bounds.  The reference solves wide flights as one batched
-jitted dispatch; the port carries the sequential path that the main path
-reaches (B&B at ``wave_width=1``, Dual Reducer at ``aux_rungs=1``, the
-two-lane shading ladder): one ``solve_lp_np`` per lane, with per-call
-budget charging, bit-compatible with the reference's fallback.  The
-batched device engine is later work (ROADMAP queue 1).
+jitted dispatch; the port solves every flight lane by lane: one
+``solve_lp_np`` per lane, with per-call budget charging, bit-compatible
+with the reference's fallback.  That is lane-exact by the reference's
+own bar, which pins its batched engine lane by lane to ``solve_lp_np``
+(``tests/test_lp_batch.py``), so a wide B&B wave (the serving
+scheduler's ``wave_width=8``) gives the reference's packages.  The
+batched device engine is later work (ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -17,11 +19,6 @@ import numpy as np
 
 from repro_torch.core.guard import NumericalMonitor, SolveBudget
 from repro_torch.core.lp import LPResult, REFACTOR_EVERY, solve_lp_np
-
-# ``backend="auto"`` routes flights of at most this many lanes to the
-# sequential loop (the reference's crossover)
-_AUTO_NP_MAX = 2
-
 
 def _as_bound_arr(batch, K: int, n: int, default: float,
                   name: str) -> np.ndarray:
@@ -55,10 +52,11 @@ def solve_lp_batch(c, A_t, bl, bu, ub_batch, lb_batch=None, *,
                    refactor_every: int = REFACTOR_EVERY) -> List[LPResult]:
     """Solve K bound-variants of one shared LP; a list of K ``LPResult``.
 
-    Same arguments as the reference.  ``backend="np"`` and ``"auto"`` with
-    K <= 2 run the sequential numpy loop; the batched engine
-    (``backend="jax"``, or ``"auto"`` with K > 2) is not ported yet and
-    raises ``NotImplementedError``.
+    Same arguments as the reference.  ``backend="np"`` and ``"auto"`` run
+    the sequential numpy loop for any K (the reference's ``"auto"`` takes
+    its batched engine for K > 2, whose lanes equal this loop's);
+    ``backend="jax"``, which forces the batched engine, is not ported yet
+    and raises ``NotImplementedError``.
     """
     if backend not in ("auto", "np", "jax"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -66,11 +64,11 @@ def solve_lp_batch(c, A_t, bl, bu, ub_batch, lb_batch=None, *,
     K = len(ub_batch)
     if K == 0:
         return []
-    if backend == "jax" or (backend == "auto" and K > _AUTO_NP_MAX):
+    if backend == "jax":
         raise NotImplementedError(
             "the batched bound-variant LP engine is not ported yet "
-            "(ROADMAP queue 1: lp_batch batched engine); use "
-            "backend='np' or flights of at most 2 lanes")
+            "(ROADMAP queue 1, item 2: lp_batch batched engine); use "
+            "backend='np' or 'auto'")
     c = np.asarray(c, np.float64)
     A_t = np.atleast_2d(np.asarray(A_t, np.float64))
     m, n = A_t.shape

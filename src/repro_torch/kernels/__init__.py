@@ -7,10 +7,11 @@ kernel launch.  Importing builds nothing: ``nvcc`` runs on first use.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import bfrt, dlv_scan, pricing, segstats
+from repro_torch.kernels import attention, bfrt, dlv_scan, pricing, segstats
 
 KERNELS = {"pricing": pricing, "bfrt_histogram": bfrt,
-           "segment_stats": segstats, "dlv_scan": dlv_scan}
+           "segment_stats": segstats, "dlv_scan": dlv_scan,
+           "flash_attention": attention}
 
 
 def reset_launches() -> None:

@@ -32,7 +32,7 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source extra flags: the scans must not contract a*b+c into FMAs,
 # or their rounding (and therefore a cut placed near beta) moves
 EXTRA_FLAGS = {"pricing": ("-fmad=false",), "dlv_scan": ("-fmad=false",)}
-SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan")
+SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

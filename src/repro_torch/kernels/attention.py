@@ -1,0 +1,162 @@
+"""Flash attention: causal / sliding-window / full, online softmax.
+
+Replaces ``repro/kernels/attention.py::_flash_kernel`` (Pallas, TPU).  For
+each query row it computes ``softmax(q.k^T * d^-1/2 + mask) . v`` with the
+softmax state (running max m, sum l, accumulator acc) in float32: q is
+cast to float32 and multiplied by the scale before the dot, as the
+reference does, and the output is ``acc / max(l, 1e-30)``.  The mask is
+causal (``q_pos >= k_pos``) with an optional window
+(``q_pos - k_pos < window``), or full.
+
+Layout: the model's own, q (B, S, H, d) and k/v (B, S, KV, d) with
+``H % KV == 0``; query head h reads KV head ``h // (H // KV)`` in place,
+where the reference's ``ops.flash_attention_op`` materialised a
+``jnp.repeat`` of k and v.  Positions are the row numbers 0..S-1.
+
+On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attn.cu``
+(one block per (batch x head, 64-row query tile); float32 scores and
+softmax on the CUDA cores; KV tiles wholly above the diagonal or outside
+the window are skipped) and raises on what that kernel does not take: a
+head_dim other than 64, 120 or 128, mixed dtypes, a non-contiguous
+tensor.  On a CPU tensor it runs :func:`flash_attention_plain`, the port
+of the reference model's chunked online-softmax scan
+(``repro/models/attention.py::chunked_attention``), whose general form
+:func:`chunked_scan` is also the CPU path of
+``repro_torch.models.attention.chunked_attention``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -2.0e38            # the reference scan's masked score
+HEAD_DIMS = (64, 120, 128)   # the kernel's instantiations
+# the plain version's KV chunk, the reference's: its (B, S, KV, g, chunk)
+# float32 score block is 1.6 GB at S = 32,768
+PLAIN_CHUNK = 1024
+launches = 0
+
+_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 7
+        + (_build.F64, _build.I64, _build.P)}
+
+
+def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):
+    """(..., Sq, Sk) boolean mask. True = attend."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    if causal:
+        m = qp >= kp
+    else:
+        m = torch.ones(q_pos.shape[:-1] + (q_pos.shape[-1], k_pos.shape[-1]),
+                       dtype=torch.bool, device=q_pos.device)
+    if window > 0:
+        m = m & ((qp - kp) < window)
+    if prefix_len is not None:
+        pl = prefix_len[..., None, None] if torch.is_tensor(prefix_len) \
+            and prefix_len.dim() > 0 else prefix_len
+        m = m | (kp < pl)        # full attention inside the prefix
+    return m
+
+
+def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
+                 prefix_len=None, chunk: int = 1024,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention, a loop over KV chunks (plain torch).
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).  Returns (B, Sq, H, hdv).
+    The reference pads the last chunk; here it is sliced short, which
+    gives the same result wherever the padding is masked (every causal
+    call).
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, hdv = v.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    groups = H // KV
+    qg = q.reshape(B, Sq, KV, groups, hd).float() * scale
+    chunk = min(chunk, Sk)
+    m_run = torch.full((B, Sq, KV, groups), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    o_run = torch.zeros((B, Sq, KV, groups, hdv), dtype=torch.float32,
+                        device=q.device)
+    for c0 in range(0, Sk, chunk):
+        k_i = k[:, c0:c0 + chunk].float()
+        v_i = v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bqkgh,bckh->bqkgc", qg, k_i)
+        msk = mask(q_pos, k_pos[c0:c0 + chunk], causal=causal,
+                   window=window, prefix_len=prefix_len)   # (Sq, chunk)
+        s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(-1)
+        o_run = o_run * corr[..., None] + torch.einsum(
+            "bqkgc,bckh->bqkgh", p, v_i)
+        m_run = m_new
+    o = o_run / l_run.clamp_min(1e-37)[..., None]
+    return o.reshape(B, Sq, H, hdv).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """Plain torch version of the kernel: the chunked scan over positions
+    0..S-1 (any device), ``PLAIN_CHUNK`` keys at a time."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    return chunked_scan(q, k, v, pos, pos, causal=causal, window=window,
+                        chunk=PLAIN_CHUNK)
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention: q (B, S, H, d), k and v "
+                         "(B, S, KV, d) of one shape")
+    B, S, H, d = q.shape
+    if k.shape[:2] != (B, S) or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)} (self-attention only)")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of "
+                         f"KV={KV}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H={B * H} exceeds the "
+                         "kernel's grid (65535)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must share one dtype, "
+                         f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             f"on {q.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Attention of q (B, S, H, d) over k, v (B, S, KV, d); (B, S, H, d)."""
+    global launches
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v)
+    B, S, H, d = q.shape
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    lib = _build.load("flash_attn", _SIG)
+    err = lib.flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+        k.shape[2], d, int(bool(causal)), max(int(window), 0),
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention")
+    launches += 1
+    return o

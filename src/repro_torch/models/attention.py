@@ -1,0 +1,164 @@
+"""Attention, GQA part (port of ``repro.models.attention``): full,
+sliding-window and prefix-LM masks, full-sequence and one-token decode.
+
+Full-sequence attention is ``chunked_attention``.  On a CUDA tensor it
+launches the hand-written flash kernel through its one entry,
+``kernels.ops.flash_attention_op``, which covers causal or full
+self-attention with an optional window, the default scale and
+``hd == hdv``: everything dense GQA prefill gives it.
+For any other argument on a CUDA tensor (prefix-LM, cross-attention,
+MLA's scale) it raises ``NotImplementedError`` naming the ROADMAP item;
+it does not quietly run the plain scan there.  On a CPU tensor it runs the
+plain chunked online-softmax scan, the reference's algorithm, which lives
+with its mask (the reference's ``_mask``) beside the kernel as the
+kernel's plain version (``kernels.attention.chunked_scan``, ``mask``).
+
+Decode attends one query over the cache in plain torch, as the reference
+does outside Pallas.  The port updates the caches in place (the reference
+returns new arrays) and takes the token's position as a host int, so a
+decode step issues no device-to-host read.  MLA waits for its slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.attention import NEG_INF, chunked_scan
+from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.models.layers import rope
+from repro_torch.models.param import ParamInfo
+
+
+def gqa_spec(cfg: ArchConfig) -> Dict[str, ParamInfo]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    spec = {
+        "wq": ParamInfo((d, h, hd), ("embed", "heads", "head")),
+        "wk": ParamInfo((d, kv, hd), ("embed", "kv_heads", "head")),
+        "wv": ParamInfo((d, kv, hd), ("embed", "kv_heads", "head")),
+        "wo": ParamInfo((h, hd, d), ("heads", "head", "embed"), init="scaled"),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamInfo((h, hd), ("heads", "head"), init="zeros")
+        spec["bk"] = ParamInfo((kv, hd), ("kv_heads", "head"), init="zeros")
+        spec["bv"] = ParamInfo((kv, hd), ("kv_heads", "head"), init="zeros")
+    return spec
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) by w (d, n, h) -> (..., n, h): einsum "bsd,dnh->bsnh"."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o (..., n, h) by w (n, h, d) -> (..., d): einsum "bsnh,nhd->bsd"."""
+    return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
+                      window: int = 0, prefix_len=None, chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention.  q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).
+    Returns (B, Sq, H, hdv).
+
+    On CUDA the flash kernel runs it and takes the positions as 0..S-1:
+    pass one position tensor as both ``q_pos`` and ``k_pos`` (the
+    self-attention that ``gqa_forward`` runs).  ``chunk`` is the plain
+    scan's KV chunk and does not reach the kernel.
+    """
+    if q.device.type != "cuda":
+        return chunked_scan(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, prefix_len=prefix_len,
+                            chunk=chunk, scale=scale)
+    if prefix_len is not None:
+        raise NotImplementedError(
+            "prefix-LM attention on CUDA is not ported yet (ROADMAP queue 1 "
+            "item 10e, encoder-decoder/VLM)")
+    if k_pos is not q_pos or k.shape[1] != q.shape[1]:
+        raise NotImplementedError(
+            "cross-attention on CUDA is not ported yet (ROADMAP queue 1 "
+            "item 10e, encoder-decoder/VLM)")
+    hd, hdv = q.shape[-1], v.shape[-1]
+    if hd != hdv or (scale is not None and scale != 1.0 / math.sqrt(hd)):
+        raise NotImplementedError(
+            "attention with a non-default scale or hd != hdv (MLA) on CUDA "
+            "is not ported yet (ROADMAP queue 1 item 10c, MLA)")
+    return flash_attention_op(q, k, v, causal=causal, window=window)
+
+
+def gqa_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                *, causal: bool = True, prefix_len=None,
+                kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill / encoder / cross)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if kv_override is None:
+        k, v = gqa_project_kv(p, x, positions, cfg.rope_theta)
+        k_pos = positions
+    else:
+        k, v = kv_override
+        k_pos = kv_positions
+    q = rope(q, positions, cfg.rope_theta)
+    o = chunked_attention(q, k, v, positions, k_pos, causal=causal,
+                          window=cfg.sliding_window if causal else 0,
+                          prefix_len=prefix_len)
+    return _out(o, p["wo"])
+
+
+def gqa_project_kv(p, x: torch.Tensor, positions: torch.Tensor,
+                   theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return rope(k, positions, theta), v
+
+
+def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, index: int,
+               window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """One-token decode. x: (B, 1, D); caches: (B, S_cache, KV, hd).
+
+    ``index`` (a host int) is the absolute position of the new token; with
+    a rolling (sliding-window) cache S_cache = window and the token goes
+    to slot ``index % S_cache``, else to ``min(index, S_cache - 1)``.  The
+    caches are written in place and returned.
+    """
+    B = x.shape[0]
+    S_cache = k_cache.shape[1]
+    dev = x.device
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    q = rope(q, pos, cfg.rope_theta)
+    k_new, v_new = gqa_project_kv(p, x, pos, cfg.rope_theta)
+    slot = index % S_cache if window else min(index, S_cache - 1)
+    k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+    # positions held in each cache slot
+    slots = torch.arange(S_cache, dtype=torch.int64, device=dev)
+    if window:
+        # slot s holds the most recent position p with p % window == s,
+        # p <= index
+        cache_pos = index - (index - slots) % S_cache
+        valid = ((index - cache_pos) < window) & (cache_pos >= 0)
+    else:
+        valid = slots <= index
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    groups = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, groups, hd).float() * scale
+    s = torch.einsum("bkgh,bckh->bkgc", qg, k_cache.float())
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckh->bkgh", w, v_cache.float())
+    o = o.reshape(B, 1, H, hd).to(x.dtype)
+    return _out(o, p["wo"]), k_cache, v_cache

@@ -1,0 +1,204 @@
+"""Top-level model API (port of ``repro.models.model``), driven by ArchConfig.
+
+    model = Model(cfg, device="cuda").init(generator)  # or convert.from_jax_params
+    logits = model.prefill_logits(batch)                # parallel prefill
+    cache  = model.init_cache(batch_size, cache_len)    # decode state
+    logits, cache = model.decode_step(cache, tokens)    # one token
+
+The parameters live in the module, as a tree of submodules with the
+reference's names and layouts (``decoder.layers.attn.wq`` is
+(L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
+the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints.
+
+The port runs the dense GQA families; MoE, MLA, SSM, hybrid,
+encoder-decoder and VLM raise ``NotImplementedError`` naming their ROADMAP
+item, and the training loss waits for the training slice.  Decode keeps
+the cache index as a host int and writes the caches in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+                                       embedding_spec, logits_from, norm_spec,
+                                       sinusoidal_positions)
+from repro_torch.models.param import init_params, leaves, param_count
+
+
+def _module_tree(tree: Dict[str, Any]) -> nn.Module:
+    node = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            node.add_module(k, _module_tree(v))
+        else:
+            node.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return node
+
+
+def _dict_tree(module: nn.Module) -> Dict[str, Any]:
+    out: Dict[str, Any] = dict(module._parameters)
+    for k, m in module._modules.items():
+        out[k] = _dict_tree(m)
+    return out
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.param_dtype)
+
+    # ------------------------------------------------------------ params
+    def spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {"embed": embedding_spec(cfg), "ln_f": norm_spec(cfg),
+                "decoder": tfm.decoder_spec(cfg)}
+
+    def param_count(self) -> int:
+        """From the spec alone: nothing is allocated."""
+        return param_count(self.spec())
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             seed: int = 0) -> "Model":
+        """Random parameters by the reference's init rules, drawn from
+        ``generator`` (a ``torch.Generator`` on the model's device; one
+        seeded with ``seed`` when none is given)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        return self.load_params(init_params(self.spec(), generator,
+                                            self.dtype, self.device))
+
+    def load_params(self, tree: Dict[str, Any]) -> "Model":
+        """Install a nested dict of tensors with the spec's names and
+        shapes, cast to the model's dtype and device."""
+        want = dict(leaves(self.spec()))
+        got = dict(leaves(tree))
+        if set(want) != set(got):
+            raise ValueError(
+                f"parameter names differ from the spec: missing "
+                f"{sorted(set(want) - set(got))}, extra "
+                f"{sorted(set(got) - set(want))}")
+        for name, info in want.items():
+            if tuple(got[name].shape) != tuple(info.shape):
+                raise ValueError(f"{name}: shape {tuple(got[name].shape)} "
+                                 f"!= spec {info.shape}")
+        cast = {}
+        for name, t in got.items():
+            node = cast
+            *path, last = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = t.to(device=self.device, dtype=self.dtype)
+        for k, sub in cast.items():
+            self.add_module(k, _module_tree(sub))
+        return self
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The parameters as a nested dict (the reference's tree)."""
+        return {k: _dict_tree(m) for k, m in self._modules.items()}
+
+    # ----------------------------------------------------------- forward
+    def _tokens(self, tokens) -> torch.Tensor:
+        if torch.is_tensor(tokens):
+            return tokens.to(device=self.device, dtype=torch.long)
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                               device=self.device)
+
+    def _embed_sequence(self, params, batch) -> Tuple[torch.Tensor,
+                                                      torch.Tensor, Any]:
+        """Returns (x, positions, prefix_len)."""
+        cfg = self.cfg
+        if cfg.num_prefix_tokens:
+            raise NotImplementedError("VLM prefixes are not ported yet "
+                                      "(ROADMAP queue 1 item 10e)")
+        x = embed_tokens(params["embed"], self._tokens(batch["tokens"]),
+                         self.dtype)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=self.device)
+        if cfg.rope_theta <= 0 and not cfg.is_ssm and not cfg.is_hybrid:
+            x = x + sinusoidal_positions(S, cfg.d_model, x.dtype,
+                                         self.device)[None]
+        return x, positions, None
+
+    def hidden_states(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states + aux (router) loss."""
+        params = self.params
+        x, positions, prefix_len = self._embed_sequence(params, batch)
+        x, aux = tfm.apply_decoder(params["decoder"], self.cfg, x, positions,
+                                   prefix_len=prefix_len)
+        return apply_norm(params["ln_f"], x, self.cfg.norm_eps), aux
+
+    def prefill_logits(self, batch) -> torch.Tensor:
+        """Parallel prefill: float32 logits (B, S, padded vocab)."""
+        h, _ = self.hidden_states(batch)
+        return logits_from(self.params["embed"], h).float()
+
+    # ------------------------------------------------------------ decode
+    def init_cache(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
+        """GQA cache: k/v (L, B, kv_len, KV, hd) in the parameter dtype,
+        with kv_len = min(cache_len, window) for a sliding window (a
+        rolling cache), and the host int ``index``."""
+        cfg = self.cfg
+        tfm._dense_gqa_only(cfg)
+        kv_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+            else cache_len
+        shape = (cfg.num_layers, batch_size, kv_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"index": 0,
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+    def decode_step(self, cache, tokens, index: Optional[int] = None):
+        """tokens: (B, 1) ints.  Returns (logits (B, V) float32, cache); the
+        cache is updated in place and its host int ``index`` advanced."""
+        cfg = self.cfg
+        params = self.params
+        index = cache["index"] if index is None else int(index)
+        x = embed_tokens(params["embed"], self._tokens(tokens), self.dtype)
+        if cfg.rope_theta <= 0 and not cfg.is_ssm and not cfg.is_hybrid:
+            pe = sinusoidal_positions(index + 1, cfg.d_model, x.dtype,
+                                      self.device)
+            x = x + pe[index:index + 1][None]
+        x = self._decode_gqa(params, cache, x, index)
+        cache["index"] = index + 1
+        h = apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = logits_from(params["embed"], h)[:, 0].float()
+        return logits, cache
+
+    def _decode_gqa(self, params, cache, x, index: int) -> torch.Tensor:
+        cfg = self.cfg
+        layers = params["decoder"]["layers"]
+        for i in range(cfg.num_layers):
+            lp = tfm.layer(layers, i)
+            a = apply_norm(lp["ln1"], x, cfg.norm_eps)
+            a, _, _ = attn.gqa_decode(lp["attn"], cfg, a, cache["k"][i],
+                                      cache["v"][i], index,
+                                      window=cfg.sliding_window)
+            x = x + a
+            f = apply_norm(lp["ln2"], x, cfg.norm_eps)
+            x = x + apply_mlp(lp["ffn"], f, cfg.act)
+        return x
+
+    # -------------------------------------------- cache-filling prefill
+    def prefill_with_cache(self, batch, cache_len: int):
+        """Sequential prefill (a loop of decode steps), as the reference's
+        serving example runs it; the parallel forward is
+        ``prefill_logits``."""
+        tokens = self._tokens(batch["tokens"])
+        B, S = tokens.shape
+        cache = self.init_cache(B, cache_len)
+        logits = torch.zeros((B, self.cfg.padded_vocab), dtype=torch.float32,
+                             device=self.device)
+        for t in range(S):
+            logits, cache = self.decode_step(cache, tokens[:, t:t + 1])
+        return logits, cache

@@ -1,0 +1,170 @@
+"""The port's flash attention (plain version on the CPU) against the JAX
+reference's Pallas kernel, its oracle and its model-level chunked scan.
+
+Same numpy-seeded inputs through both.  Tolerances are the reference's
+own (``tests/test_kernels.py``): 2e-3 in float32, 2e-2 in bfloat16.  The
+last test holds ``chip_smoke.py``'s bar for the kernel on the card to
+what it must catch.
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro.kernels.ops import flash_attention_op as jax_flash_op
+from repro.models.attention import chunked_attention as jax_chunked
+from repro_torch.kernels import attention as port_attn
+from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.models.attention import chunked_attention
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-3),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _qkv(rng, B, S, H, KV, d):
+    return (rng.normal(size=(B, S, H, d)), rng.normal(size=(B, S, KV, d)),
+            rng.normal(size=(B, S, KV, d)))
+
+
+def _np32(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("S,blk", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_matches_reference_kernel(S, blk, causal, window, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    B, H, KV, d = 2, 4, 2, 64
+    q, k, v = _qkv(np.random.default_rng(S + window), B, S, H, KV, d)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(a, dtype=torch.float32).to(tdt)
+                  for a in (q, k, v))
+    want = jax_flash_op(jq, jk, jv, causal=causal, window=window,
+                        block_q=blk, block_k=blk)
+    kx, vx = (jnp.repeat(a, H // KV, axis=2) for a in (jk, jv))
+    fold = (lambda a: a.transpose(0, 2, 1, 3).reshape(B * H, S, d))
+    oracle = ref.attention_ref(fold(jq), fold(kx), fold(vx), causal=causal,
+                               window=window)
+    oracle = _np32(oracle).reshape(B, H, S, d).transpose(0, 2, 1, 3)
+    plain = port_attn.flash_attention_plain(tq, tk, tv, causal=causal,
+                                            window=window)
+    op = flash_attention_op(tq, tk, tv, causal=causal, window=window)
+    assert plain.dtype == tdt and op.dtype == tdt
+    for got in (plain, op):
+        np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol,
+                                   atol=tol)
+        np.testing.assert_allclose(_np32(got), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,chunk,window,prefix", [
+    (128, 32, 0, None), (128, 32, 48, None), (100, 32, 0, None),
+    (128, 64, 0, 40)])
+def test_chunked_attention_matches_reference_scan(S, chunk, window, prefix):
+    """The port's chunked scan (the CPU path of ``chunked_attention``) ==
+    the reference's, in float32: causal, windowed, a ragged last chunk
+    (masked by causality) and a prefix-LM prefix.  2e-3, the reference's
+    bar between its kernel and this scan."""
+    B, H, KV, d = 2, 4, 2, 32
+    q, k, v = _qkv(np.random.default_rng(S + chunk), B, S, H, KV, d)
+    pos = np.arange(S)
+    want = jax_chunked(*(jnp.asarray(a, jnp.float32) for a in (q, k, v)),
+                       jnp.asarray(pos), jnp.asarray(pos), causal=True,
+                       window=window, prefix_len=prefix, chunk=chunk)
+    tpos = torch.as_tensor(pos)
+    got = chunked_attention(*(torch.as_tensor(a, dtype=torch.float32)
+                              for a in (q, k, v)), tpos, tpos, causal=True,
+                            window=window, prefix_len=prefix, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_cpu_tensors_launch_nothing():
+    before = port_attn.launches
+    q, k, v = (torch.as_tensor(a, dtype=torch.float32) for a in
+               _qkv(np.random.default_rng(0), 1, 64, 4, 2, 64))
+    port_attn.flash_attention(q, k, v)
+    flash_attention_op(q, k, v, window=16)
+    pos = torch.arange(64)
+    chunked_attention(q, k, v, pos, pos, causal=True)
+    assert port_attn.launches == before == 0
+
+
+@pytest.mark.parametrize("case", ["head_dim", "groups", "dtype", "cross",
+                                  "strided"])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
+    """The checks the wrapper makes before a launch (run here on CPU
+    tensors; on the card the same checks guard the kernel)."""
+    q = torch.zeros(1, 64, 4, 64)
+    k = v = torch.zeros(1, 64, 2, 64)
+    if case == "head_dim":
+        q, k, v = q[..., :32], k[..., :32].contiguous(), \
+            v[..., :32].contiguous()
+        q = q.contiguous()
+    elif case == "groups":
+        k = v = torch.zeros(1, 64, 3, 64)
+    elif case == "dtype":
+        k = k.to(torch.bfloat16)
+    elif case == "cross":
+        k = v = torch.zeros(1, 32, 2, 64)
+    else:
+        q = torch.zeros(1, 4, 64, 64).transpose(1, 2)
+    with pytest.raises(ValueError):
+        port_attn._check(q, k, v)
+    port_attn._check(torch.zeros(1, 64, 4, 64), torch.zeros(1, 64, 2, 64),
+                     torch.zeros(1, 64, 2, 64))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dense(q, k, v, allowed):
+    """Attention in float32 over an explicit (S, S) mask, K/V expanded to
+    every head; a row with no key left gives zeros, as the kernel does."""
+    d, g = q.shape[-1], q.shape[2] // k.shape[2]
+    kx, vx = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, kx)
+    p = s.masked_fill(~allowed, float("-inf")).softmax(-1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
+
+
+@pytest.mark.parametrize("mutant", ["none", "tile_dropped",
+                                    "diagonal_masked", "next_key_attended"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_chip_check_of_flash_catches_a_broken_kernel(mutant, dtype):
+    """``chip_smoke.flash_agreement``, the bar the flash kernel is held to
+    on the card: dense attention (another order of arithmetic) passes it,
+    and fails it when the last 64-row query tile drops its first 64-key
+    tile or the causal diagonal moves by one.  Inputs at the model's
+    scale (q, k, v of std 0.78, as under the random init) and the prefill
+    cell's S = 4,096, where the dropped tile moves no element by more than
+    8e-3: inside the reference's fixed 2e-2 + 2e-2 |plain| bar, 155x the
+    new bf16 limit."""
+    tdt = DTYPES[dtype][1]
+    S = 4096
+    q, k, v = (torch.as_tensor(0.78 * a, dtype=torch.float32).to(tdt)
+               for a in _qkv(np.random.default_rng(7), 1, S, 2, 1, 128))
+    want = port_attn.flash_attention_plain(q, k, v)
+    i = torch.arange(S)
+    allowed = i[:, None] >= i[None, :]
+    if mutant == "tile_dropped":
+        allowed[S - 64:, :64] = False
+    elif mutant == "diagonal_masked":
+        allowed = i[:, None] > i[None, :]
+    elif mutant == "next_key_attended":
+        allowed = i[:, None] + 1 >= i[None, :]
+    *_, ok = _chip_smoke().flash_agreement(_dense(q, k, v, allowed), want)
+    assert ok == (mutant == "none")

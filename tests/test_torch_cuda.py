@@ -10,8 +10,10 @@ this file does not need.)
 
 Small shapes; ``chip_smoke.py`` repeats these checks at the main path's
 shapes.  Tolerances: exact for counts, cuts, q and flip masks; 1e-12
-relative for float64 sums and products summed in another order.
+relative for float64 sums and products summed in another order; for
+flash attention the reference's 2e-3 (float32) and 2e-2 (bfloat16).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import bfrt, dlv_scan, pricing, segstats
+from repro_torch.kernels import attention, bfrt, dlv_scan, pricing, segstats
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +94,58 @@ def test_dlv_scan_kernel(dev):
     got = dlv_scan.dlv_scan(vals, lens, beta)
     assert kernels.launch_counts()["dlv_scan"] == 1
     assert torch.equal(got, dlv_scan.dlv_scan_plain(vals, lens, beta))
+
+
+@pytest.mark.parametrize("d", [64, 120, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 70),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, d, causal, window, dtype):
+    """Kernel vs plain scan at a ragged S (not a multiple of the tiles)."""
+    rng = np.random.default_rng(d + window)
+    B, S, H, KV = 2, 200, 6, 2
+    q, k, v = (_t(rng.normal(size=(B, S, h, d)), dev, torch.float32)
+               .to(dtype) for h in (H, KV, KV))
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    want = attention.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_chunked_attention_outside_the_kernel_raises(dev):
+    from repro_torch.models.attention import chunked_attention
+    q = torch.zeros(1, 64, 4, 64, device=dev)
+    k = v = torch.zeros(1, 64, 2, 64, device=dev)
+    pos = torch.arange(64, device=dev)
+    for kw in (dict(prefix_len=8), dict(scale=0.5)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            chunked_attention(q, k, v, pos, pos, causal=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        chunked_attention(q, k, v, pos, pos.clone(), causal=False)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q[..., :32].contiguous(),
+                                  k[..., :32].contiguous(),
+                                  v[..., :32].contiguous())
+
+
+def test_model_prefill_goes_through_the_kernel(dev):
+    """A two-layer model with head_dim 64: prefill on the card launches the
+    kernel once per layer and agrees with 12 decode steps (2e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").smoke(),
+                              head_dim=64, param_dtype="float32")
+    model = Model(cfg, device=dev).init(seed=0)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (2, 12)), device=dev)
+    before = attention.launches
+    full = model.prefill_logits({"tokens": toks})
+    assert attention.launches == before + cfg.num_layers
+    cache = model.init_cache(2, 16)
+    for t in range(12):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1])
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)

@@ -120,16 +120,18 @@ def test_kernel_lp_budget_contract():
 
 
 def test_lp_batch_sequential_matches_reference():
-    """Two bound-variants through the sequential flight == two reference
-    numpy solves; wider flights name the unported batched engine."""
+    """Bound-variants through the sequential flight == reference numpy
+    solves lane by lane, at K = 2 and at K = 3 (where the reference's
+    "auto" takes its batched engine, pinned lane by lane to the same
+    solves); forcing the batched engine names the unported item."""
     c, A, bl, bu, ub = _random_lp(5)
-    ubs = [ub, np.minimum(ub, 1.0)]
-    got = solve_lp_batch(c, A, bl, bu, ubs)
-    for g, u in zip(got, ubs):
-        want = ref_lp.solve_lp_np(c, A, bl, bu, u)
-        assert (g.status, g.iters) == (want.status, want.iters)
-        assert g.obj == pytest.approx(want.obj, rel=1e-9, abs=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_lp_batch(c, A, bl, bu, [ub] * 3)
+    ubs = [ub, np.minimum(ub, 1.0), np.minimum(ub, 0.5)]
+    for flight in (ubs[:2], ubs):
+        got = solve_lp_batch(c, A, bl, bu, flight)
+        assert len(got) == len(flight)
+        for g, u in zip(got, flight):
+            want = ref_lp.solve_lp_np(c, A, bl, bu, u)
+            assert (g.status, g.iters) == (want.status, want.iters)
+            assert g.obj == pytest.approx(want.obj, rel=1e-9, abs=1e-9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_lp_batch(c, A, bl, bu, [ub], backend="jax")
