@@ -6,7 +6,9 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, one line each (or one per kernel):
 
-1. build: every ``csrc/*.cu`` compiled by nvcc for sm_90a, in parallel;
+1. build: every ``csrc/*.cu`` compiled by nvcc for sm_90a, in parallel,
+   and ptxas's registers and spills of each flash kernel with its dynamic
+   shared memory per block;
 2. kernels: each hand-written kernel against its plain torch version on
    the card at fixed shapes (time, plain time, bound and, where one
    exists, the nearest single PyTorch call);
@@ -27,7 +29,8 @@ The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
 6. kernel flash_attention: the flash kernel against its plain version at
    fixed shapes (S=32,768 causal, and with window 4,096, in bf16; S=4,096
    in float32 at head_dim 64), timed against the plain scan and against
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention`` (achieved TFLOP/s and the ratio of the
+   kernel's time to that call's);
 7. lm prefill: ``Model.prefill_logits`` on 2 prompts of 4,096 tokens with
    every launch count read around it (28 flash launches), then profiled;
 8. lm agreement: a float32 copy of the model, prefill logits at S=64
@@ -50,6 +53,7 @@ import contextlib
 import functools
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -598,7 +602,7 @@ def device_profile(fn):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
         if name.startswith(("pricing_kernel", "bfrt_hist_", "segstats_",
-                            "dlv_scan_kernel", "flash_fwd_kernel")):
+                            "dlv_scan_kernel", "flash_fwd_")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
                                         0.0) / 1e3, n0 + ev.count)
@@ -711,6 +715,48 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
 # ----------------------------------------------- LM slice: flash kernel
 
 
+def ptxas_entries(log: str) -> list:
+    """One dict per kernel entry of an ``nvcc -Xptxas -v`` log: its name
+    (``flash_fwd_tc_kernel<128>``), registers, stack frame and spill
+    bytes; and the log's warnings under ``warning``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E", line)
+        if m:
+            cur = {"kernel": f"{m[1]}<{m[2]}>"}
+            out.append(cur)
+        elif "warning" in line.lower():
+            out.append({"warning": line.strip()})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+    return out
+
+
+def ptxas_report(build) -> None:
+    """The flash kernels' registers, spills (ptxas) and dynamic shared
+    memory per block, one line each; ptxas warnings verbatim."""
+    from repro_torch.kernels import attention
+    lib = build.load("flash_attn", attention._SIG)
+    entries = ptxas_entries(build.build_log("flash_attn"))
+    check(any("kernel" in e for e in entries),
+          "ptxas: no report of the flash kernels in the build log")
+    for e in entries:
+        if "warning" in e:
+            say("ptxas flash_attn warning", text=json.dumps(e["warning"]))
+            continue
+        hd = int(e["kernel"].split("<")[1].rstrip(">"))
+        bf16 = e["kernel"].startswith("flash_fwd_tc_kernel")
+        say("ptxas flash_attn", **e, dtype="bfloat16" if bf16 else "float32",
+            dynamic_smem_bytes=lib.flash_attn_smem_bytes(hd, int(bf16)))
+
+
 def flash_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask keeps, per batch row and head."""
     if not causal:
@@ -800,15 +846,17 @@ def flash_times(q, k, v, *, causal=True, window=0, reps=3) -> dict:
                        reps)
     except RuntimeError as exc:      # the yardstick only: noted, not hidden
         lib_note = f"scaled_dot_product_attention failed: {exc}"[:200]
+    ms = timed_ms(lambda: flash_attention_op(q, k, v, causal=causal,
+                                             window=window), reps)
     return _numbers(
         f"B={B} S={S} H={H} KV={KV} d={d} {dt} "
         f"{'causal' if causal else 'full'} window={window}",
-        nbytes, ops,
-        timed_ms(lambda: flash_attention_op(q, k, v, causal=causal,
-                                            window=window), reps),
+        nbytes, ops, ms,
         timed_ms(lambda: flash_attention_plain(q, k, v, causal=causal,
                                                window=window), 1),
-        lib, peak=PEAK_OPS[dt], library=lib_note)
+        lib, peak=PEAK_OPS[dt], library=lib_note,
+        tflops=ops / ms / 1e9,
+        vs_library=ms / lib if lib else None)
 
 
 FLASH_FIXED = (("32k bf16 causal", (1, 12, 2, 32768, 128, "bfloat16", 0)),
@@ -1054,6 +1102,7 @@ def main() -> None:
     say("build", seconds=build_s, sources=len(_build.SOURCES),
         card=json.dumps(card))
     print(card, flush=True)
+    ptxas_report(_build)
 
     phase_s = {"build": build_s}
 

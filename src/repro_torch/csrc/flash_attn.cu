@@ -1,60 +1,92 @@
 // Flash attention for Hopper (sm_90a): causal / sliding-window / full
 // attention with an online softmax, forward only.
 //
-// Replaces the Pallas TPU kernel repro/kernels/attention.py::_flash_kernel
-// (and the GQA expansion of repro/kernels/ops.py::flash_attention_op).
+// Replaces the Pallas TPU kernel src/repro/kernels/attention.py:32
+// (_flash_kernel) and the GQA expansion of repro/kernels/ops.py::
+// flash_attention_op.
 //
 // out[b, i, h, :] = softmax_j(q_i . k_j * scale + mask_ij) . v_j, with the
-// softmax state (m, l, acc) in float32.  As in the reference, q is cast to
-// float32 and multiplied by `scale` before the dot, and the output is
-// acc / max(l, 1e-30).  mask: causal (i >= j) with an optional window
-// (i - j < window), or full (window alone, or nothing).
+// softmax state (m, l, acc) in float32 and the output acc / max(l, 1e-30).
+// mask: causal (i >= j) with an optional window (i - j < window), or full
+// (window alone, or nothing).  Layout: the model's own, q/o (B, S, H, HD)
+// and k/v (B, S, KV, HD), read in place; query head h reads KV head
+// h / (H / KV).  Any S: ragged tiles are masked.  KV tiles wholly above the
+// diagonal or outside the window are never visited, and the heaviest causal
+// query tiles launch first.  Two routes, by dtype:
 //
-// Layout: the model's own, q/o (B, S, H, HD) and k/v (B, S, KV, HD), read in
-// place; query head h reads KV head h / (H / KV).
+// bfloat16: flash_fwd_tc_kernel, on the tensor cores.  Bound: at the
+// prefill shape (B=2, S=4,096, 12/2 heads, HD=128, causal) a launch does
+// 1.03e11 useful FLOP (4*HD per unmasked (query, key) pair) against 25 MB
+// of q, k, v and o, ~4,000 FLOP per byte: the tensor cores' 989 TFLOP/s
+// bound it (0.104 ms), not memory.  Design:
+//  - one block per (batch x head, 128-row query tile): two consumer
+//    warpgroups of 64 rows each and one producer warp (288 threads);
+//  - the producer starts TMA loads (cp.async.bulk.tensor, 128-byte
+//    swizzle, one mbarrier per stage) of the Q tile once and of 64-key K
+//    and V tiles into a ring of STAGES stages, so the next tiles load while
+//    this one is multiplied; the consumers free a stage by an mbarrier;
+//  - S = q . k^T by wgmma (m64n64k16, both operands in shared memory), f32
+//    accumulation from the bf16 operands as they are; the f32 scores are
+//    then scaled.  The reference multiplies q by scale in f32 before the
+//    dot: the two orders differ by f32 rounding, ~1e-7 relative;
+//  - softmax in the log2 domain: p = exp2(s * scale*log2(e) - m *
+//    scale*log2(e)) by ex2.approx (relative error ~2^-22) where the
+//    reference calls exp; m and l are f32, l sums the unrounded f32 p;
+//  - P . V by wgmma with P from registers (the S accumulator's fragment is
+//    the A operand's) and V as the B operand in its own (keys x HD) layout
+//    through the transpose bit: no transposed copy of V.  P is split in
+//    two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), and both are
+//    multiplied into the same f32 accumulator: P rounded to bf16 alone
+//    (FlashAttention-2's choice) moves outputs near zero by ~20x the card
+//    check's bar (one bf16 ulp plus 1e-3 rms), hi + lo keeps p to ~2^-16.
+//    The split costs 1.5x the useful tensor work; bound and TFLOP/s count
+//    the useful 4*HD FLOP per pair only;
+//  - HD = 120 is zero-padded to 128 on the reduction side: the tensor maps'
+//    inner dimension is 120, so TMA fills columns 120..127 with zeros;
+//    stores are masked to HD columns and to rows < S;
+//  - the output acc / max(l, 1e-30) is rounded to nearest even into bf16
+//    and stored from registers;
+//  - inside a warpgroup the softmax waits for Q . K^T and P . V waits for
+//    the softmax; the two warpgroups run apart (only the ring couples
+//    them), so one's softmax overlaps the other's MMAs.  Overlapping a
+//    warpgroup's own softmax with its P . V of the previous tile (as
+//    FlashAttention-3 does) measured no faster on the H100, and 128-key
+//    tiles spill at HD = 128: ptxas holds this 288-thread block to 168
+//    registers, and the 64-key version uses 165.
 //
-// Bound: at the shapes of LM prefill (S in the thousands, HD = 128) the
-// work is 4*HD flops per unmasked (i, j) pair against 2*HD*(2H + 2KV)/H
-// bytes per row, so the tensor cores' rate bounds it, not memory.  This
-// first design is simple and right, not fast: scores and the softmax
-// update run in float32 on the CUDA cores, which caps it far below that
-// bound (wgmma/TMA and warp specialisation are later work).  What it does
-// do: one block per (batch x head, 64-row query tile), the heaviest causal
-// tiles launched first; K/V tiles of 64 rows staged through shared memory
-// as float32 (rows padded to an odd stride, so the 16 threads reading 16
-// key rows hit 16 banks); each thread keeps a 4 x 4 tile of scores and a
-// 4 x HD/16 tile of the accumulator in registers; KV tiles wholly above
-// the diagonal or outside the window are never visited; any S (the ragged
-// edge is masked).  P reuses the K tile's shared memory, so a block needs
-// ~99 KB at HD = 128 and two blocks fit on an SM.
+// float32: flash_fwd_kernel, on the CUDA cores (scores and P . V as f32
+// FMAs from shared memory, a 4 x 4 register tile per thread).  It keeps the
+// reference's order of arithmetic (q cast to f32 and scaled before the
+// dot) and serves the float32 model and its agreement checks.
+#include <cuda.h>  // CUtensorMap and its enums, types only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+// ------------------------------------------------ float32: CUDA cores
 
 #define BQ 64
 #define BK 64
 #define THREADS 256
 #define NEG_INF (-1e30f)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
 template <int HD>
 constexpr size_t smem_floats() {
   return (size_t)BQ * (HD + 1) + (size_t)BK * (HD + 1) + (size_t)BK * HD;
 }
 
-template <typename T, int HD>
+// One block per (batch x head, 64-row query tile); K/V tiles of 64 rows
+// staged through shared memory as float32 (rows padded to an odd stride,
+// so the 16 threads reading 16 key rows hit 16 banks); each thread keeps a
+// 4 x 4 tile of scores and a 4 x HD/16 tile of the accumulator.  P reuses
+// the K tile's shared memory: ~99 KB at HD = 128, two blocks per SM.
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                     int KV, int causal, int window, float scale, int n_qt) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int S, int H, int KV, int causal, int window,
+                     float scale, int n_qt) {
   constexpr int LD = HD + 1;            // padded row of the Q and K tiles
   constexpr int PLD = BK + 1;           // padded row of P
   constexpr int NC = (HD + 15) / 16;    // accumulator columns per thread
@@ -74,15 +106,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
   const int64_t qrow = (int64_t)H * HD, krow = (int64_t)KV * HD;
-  const T* qb = q + (int64_t)b * S * qrow + (int64_t)h * HD;
-  const T* kb = k + (int64_t)b * S * krow + (int64_t)kvh * HD;
-  const T* vb = v + (int64_t)b * S * krow + (int64_t)kvh * HD;
-  T* ob = o + (int64_t)b * S * qrow + (int64_t)h * HD;
+  const float* qb = q + (int64_t)b * S * qrow + (int64_t)h * HD;
+  const float* kb = k + (int64_t)b * S * krow + (int64_t)kvh * HD;
+  const float* vb = v + (int64_t)b * S * krow + (int64_t)kvh * HD;
+  float* ob = o + (int64_t)b * S * qrow + (int64_t)h * HD;
 
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int r = e / HD, c = e - r * HD;
     const int qi = q0 + r;
-    Qs[r * LD + c] = qi < S ? to_f(qb[(int64_t)qi * qrow + c]) * scale : 0.f;
+    Qs[r * LD + c] = qi < S ? qb[(int64_t)qi * qrow + c] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -106,8 +138,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int r = e / HD, c = e - r * HD;
       const int ki = k0 + r;
       const bool in = ki < S;
-      Ks[r * LD + c] = in ? to_f(kb[(int64_t)ki * krow + c]) : 0.f;
-      Vs[r * HD + c] = in ? to_f(vb[(int64_t)ki * krow + c]) : 0.f;
+      Ks[r * LD + c] = in ? kb[(int64_t)ki * krow + c] : 0.f;
+      Vs[r * HD + c] = in ? vb[(int64_t)ki * krow + c] : 0.f;
     }
     __syncthreads();
 
@@ -198,50 +230,589 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int col = tx + 16 * cc;
-      if (col < HD) store(&ob[(int64_t)qi * qrow + col], acc[i][cc] / denom);
+      if (col < HD) ob[(int64_t)qi * qrow + col] = acc[i][cc] / denom;
     }
   }
 }
 
-template <typename T, int HD>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
-                  int window, float scale, cudaStream_t st) {
+template <int HD>
+static int launch_f32(const void* q, const void* k, const void* v, void* o,
+                      int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
+                      int window, float scale, cudaStream_t st) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (int)((S + BQ - 1) / BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)S, (int)H, (int)KV,
-      causal, window, scale, n_qt);
+  flash_fwd_kernel<HD><<<grid, THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)S,
+      (int)H, (int)KV, causal, window, scale, n_qt);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int by_hd(const void* q, const void* k, const void* v, void* o,
-                 int64_t B, int64_t S, int64_t H, int64_t KV, int64_t hd,
-                 int causal, int window, float scale, cudaStream_t st) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 120:
-      return launch<T, 120>(q, k, v, o, B, S, H, KV, causal, window, scale,
-                            st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, scale,
-                            st);
-    default:
-      return (int)cudaErrorInvalidValue;
+#undef BQ
+#undef BK
+#undef THREADS
+#undef NEG_INF
+
+// --------------------------------------------- bfloat16: tensor cores
+
+namespace tc {
+
+constexpr int BQ = 128;       // query rows per block: two warpgroups of 64
+constexpr int BK = 64;        // keys per K/V tile
+constexpr int STAGES = 4;     // K/V ring depth
+constexpr int THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int ROWB = 128;     // bytes per smem row: 64 bf16, one swizzle span
+
+template <int HD>
+constexpr int smem_bytes() {
+  // 1,024 of slack to align the tiles, the Q tile, the K and V rings, and
+  // 2 * STAGES + 1 mbarriers
+  return 1024 + ((HD + 63) / 64) * ROWB * (BQ + 2 * STAGES * BK) +
+         8 * (2 * STAGES + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of `bar` with this parity has completed; a wait
+// that never ends (a fault in the pipeline) traps, so the launch fails
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
   }
 }
 
+// TMA: one box of a 4-d tensor map (coordinates innermost first) into
+// shared memory, its bytes counted on `bar` as they land
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile that TMA wrote with the 128-byte
+// swizzle (rows of 128 bytes, 8-row atoms of 1,024 bytes, the tile 1,024-
+// byte aligned).  K-major operands (Q, K) take lbo = 16 (unused) and
+// sbo = 1,024, the stride between 8-row groups; the MN-major operand (V)
+// takes lbo = the stride between its 64-column blocks and sbo = 1,024, the
+// stride between 8-key groups.  A k-step inside the 128-byte row advances
+// the start address by 32 bytes; the swizzle is applied on the address.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across its launch or its wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to nearest even into one bf16x2 register, `first` in
+// the low half (the lower column of an A fragment's pair)
+__device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(first, second);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// The wgmma instructions, bf16 in, f32 accumulators (64 rows over the
+// warpgroup: warp w holds rows 16w..16w+15, register 4j + 2i + c of a lane
+// is row lane/4 + 8i, column 8j + 2(lane%4) + c).  ss: A and B from shared
+// memory, both K-major, scale_d = 0 overwrites D.  rs: A from registers (a
+// k16 fragment, 4 bf16x2), B MN-major (the transpose bit), D accumulated.
+// ss is m64n64k16; rs is m64n64k16 or m64n128k16 (32 or 64 accumulators),
+// the overload chosen by the accumulator array's size.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+constexpr int NS = BK / 2;   // score registers per thread (64 x BK / 128)
+
+// start S = Q . K^T for this warpgroup's 64 rows and one K tile
+template <int ND>
+__device__ __forceinline__ void start_qk(float (&s)[NS], uint32_t qaddr,
+                                         uint32_t kaddr) {
+#pragma unroll
+  for (int db = 0; db < ND; ++db)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, desc(qaddr + db * BQ * ROWB + kk * 32, 16, 1024),
+               desc(kaddr + db * BK * ROWB + kk * 32, 16, 1024),
+               (db | kk) != 0);
+}
+
+// start O += (P hi + P lo) . V for one V tile; registers 4kk..4kk+3 of
+// phi and plo are the A fragments of keys 16kk..16kk+15
+template <int ND>
+__device__ __forceinline__ void start_pv(float (&acc)[ND * 32],
+                                         const uint32_t (&phi)[NS / 2],
+                                         const uint32_t (&plo)[NS / 2],
+                                         uint32_t vaddr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv = desc(vaddr + kk * 16 * ROWB, BK * ROWB, 1024);
+    wgmma_rs(acc, phi + 4 * kk, dv);
+    wgmma_rs(acc, plo + 4 * kk, dv);
+  }
+}
+
+// What a thread needs to mask and scale its scores: rows r0 and r0 + 8,
+// key columns 8j + cq + {0, 1} of each 8-key chunk j
+struct Rows {
+  int r0, cq, S, causal, window;
+  float c2;  // scale * log2(e)
+};
+
+// The online-softmax step for the scores s of the K tile at k0: mask what
+// rows r0 and r0 + 8 may not attend (only where the tile straddles an
+// edge), update m and this lane's share of l, turn s into p in place, and
+// return in corr the factor that rescales the accumulator.  A row's 64
+// scores lie on the 4 lanes of a quad.
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const Rows& r, int k0,
+                                             bool edge) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = r.r0 + 8 * (e >> 1);
+        const int ki = k0 + 8 * j + r.cq + (e & 1);
+        const bool ok = ki < r.S && (!r.causal || qi >= ki) &&
+                        (r.window <= 0 || qi - ki < r.window);
+        if (!ok) s[4 * j + e] = -INFINITY;
+      }
+  }
+  float base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    base[i] = m_new == -INFINITY ? 0.f : m_new * r.c2;  // no key yet
+    corr[i] = ex2(m[i] * r.c2 - base[i]);
+    m[i] = m_new;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], r.c2, -base[e >> 1]));
+      ps[e >> 1] += s[4 * j + e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + ps[i];
+}
+
+// p as hi = bf16(p) and lo = bf16(p - hi); register x of each holds
+// scores 2x and 2x + 1 (one row, two adjacent keys)
+__device__ __forceinline__ void split_p(const float (&s)[NS],
+                                        uint32_t (&phi)[NS / 2],
+                                        uint32_t (&plo)[NS / 2]) {
+#pragma unroll
+  for (int x = 0; x < NS / 2; ++x) {
+    phi[x] = pack_bf16(s[2 * x], s[2 * x + 1]);
+    const float2 hf = unpack_bf16(phi[x]);
+    plo[x] = pack_bf16(s[2 * x] - hf.x, s[2 * x + 1] - hf.y);
+  }
+}
+
+template <int NO>
+__device__ __forceinline__ void rescale(float (&acc)[NO],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);       // this warp is done with the stage
+}
+
+}  // namespace tc
+
+template <int HD>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, int S, int H, int KV,
+                        int causal, int window, float c2, int n_qt) {
+  using namespace tc;
+  constexpr int ND = (HD + 63) / 64;        // 64-column blocks of a row
+  constexpr int QBYTES = ND * BQ * ROWB;    // the Q tile
+  constexpr int TBYTES = ND * BK * ROWB;    // one K or one V tile
+  constexpr int NO = ND * 32;               // accumulator registers
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* Ks = Qs + QBYTES;                // STAGES x TBYTES
+  uint8_t* Vs = Ks + STAGES * TBYTES;       // STAGES x TBYTES
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * TBYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qt = n_qt - 1 - (int)blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  // KV tiles that some row of this block attends
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  const int kt_lo = k_lo / BK;
+  const int n_kt = (k_hi + BK - 1) / BK - kt_lo;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                          // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qbar, QBYTES);
+      for (int db = 0; db < ND; ++db)
+        tma_load(Qs + db * BQ * ROWB, &tq, qbar, db * 64, h, q0, b);
+      for (int it = 0; it < n_kt; ++it) {
+        const int st = it % STAGES;
+        mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * TBYTES);
+        const int k0 = (kt_lo + it) * BK;
+        for (int db = 0; db < ND; ++db) {
+          tma_load(Ks + st * TBYTES + db * BK * ROWB, &tk, &full[st],
+                   db * 64, kvh, k0, b);
+          tma_load(Vs + st * TBYTES + db * BK * ROWB, &tv, &full[st],
+                   db * 64, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows qw .. qw+63 and needs tiles it_lo ..
+  // it_hi-1 of the block's n_kt; it frees the others as they arrive
+  const int wg = warp >> 2;
+  const int qw = q0 + 64 * wg;
+  const Rows rows{qw + 16 * (warp & 3) + (lane >> 2), 2 * (lane & 3), S,
+                  causal, window, c2};
+  const int kw_lo = window > 0 ? max(0, qw - window + 1) : 0;
+  const int kw_hi = causal ? min(S, qw + 64) : S;
+  const int it_lo = kw_lo / BK - kt_lo;
+  const int it_hi = min(n_kt, (kw_hi + BK - 1) / BK - kt_lo);
+  const uint32_t qaddr = smem_u32(Qs) + wg * 64 * ROWB;
+  // the tile at it straddles the diagonal, the window's edge or S
+  auto edge = [&](int it) {
+    const int k0 = (kt_lo + it) * BK;
+    return (causal && k0 + BK - 1 > qw) ||
+           (window > 0 && k0 <= qw + 63 - window) || k0 + BK > S;
+  };
+  auto kaddr = [&](int it) { return smem_u32(Ks + (it % STAGES) * TBYTES); };
+  auto vaddr = [&](int it) { return smem_u32(Vs + (it % STAGES) * TBYTES); };
+  auto wait_full = [&](int it) {
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+  };
+
+  float acc[NO], m[2], l[2], corr[2], s[NS];
+  uint32_t phi[NS / 2], plo[NS / 2];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;                             // this lane's share of the row
+  }
+  mbar_wait(qbar, 0);
+
+  int it = 0;
+  for (; it < min(it_lo, n_kt); ++it) {     // tiles only the other needs
+    wait_full(it);
+    release(&empty[it % STAGES], lane);
+  }
+  for (; it < it_hi; ++it) {
+    wait_full(it);
+    reg_fence(s);
+    wg_fence();
+    start_qk<ND>(s, qaddr, kaddr(it));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    softmax_tile(s, m, l, corr, rows, (kt_lo + it) * BK, edge(it));
+    rescale(acc, corr);
+    split_p(s, phi, plo);
+    reg_fence(acc);
+    reg_fence(phi);
+    reg_fence(plo);
+    wg_fence();
+    start_pv<ND>(acc, phi, plo, vaddr(it));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(phi);
+    reg_fence(plo);
+    release(&empty[it % STAGES], lane);
+  }
+  for (; it < n_kt; ++it) {                 // tiles only the other needs
+    wait_full(it);
+    release(&empty[it % STAGES], lane);
+  }
+
+  // the quad's shares of l, then the stores (rows < S, columns < HD)
+  const int64_t qrow = (int64_t)H * HD;
+  __nv_bfloat16* ob = o + (int64_t)b * S * qrow + (int64_t)h * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qi = rows.r0 + 8 * i;
+    if (qi >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int col = 8 * j + rows.cq;
+      if (col < HD)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qi * qrow + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom,
+                                  acc[4 * j + 2 * i + 1] / denom);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
+// then needs no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// the (B, S, heads, HD) bf16 tensor at `ptr` as a 4-d map, innermost first,
+// read in boxes of 64 columns x 1 head x `rows` positions; outside the
+// tensor (columns >= HD, positions >= S) TMA fills zeros
+static bool make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
+                     int64_t heads, int64_t HD, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(HD * 2),
+                                 (cuuint64_t)(heads * HD * 2),
+                                 (cuuint64_t)(S * heads * HD * 2)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+static int launch_tc(const void* q, const void* k, const void* v, void* o,
+                     int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
+                     int window, float scale, cudaStream_t st) {
+  // TMA reads from 16-byte aligned addresses
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, S, H, HD, tc::BQ) ||
+      !make_map(&tk, k, B, S, KV, HD, tc::BK) ||
+      !make_map(&tv, v, B, S, KV, HD, tc::BK))
+    return (int)cudaErrorInvalidValue;
+  const int smem = tc::smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = (int)((S + tc::BQ - 1) / tc::BQ);
+  const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
+  const float log2e = 1.4426950408889634f;
+  flash_fwd_tc_kernel<HD><<<grid, tc::THREADS, smem, st>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, (int)S, (int)H, (int)KV, causal, window,
+      scale * log2e, n_qt);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
+                  int window, float scale, bool bf16, cudaStream_t st) {
+  return bf16 ? launch_tc<HD>(q, k, v, o, B, S, H, KV, causal, window, scale,
+                              st)
+              : launch_f32<HD>(q, k, v, o, B, S, H, KV, causal, window,
+                               scale, st);
+}
+
 // q/o (B, S, H, hd), k/v (B, S, KV, hd), contiguous, one dtype: bf16 when
-// is_bf16, else float32.  hd in {64, 120, 128}; H % KV == 0; window <= 0
-// means none.  Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError().
+// is_bf16 (the tensor-core kernel), else float32 (the CUDA-core kernel).
+// hd in {64, 120, 128}; H % KV == 0; window <= 0 means none.  Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError().
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int64_t B, int64_t S, int64_t H,
                               int64_t KV, int64_t hd, int64_t causal,
@@ -252,9 +823,36 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int w = window > 0 ? (int)window : 0;
-  if (is_bf16)
-    return by_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, (int)causal, w,
-                                (float)scale, st);
-  return by_hd<float>(q, k, v, o, B, S, H, KV, hd, (int)causal, w,
-                      (float)scale, st);
+  const bool bf16 = is_bf16 != 0;
+  switch (hd) {
+    case 64:
+      return launch<64>(q, k, v, o, B, S, H, KV, (int)causal, w,
+                        (float)scale, bf16, st);
+    case 120:
+      return launch<120>(q, k, v, o, B, S, H, KV, (int)causal, w,
+                         (float)scale, bf16, st);
+    case 128:
+      return launch<128>(q, k, v, o, B, S, H, KV, (int)causal, w,
+                         (float)scale, bf16, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one block of the kernel that flash_attn_fwd
+// launches for this head_dim and dtype, in bytes (0 for an unknown hd).
+extern "C" int flash_attn_smem_bytes(int64_t hd, int64_t is_bf16) {
+  switch (hd) {
+    case 64:
+      return is_bf16 ? tc::smem_bytes<64>()
+                     : (int)(smem_floats<64>() * sizeof(float));
+    case 120:
+      return is_bf16 ? tc::smem_bytes<120>()
+                     : (int)(smem_floats<120>() * sizeof(float));
+    case 128:
+      return is_bf16 ? tc::smem_bytes<128>()
+                     : (int)(smem_floats<128>() * sizeof(float));
+    default:
+      return 0;
+  }
 }

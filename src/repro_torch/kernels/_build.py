@@ -30,8 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per-source extra flags: the scans must not contract a*b+c into FMAs,
-# or their rounding (and therefore a cut placed near beta) moves
-EXTRA_FLAGS = {"pricing": ("-fmad=false",), "dlv_scan": ("-fmad=false",)}
+# or their rounding (and therefore a cut placed near beta) moves; flash
+# keeps ptxas's report of registers, shared memory and spills (build_log)
+EXTRA_FLAGS = {"pricing": ("-fmad=false",), "dlv_scan": ("-fmad=false",),
+               "flash_attn": ("-Xptxas", "-v")}
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -74,6 +76,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)          # atomic: concurrent builds never race
 
 
@@ -86,6 +89,13 @@ def build_all() -> float:
         for nm, job in jobs.items():
             _finish(nm, job)
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` ("" if the
+    library was not built here)."""
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -2,10 +2,11 @@
 
 Replaces ``repro/kernels/attention.py::_flash_kernel`` (Pallas, TPU).  For
 each query row it computes ``softmax(q.k^T * d^-1/2 + mask) . v`` with the
-softmax state (running max m, sum l, accumulator acc) in float32: q is
-cast to float32 and multiplied by the scale before the dot, as the
-reference does, and the output is ``acc / max(l, 1e-30)``.  The mask is
-causal (``q_pos >= k_pos``) with an optional window
+softmax state (running max m, sum l, accumulator acc) in float32 and the
+output ``acc / max(l, 1e-30)``.  The plain version and the float32 kernel
+cast q to float32 and scale it before the dot, as the reference does; the
+bf16 kernel scales the float32 dot instead (f32 rounding apart, the same).
+The mask is causal (``q_pos >= k_pos``) with an optional window
 (``q_pos - k_pos < window``), or full.
 
 Layout: the model's own, q (B, S, H, d) and k/v (B, S, KV, d) with
@@ -14,14 +15,16 @@ where the reference's ``ops.flash_attention_op`` materialised a
 ``jnp.repeat`` of k and v.  Positions are the row numbers 0..S-1.
 
 On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attn.cu``
-(one block per (batch x head, 64-row query tile); float32 scores and
-softmax on the CUDA cores; KV tiles wholly above the diagonal or outside
-the window are skipped) and raises on what that kernel does not take: a
-head_dim other than 64, 120 or 128, mixed dtypes, a non-contiguous
-tensor.  On a CPU tensor it runs :func:`flash_attention_plain`, the port
-of the reference model's chunked online-softmax scan
-(``repro/models/attention.py::chunked_attention``), whose general form
-:func:`chunked_scan` is also the CPU path of
+and raises on what it does not take.  bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA, 128-row query tiles; P is split into two bf16
+parts for P.V, so the output stays within one bf16 ulp of the plain
+version); float32 runs on the CUDA cores (64-row query tiles, float32
+FMAs).  Both skip KV tiles wholly above the diagonal or outside the
+window.  What the kernel does not take: a head_dim other than 64, 120
+or 128, mixed dtypes, a non-contiguous tensor.  On a CPU tensor it runs
+:func:`flash_attention_plain`, the port of the reference model's chunked
+online-softmax scan (``repro/models/attention.py::chunked_attention``),
+whose general form :func:`chunked_scan` is also the CPU path of
 ``repro_torch.models.attention.chunked_attention``.
 """
 from __future__ import annotations
@@ -41,7 +44,8 @@ PLAIN_CHUNK = 1024
 launches = 0
 
 _SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 7
-        + (_build.F64, _build.I64, _build.P)}
+        + (_build.F64, _build.I64, _build.P),
+        "flash_attn_smem_bytes": (_build.I64, _build.I64)}
 
 
 def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):

@@ -141,8 +141,46 @@ def _dense(q, k, v, allowed):
     return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
 
 
+def _tensor_core_scan(q, k, v, split: bool, tile: int = 64):
+    """The arithmetic of the bf16 tensor-core kernel (``csrc/flash_attn.cu``)
+    on the CPU, causal: S = q.k^T in float32 from the operands as they
+    are, then scaled; an online softmax over ``tile``-key tiles with m and
+    l in float32 (l sums the unrounded p); P.V in float32 with P rounded
+    to bf16 (``split=False``, FlashAttention-2's choice) or as the bf16
+    parts hi = bf16(p) and lo = bf16(p - hi) (``split=True``, the
+    kernel's), every product exact as on the tensor cores."""
+    B, S, H, d = q.shape
+    g = H // k.shape[2]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+    m = torch.full((B, H, S), float("-inf"))
+    l = torch.zeros(B, H, S)
+    acc = torch.zeros(B, H, S, d)
+    i = torch.arange(S)
+    for k0 in range(0, S, tile):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf,
+                         kf[:, k0:k0 + tile]) * d ** -0.5
+        s = s.masked_fill(i[:, None] < i[None, k0:k0 + tile],
+                          float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - base[..., None])
+        corr = torch.exp(m - base)
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        acc = acc * corr[..., None]
+        for part in parts:
+            acc = acc + torch.einsum("bhqk,bkhd->bhqd", part,
+                                     vf[:, k0:k0 + tile])
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
 @pytest.mark.parametrize("mutant", ["none", "tile_dropped",
-                                    "diagonal_masked", "next_key_attended"])
+                                    "diagonal_masked", "next_key_attended",
+                                    "p_rounded_bf16", "p_split_hi_lo"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_chip_check_of_flash_catches_a_broken_kernel(mutant, dtype):
     """``chip_smoke.flash_agreement``, the bar the flash kernel is held to
@@ -152,19 +190,26 @@ def test_chip_check_of_flash_catches_a_broken_kernel(mutant, dtype):
     scale (q, k, v of std 0.78, as under the random init) and the prefill
     cell's S = 4,096, where the dropped tile moves no element by more than
     8e-3: inside the reference's fixed 2e-2 + 2e-2 |plain| bar, 155x the
-    new bf16 limit."""
+    new bf16 limit.  The last two cases are the tensor-core kernel's
+    arithmetic: with P rounded to bf16 before P.V it fails the bar, with
+    P split into bf16 hi + lo (two products into one f32 accumulator, as
+    the kernel does) it passes."""
     tdt = DTYPES[dtype][1]
     S = 4096
     q, k, v = (torch.as_tensor(0.78 * a, dtype=torch.float32).to(tdt)
                for a in _qkv(np.random.default_rng(7), 1, S, 2, 1, 128))
     want = port_attn.flash_attention_plain(q, k, v)
-    i = torch.arange(S)
-    allowed = i[:, None] >= i[None, :]
-    if mutant == "tile_dropped":
-        allowed[S - 64:, :64] = False
-    elif mutant == "diagonal_masked":
-        allowed = i[:, None] > i[None, :]
-    elif mutant == "next_key_attended":
-        allowed = i[:, None] + 1 >= i[None, :]
-    *_, ok = _chip_smoke().flash_agreement(_dense(q, k, v, allowed), want)
-    assert ok == (mutant == "none")
+    if mutant.startswith("p_"):
+        got = _tensor_core_scan(q, k, v, split=mutant == "p_split_hi_lo")
+    else:
+        i = torch.arange(S)
+        allowed = i[:, None] >= i[None, :]
+        if mutant == "tile_dropped":
+            allowed[S - 64:, :64] = False
+        elif mutant == "diagonal_masked":
+            allowed = i[:, None] > i[None, :]
+        elif mutant == "next_key_attended":
+            allowed = i[:, None] + 1 >= i[None, :]
+        got = _dense(q, k, v, allowed)
+    *_, ok = _chip_smoke().flash_agreement(got, want)
+    assert ok == (mutant in ("none", "p_split_hi_lo"))
