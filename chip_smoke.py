@@ -11,13 +11,20 @@ package.  Phases, one line each (or one per kernel):
    shared memory per block;
 2. kernels: each hand-written kernel against its plain torch version on
    the card at fixed shapes (time, plain time, bound and, where one
-   exists, the nearest single PyTorch call);
+   exists, the nearest single PyTorch call); for the DLV scan also its
+   long path's counters per case ("... long path": speculative cuts,
+   windows verified, repairs, cycles speculating and verifying, the
+   longest window), every window of the 10M case checked whole, and each
+   case timed at every candidate long-path threshold ("dlv_scan
+   threshold");
 3. parity: a 200k-row TPC-H table built and solved once on the card and
    once on the CPU -- identical layers and gids, equal objective;
 4. full: the 10M-row TPC-H table (d_f=100, alpha=100k) partitioned on the
    card and Q2_TPCH solved at hardness 3 and 5 through the device LP, with
    every kernel's launch count read around that run, then a profiled
-   second partition and solve;
+   second partition and solve, and the partition again with every scan
+   segment on the one-thread path ("profile partition, one-thread scan
+   only": the build's device time without the long path);
 5. main-path inputs: the main path of phase 4 run once more with a copy of
    the arguments of every kernel call kept, and each kernel held against
    its plain version on exactly those inputs; the times in the ``kernels``
@@ -165,12 +172,17 @@ def _numbers(shape, nbytes, ops, ms, plain_ms, library_ms=None,
 
 
 def pricing_check(args, tol=REL_TOL) -> float:
-    """Kernel vs plain pricing on ``args``: max abs error; fails beyond
-    ``tol`` x max(1, |plain|) or on an inf that is not matched."""
+    """Kernel vs plain pricing on ``args`` (A, rho, d, state, lo, hi, s):
+    max abs error of alpha, ratio and cost; fails beyond ``tol`` x max(1,
+    |plain|) or on an inf that is not matched.  On the float64 route the
+    finite ratios' range must equal the plain one and give the edges of
+    ``bucket_edges(ratio)`` bit for bit."""
     import torch
+    from repro_torch.kernels.bfrt import bucket_edges, edges_from_range
     from repro_torch.kernels.pricing import pricing, pricing_plain
+    got, want = pricing(*args), pricing_plain(*args)
     worst = 0.0
-    for g, w in zip(pricing(*args), pricing_plain(*args)):
+    for g, w in zip(got[:3], want[:3]):
         both_inf = torch.isinf(g) & torch.isinf(w) & (g == w)
         diff = torch.where(both_inf, 0.0, (g - w).abs())
         check(bool(torch.isfinite(diff).all()), "pricing: inf mismatch")
@@ -179,33 +191,59 @@ def pricing_check(args, tol=REL_TOL) -> float:
               f"pricing disagrees with its plain version "
               f"(max abs err {float(diff.max())})")
         worst = max(worst, float(diff.max()))
+    if got[0].dtype == torch.float64:
+        rng, ratio = got[3], got[1]
+        plain = want[3]
+        same = torch.equal(rng.isnan(), plain.isnan()) and torch.equal(
+            rng.nan_to_num(), plain.nan_to_num())
+        check(same, f"pricing: ratio range {rng.tolist()} != plain "
+                    f"{plain.tolist()}")
+        check(torch.equal(edges_from_range(rng).view(torch.int64),
+                          bucket_edges(ratio).view(torch.int64)),
+              "pricing: edges from the ratio range differ from "
+              "bucket_edges(ratio)")
     return worst
 
 
 def pricing_times(args) -> dict:
-    from repro_torch.kernels.pricing import pricing, pricing_plain
-    A, rho = args[0], args[1]
+    """The per-pivot call (a ``Pricer`` made once, as the pivot loop does),
+    the plain version and ``rho @ A``, back to back."""
+    from repro_torch.kernels.pricing import Pricer, pricing_plain
+    A, rho, d, state, lo, hi, s = args
     m, N = A.shape
-    nbytes = (m * N + m + 1) * 8 + N * (8 + 4 + 8 + 8) + 3 * N * 8
+    price = Pricer(A, lo, hi)
+    nbytes = (m * N + m + 1) * 8 + N * (8 + 4 + 8 + 8) + 3 * N * 8 + 16
+    calls = 20
+    ours = device_profile(lambda: [price(rho, d, state, s)
+                                   for _ in range(calls)])[3]
+    device = sum(ms for k, (ms, _) in ours.items()
+                 if k.startswith("pricing_kernel")) / calls
     return _numbers(f"m={m} N={N} f64", nbytes, 2 * m * N + 4 * N,
-                    timed_ms(lambda: pricing(*args), 200),
+                    timed_ms(lambda: price(rho, d, state, s), 200),
                     timed_ms(lambda: pricing_plain(*args), 50),
-                    timed_ms(lambda: rho @ A, 200))
+                    timed_ms(lambda: rho @ A, 200), device_ms=device)
 
 
-def bfrt_check(ratio, cost, budget) -> float:
-    """``bfrt_select`` (histogram kernel + device pass 2) against the exact
-    sequential rule -- q, flip mask and has_cross equal -- and the
-    histogram kernel against its plain version: counts exact, sums to
-    REL_TOL relative, two runs bit-identical.  Returns the sums' max abs
-    error."""
+def bfrt_check(ratio, cost, budget, rng=None) -> float:
+    """``bfrt_select`` (histogram kernel + device pass 2; edges from
+    pricing's ratio range ``rng`` where given, and then bit-equal to
+    ``bucket_edges(ratio)``) against the exact sequential rule -- q, flip
+    mask and has_cross equal -- and the histogram kernel against its plain
+    version: counts exact, sums to REL_TOL relative, two runs
+    bit-identical.  Returns the sums' max abs error."""
     import torch
     from repro_torch.kernels.bfrt import (bfrt_histogram,
                                           bfrt_histogram_plain, bfrt_select,
-                                          bfrt_sequential, bucket_edges)
+                                          bfrt_sequential, bucket_edges,
+                                          edges_from_range)
     want = bfrt_sequential(ratio.cpu().numpy(), cost.cpu().numpy(),
                            float(budget))
-    q, flips, ok = bfrt_select(ratio, cost, budget)
+    if rng is not None:
+        check(torch.equal(edges_from_range(rng).view(torch.int64),
+                          bucket_edges(ratio).view(torch.int64)),
+              "bfrt: edges from pricing's ratio range differ from "
+              "bucket_edges(ratio)")
+    q, flips, ok = bfrt_select(ratio, cost, budget, rng=rng)
     check(bool(ok) == want[2], "bfrt has_cross differs from the sequential "
                                "rule")
     if want[2]:
@@ -224,7 +262,7 @@ def bfrt_check(ratio, cost, budget) -> float:
     return err
 
 
-def bfrt_times(ratio, cost, budget) -> dict:
+def bfrt_times(ratio, cost, budget, rng=None) -> dict:
     from repro_torch.kernels.bfrt import (bfrt_histogram,
                                           bfrt_histogram_plain, bfrt_select,
                                           bucket_edges)
@@ -279,7 +317,7 @@ def segstats_times(vals, ids, G) -> dict:
 
 
 def row_step_check(vals, Ls, beta, cuts, max_rows: int = 2048,
-                   max_elems: int = 1 << 24) -> int:
+                   max_elems: int = 1 << 24, whole: bool = False) -> int:
     """Hold the scan kernel's ``cuts`` against ``scan_cols_plain``, which
     does the kernel's compensated arithmetic step for step.
 
@@ -287,12 +325,14 @@ def row_step_check(vals, Ls, beta, cuts, max_rows: int = 2048,
     is in just after that cut.  So every window from a segment start or a
     cut up to the next cut, scanned alone, must cut at its last row and
     nowhere before it; a window that runs to its segment's end must not cut
-    at all.  Windows are scanned side by side as columns; one longer than
-    ``max_rows`` is checked over its first ``max_rows`` rows.  Returns the
+    at all.  Windows are scanned side by side as columns on ``vals``'s
+    device; one longer than ``max_rows`` is checked over its first
+    ``max_rows`` rows, or, with ``whole``, over all its rows on the CPU
+    (the long path's window ends are what it could get wrong, and the CPU
+    takes a step of a few columns faster than the card).  Returns the
     number of windows checked."""
     import torch
     from repro_torch.kernels.dlv_scan import scan_cols_plain
-    dev = vals.device
     Ls = np.asarray(Ls, np.int64)
     n = len(vals)
     seg_end = np.cumsum(Ls)
@@ -303,42 +343,68 @@ def row_step_check(vals, Ls, beta, cuts, max_rows: int = 2048,
     to_cut = (nxt < n) & cut_h[np.minimum(nxt, n - 1)]
     length = nxt - starts + to_cut
     long = length > max_rows
-    length[long] = max_rows
-    to_cut[long] = False
-    bars = torch.as_tensor(np.asarray(beta, np.float64)[seg],
-                           dtype=torch.float64, device=dev)
-    order = np.argsort(length, kind="stable")
-    i = 0
-    while i < len(order):
-        j = i + 1
-        while j < len(order) and length[order[j]] * (j + 1 - i) <= max_elems:
-            j += 1
-        sub = order[i:j]
-        i = j
-        ln = torch.as_tensor(length[sub], dtype=torch.int64, device=dev)
-        st = torch.as_tensor(starts[sub], dtype=torch.int64, device=dev)
-        ridx = torch.arange(int(length[sub].max()), dtype=torch.int64,
-                            device=dev)[:, None]
-        V = vals[st[None, :] + torch.minimum(ridx, ln[None, :] - 1)]
-        got = scan_cols_plain(V, bars[sub]) & (ridx < ln[None, :])
-        want = torch.zeros_like(got)
-        cols = torch.arange(len(sub), dtype=torch.int64, device=dev)
-        want[ln - 1, cols] = torch.as_tensor(to_cut[sub], device=dev)
-        check(torch.equal(got, want),
-              f"dlv_scan cuts differ from the compensated row-step scan "
-              f"(the kernel's own arithmetic) in "
-              f"{int((got != want).any(0).sum())} windows: a kernel fault")
+    if not whole:
+        length[long] = max_rows
+        to_cut[long] = False
+    bar_h = np.asarray(beta, np.float64)[seg]
+    host = vals.cpu() if whole and long.any() else None
+
+    def scan(v, idx):
+        dev = v.device
+        order = idx[np.argsort(length[idx], kind="stable")]
+        i = 0
+        while i < len(order):
+            j = i + 1
+            while (j < len(order)
+                   and length[order[j]] * (j + 1 - i) <= max_elems):
+                j += 1
+            sub = order[i:j]
+            i = j
+            ln = torch.as_tensor(length[sub], dtype=torch.int64, device=dev)
+            st = torch.as_tensor(starts[sub], dtype=torch.int64, device=dev)
+            ridx = torch.arange(int(length[sub].max()), dtype=torch.int64,
+                                device=dev)[:, None]
+            V = v[st[None, :] + torch.minimum(ridx, ln[None, :] - 1)]
+            bars = torch.as_tensor(bar_h[sub], dtype=torch.float64,
+                                   device=dev)
+            got = scan_cols_plain(V, bars) & (ridx < ln[None, :])
+            want = torch.zeros_like(got)
+            cols = torch.arange(len(sub), dtype=torch.int64, device=dev)
+            want[ln - 1, cols] = torch.as_tensor(to_cut[sub], device=dev)
+            check(torch.equal(got, want),
+                  f"dlv_scan cuts differ from the compensated row-step scan "
+                  f"(the kernel's own arithmetic) in "
+                  f"{int((got != want).any(0).sum())} windows: a kernel "
+                  f"fault")
+
+    every = np.arange(len(starts))
+    if host is None:
+        scan(vals, every)
+    else:
+        scan(vals, every[~long])
+        scan(host, every[long])
     return len(starts)
 
 
-def dlv_check(vals, Ls, beta, **kw):
+def dlv_stats(st) -> dict:
+    """The long path's counters of one call, with the share of its CTAs'
+    cycles spent speculating (the rest verifying and repairing)."""
+    from repro_torch.kernels.dlv_scan import STAT_NAMES
+    out = dict(zip(STAT_NAMES, (int(x) for x in st.tolist())))
+    cyc = out["spec_cycles"] + out["verify_cycles"]
+    out["spec_share"] = out["spec_cycles"] / cyc if cyc else None
+    return out
+
+
+def dlv_check(vals, Ls, beta, whole=False, **kw):
     """Scan kernel vs ``dlv_scan_plain`` (bit-equal cuts) and vs the
-    row-step scan on every window between its cuts.  Returns (cuts, plain
-    ms, windows checked)."""
+    row-step scan on every window between its cuts (``whole``: long
+    windows whole).  Returns (cuts, plain ms, windows checked, the long
+    path's counters)."""
     import torch
     from repro_torch.kernels.dlv_scan import dlv_scan, dlv_scan_plain
-    got = dlv_scan(vals, Ls, beta, **kw)
-    windows = row_step_check(vals, Ls, beta, got)
+    got, st = dlv_scan(vals, Ls, beta, stats=True, **kw)
+    windows = row_step_check(vals, Ls, beta, got, whole=whole)
     t0 = time.perf_counter()
     want = dlv_scan_plain(vals, Ls, beta, **kw)
     torch.cuda.synchronize()
@@ -347,13 +413,14 @@ def dlv_check(vals, Ls, beta, **kw):
           f"dlv_scan cuts differ from dlv_scan_plain in "
           f"{int((got != want).sum())} rows, though they agree with the "
           f"row-step scan: rounding of the plain version's prefix sums")
-    return got, plain, windows
+    return got, plain, windows, dlv_stats(st)
 
 
 def dlv_times(vals, Ls, beta, plain_ms, **kw) -> dict:
-    from repro_torch.kernels.dlv_scan import dlv_scan
+    from repro_torch.kernels.dlv_scan import LONG_MIN, dlv_scan
     total, nseg = len(vals), len(Ls)
-    return _numbers(f"{nseg} segments, {total} rows",
+    nlong = int((np.asarray(Ls) >= LONG_MIN).sum())
+    return _numbers(f"{nseg} segments ({nlong} long), {total} rows",
                     total * 8 + nseg * 24 + total, 14 * total,
                     timed_ms(lambda: dlv_scan(vals, Ls, beta, **kw), 2),
                     plain_ms)
@@ -433,20 +500,59 @@ def _segments(rng, lens):
     return v, 13.5 * var / 100 ** 2
 
 
+DLV_THRESHOLDS = (2048, 4096, 8192, 16_384, 32_768, 65_536)
+
+
+@contextlib.contextmanager
+def long_min(rows: int):
+    """The scan's long-path threshold set to ``rows`` inside the block."""
+    from repro_torch.kernels import dlv_scan
+    saved, dlv_scan.LONG_MIN = dlv_scan.LONG_MIN, rows
+    try:
+        yield
+    finally:
+        dlv_scan.LONG_MIN = saved
+
+
 def kernel_dlv_scan(dev, long: int = 10_000_000, nseg: int = 10_000):
+    """Fixed cases: round 1 of the 10M build (one 10M-row segment, its
+    long windows checked whole), round 2 (231 segments of ~43k rows), 10k
+    short segments, and the scale-factor search (4 columns of 10,000
+    sorted samples); then every case timed at each long-path threshold."""
     import torch
+    from repro_torch.kernels.dlv_scan import LONG_MIN, dlv_scan
     rng = np.random.default_rng(4)
-    out = {}
+    out, data = {}, {}
     for label, lens in (("1x10M", np.array([long])),
-                        ("10kx1000", rng.integers(500, 1501, nseg))):
+                        ("231x43k", rng.integers(38_000, 48_000, 231)),
+                        ("10kx1000", rng.integers(500, 1501, nseg)),
+                        ("4x10k", np.full(4, 10_000))):
         v, beta = _segments(rng, lens)
         vals = torch.as_tensor(v, dtype=torch.float64, device=dev)
-        got, plain, windows = dlv_check(vals, lens, beta, pitch=100)
+        got, plain, windows, st = dlv_check(vals, lens, beta, pitch=100,
+                                            whole=label == "1x10M")
         out[label] = dlv_times(vals, lens, beta, plain, pitch=100)
+        data[label] = (vals, lens, beta, got)
         say(f"kernel dlv_scan[{label}]", cuts=int(got.sum()),
             max_abs_err=0.0, cuts_bit_equal=True,
-            row_step_windows=windows, **out[label])
-    return 0.0, dict(out["1x10M"], multi_segment=out["10kx1000"])
+            row_step_windows=windows,
+            long_windows_whole=label == "1x10M", **out[label])
+        say(f"kernel dlv_scan[{label}] long path", long_min=LONG_MIN,
+            **{k: v for k, v in st.items()})
+    for T in DLV_THRESHOLDS:
+        ms = {}
+        with long_min(T):
+            for label, (vals, lens, beta, want) in data.items():
+                got = dlv_scan(vals, lens, beta)
+                check(torch.equal(got, want), f"dlv_scan at LONG_MIN={T} "
+                                              f"differs on {label}")
+                ms[label] = timed_ms(lambda: dlv_scan(vals, lens, beta), 3)
+        say("dlv_scan threshold", long_min=T, chosen=T == LONG_MIN,
+            **{f"ms_{k}": v for k, v in ms.items()})
+    del data
+    return 0.0, dict(out["1x10M"], round2_shape=out["231x43k"],
+                     multi_segment=out["10kx1000"],
+                     scale_factor_search=out["4x10k"])
 
 
 # ------------------------------------------------------------ phases 3, 4
@@ -563,17 +669,36 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
                                 "on the main path")
 
     # where the time goes: device busy time of a second partition and a
-    # second h=3 solve under torch.profiler, against the unprofiled walls
+    # second h=3 solve under torch.profiler, against the unprofiled walls;
+    # the partition also with every scan segment on the one-thread path
+    # (the scan before its long path), wall and profile
     from repro_torch.core.engine import PackageQueryEngine
+
+    def partition():
+        PackageQueryEngine(table, ATTRS, d_f=100, alpha=alpha, seed=0,
+                           device=device).partition()
+
+    def short_only(fn):
+        def run():
+            with long_min(1 << 62):
+                fn()
+        return run
+
+    t0 = time.perf_counter()
+    short_only(partition)()
+    _sync(device)
+    before_s = time.perf_counter() - t0
     for label, wall, fn in (
-            ("partition", part_s, lambda: PackageQueryEngine(
-                table, ATTRS, d_f=100, alpha=alpha, seed=0,
-                device=device).partition()),
+            ("partition, one-thread scan only", before_s,
+             short_only(partition)),
+            ("partition", part_s, partition),
             ("solve h=3", s3, lambda: solve(eng, q3))):
         busy_ms, ops, reads, ours, top = device_profile(fn)
+        scan_ms = sum(ms for k, (ms, _) in ours.items()
+                      if k.startswith("dlv_scan_"))
         say(f"profile {label}", wall_s=wall, device_busy_s=busy_ms / 1e3,
-            idle_share=1.0 - busy_ms / 1e3 / wall, device_ops=ops,
-            device_to_host=reads,
+            idle_share=1.0 - busy_ms / 1e3 / wall, scan_device_ms=scan_ms,
+            device_ops=ops, device_to_host=reads,
             kernels=json.dumps(ours), top=json.dumps(top))
     say("profile pivots", layer_lps=eng.hierarchy.L,
         layer_lp_pivots=r3.ps_stats.lp_iters)
@@ -602,7 +727,7 @@ def device_profile(fn):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
         if name.startswith(("pricing_kernel", "bfrt_hist_", "segstats_",
-                            "dlv_scan_kernel", "flash_fwd_")):
+                            "dlv_scan_", "flash_fwd_")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
                                         0.0) / 1e3, n0 + ev.count)
@@ -619,7 +744,7 @@ def device_profile(fn):
 # --------------------------------------------------------------- phase 5
 
 # the names by which the main path's modules call each kernel's wrapper
-CALL_SITES = {"pricing": ("repro_torch.core.lp_kernel", "pricing"),
+CALL_SITES = {"pricing": ("repro_torch.kernels.pricing", "Pricer.__call__"),
               "bfrt_histogram": ("repro_torch.core.lp_kernel",
                                  "bfrt_select"),
               "segment_stats": ("repro_torch.core.dlv", "segment_stats"),
@@ -638,12 +763,16 @@ def _copy(a):
 @contextlib.contextmanager
 def capturing(names=PQ_KERNELS):
     """Keep a copy of the arguments of every call of the kernels ``names``
-    made inside the block: {kernel name: [(args, kwargs), ...]}."""
+    made inside the block: {kernel name: [(args, kwargs), ...]}.  A call
+    site ``Class.method`` keeps the instance as the first argument."""
     calls = {name: [] for name in names}
     saved = []
     for name in names:
         modname, attr = CALL_SITES[name]
+        owner, _, attr = attr.rpartition(".")
         mod = importlib.import_module(modname)
+        if owner:
+            mod = getattr(mod, owner)
         fn = getattr(mod, attr)
 
         def kept(*args, _fn=fn, _log=calls[name], **kw):
@@ -689,13 +818,17 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
             check_s=time.perf_counter() - t0)
         return res, calls[name][big], big
 
+    def price_args(p, rho, d, state, s):
+        return p.A, rho, d, state, p.lo, p.hi, s
+
     out = {}
-    res, (a, _), _ = compare("pricing", lambda *a: pricing_check(a),
-                             lambda A, *_: A.shape[1])
-    out["pricing"] = (max(res), pricing_times(a))
-    res, (a, _), _ = compare("bfrt_histogram", bfrt_check,
-                             lambda r, *_: r.shape[0])
-    out["bfrt_histogram"] = (max(res), bfrt_times(*a))
+    res, (a, _), _ = compare("pricing",
+                             lambda *a: pricing_check(price_args(*a)),
+                             lambda p, *_: p.A.shape[1])
+    out["pricing"] = (max(res), pricing_times(price_args(*a)))
+    res, (a, kw), _ = compare("bfrt_histogram", bfrt_check,
+                              lambda r, *_: r.shape[0])
+    out["bfrt_histogram"] = (max(res), bfrt_times(*a, **kw))
     res, (a, _), _ = compare("segment_stats", segstats_check,
                              lambda v, *_: v.shape[0])
     out["segment_stats"] = (max(res), segstats_times(*a))
@@ -705,6 +838,14 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
     # the largest call's plain time was taken while checking it
     out["dlv_scan"] = (0.0, dlv_times(*a, res[big][0], **kw))
     windows = sum(r[1] for r in res)
+    stats = [r[2] for r in res]
+    say("main-path dlv_scan long path", calls_with_long_segments=sum(
+        st["segments"] > 0 for st in stats),
+        largest_call_long=stats[big]["segments"] > 0,
+        largest_call=json.dumps(stats[big]),
+        **{f"all_{k}": sum(st[k] for st in stats)
+           for k in ("segments", "passes", "spec_cuts", "windows",
+                     "repairs")})
     for name, (err, nums) in out.items():
         extra = {"row_step_windows": windows} if name == "dlv_scan" else {}
         say(f"main-path {name} at its largest call", max_abs_err=err,
@@ -1103,6 +1244,9 @@ def main() -> None:
         card=json.dumps(card))
     print(card, flush=True)
     ptxas_report(_build)
+    say("ptxas dlv_scan", report=json.dumps(
+        [ln.strip() for ln in _build.build_log("dlv_scan").splitlines()
+         if re.search(r"entry function|registers|spill", ln)]))
 
     phase_s = {"build": build_s}
 

@@ -6,10 +6,11 @@ xB, periodic refactorization, residual-drift gate, degenerate-streak
 refactorization, warm starts) with the two O(n) procedures of every pivot
 on the hand-written kernels:
 
-  * pricing (alpha, BFRT ratios, flip costs) -> ``kernels.pricing`` — a
-    single fused pass over A per pivot;
+  * pricing (alpha, BFRT ratios, flip costs, the finite ratios' range)
+    -> ``kernels.pricing`` — a single fused pass over A per pivot, through
+    one ``Pricer`` per solve (the loop constants checked once);
   * BFRT breakpoint selection -> ``kernels.bfrt`` (bucketed two-pass
-    select, pass 1 the histogram kernel).
+    select, pass 1 the histogram kernel, its edges from pricing's range).
 
 The loop is a Python loop over pivots on device tensors.  Every decision
 inside a pivot is a ``torch.where`` on the device, and the refactorization
@@ -35,7 +36,7 @@ from repro_torch.core.lp import (BUDGET, INFEASIBLE, ITER_LIMIT, OPTIMAL,
                                  LPResult, REFACTOR_EVERY, _prep)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bfrt import bfrt_select
-from repro_torch.kernels.pricing import pricing
+from repro_torch.kernels.pricing import Pricer
 
 
 def _refreshed(cf, A, l, u, basis, in_basis, at_upper):
@@ -66,6 +67,7 @@ def _solve(cf, A, l, u, basis0, at_upper0, max_iters: int,
     lo_safe = torch.where(torch.isfinite(l), l, 0.0)
     width = torch.where(torch.isfinite(u - l), u - l, 1e30)
     hi_safe = lo_safe + width
+    price = Pricer(A, lo_safe, hi_safe)      # checks them once
 
     basis = basis0
     in_basis = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -116,10 +118,10 @@ def _solve(cf, A, l, u, basis0, at_upper0, max_iters: int,
         # ---- CUDA kernel: fused pricing, the single O(mN) sweep of A ----
         state_code = torch.where(in_basis, 2, torch.where(at_upper, 1, 0)
                                  ).to(torch.int32)
-        alpha, ratio, cost = pricing(A, rho, d, state_code, lo_safe,
-                                     hi_safe, s)
+        alpha, ratio, cost, rng = price(rho, d, state_code, s)
         # ---- CUDA kernel (pass 1) + device pass 2: bucketed BFRT ----
-        q, flip_mask, has_cross = bfrt_select(ratio, cost, delta.abs())
+        q, flip_mask, has_cross = bfrt_select(ratio, cost, delta.abs(),
+                                              rng=rng)
         q = q.reshape(1)
 
         stale = since > 0

@@ -31,8 +31,10 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per-source extra flags: the scans must not contract a*b+c into FMAs,
 # or their rounding (and therefore a cut placed near beta) moves; flash
-# keeps ptxas's report of registers, shared memory and spills (build_log)
-EXTRA_FLAGS = {"pricing": ("-fmad=false",), "dlv_scan": ("-fmad=false",),
+# and the scan keep ptxas's report of registers, shared memory and spills
+# (build_log)
+EXTRA_FLAGS = {"pricing": ("-fmad=false",),
+               "dlv_scan": ("-fmad=false", "-Xptxas", "-v"),
                "flash_attn": ("-Xptxas", "-v")}
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn")
 
@@ -122,8 +124,17 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` (a torch.device or an index),
+    by torch's raw-stream query where the build has it (no Stream object:
+    the pivot loop's launch path)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    idx = device if isinstance(device, int) else device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(idx).cuda_stream
+    return raw(idx)
 
 
 P = ctypes.c_void_p

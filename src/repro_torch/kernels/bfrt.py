@@ -101,6 +101,26 @@ def bucket_edges(ratio, num_buckets: int = NUM_BUCKETS):
     return torch.cat([rmin + span * steps, inf])
 
 
+_STEPS = {}                  # (num_buckets, dtype, device) -> steps
+
+
+def edges_from_range(rng, num_buckets: int = NUM_BUCKETS):
+    """:func:`bucket_edges` from the (2,) min and max of the finite ratios
+    that pricing writes (``pricing.ratio_range_plain``), bit for bit: the
+    same operations on the same two numbers, the +inf edge from a last
+    step of +inf."""
+    key = (num_buckets, rng.dtype, rng.device)
+    steps = _STEPS.get(key)
+    if steps is None:
+        steps = _STEPS[key] = torch.cat([
+            torch.arange(1, num_buckets, dtype=rng.dtype, device=rng.device)
+            / (num_buckets - 1),
+            torch.full((1,), float("inf"), dtype=rng.dtype,
+                       device=rng.device)])
+    rmin = torch.fmin(rng[:1], rng[1:])
+    return rmin + torch.clamp_min(rng[1:] - rmin, 1e-12) * steps
+
+
 def bfrt_sequential(ratio: np.ndarray, cost: np.ndarray, budget: float):
     """The exact sequential rule (numpy): sort the finite ratios stably,
     flip while the cumulative cost stays below the budget; the crossing
@@ -120,10 +140,12 @@ def bfrt_sequential(ratio: np.ndarray, cost: np.ndarray, budget: float):
     return int(order[cross]), flips, True
 
 
-def bfrt_select(ratio, cost, budget, *, num_buckets: int = NUM_BUCKETS):
+def bfrt_select(ratio, cost, budget, *, num_buckets: int = NUM_BUCKETS,
+                rng=None):
     """Two-pass BFRT: (entering index q, flip mask, has_cross), all as
     tensors on ``ratio``'s device (q and has_cross 0-d), with no host
-    sync.  ``budget`` may be a float or a 1-element tensor.
+    sync.  ``budget`` may be a float or a 1-element tensor; ``rng``, the
+    finite ratios' range from pricing, spares the pass that finds it.
 
     Ineligible columns carry ratio = +inf and cost = 0 (pricing output).
     """
@@ -135,7 +157,8 @@ def bfrt_select(ratio, cost, budget, *, num_buckets: int = NUM_BUCKETS):
     finite = torch.isfinite(ratio)
     any_elig = finite.any()
     zero = torch.zeros((), dtype=dt, device=dev)
-    edges = bucket_edges(ratio, num_buckets)
+    edges = bucket_edges(ratio, num_buckets) if rng is None \
+        else edges_from_range(rng, num_buckets)
     sums, _ = bfrt_histogram(ratio, cost, edges)
     csum = torch.cumsum(sums, 0)
     crossed = csum >= budget - 1e-12

@@ -7,14 +7,24 @@ split bars ``beta``; the result flags every row before which a delimiter
 is placed (before snapping to equal-value run starts, which the caller
 does).
 
-On a CUDA tensor :func:`dlv_scan` launches ``csrc/dlv_scan.cu`` (one
-thread per segment, Kahan-compensated float64 row steps, built without
-FMA contraction; a serial dependency chain bounds it — see the source
-note).  On a CPU tensor it runs :func:`dlv_scan_plain`, the reference's
-float64 host path in torch: segments grouped by length, wide groups
-through the compensated column row-step scan (the kernel's arithmetic,
-bit for bit), narrow groups and long segments through the exact
-cut-to-cut jump scan (same cut rule, prefix-sum rounding).
+On a CUDA tensor :func:`dlv_scan` launches ``csrc/dlv_scan.cu``, which
+places the Kahan-compensated float64 scan's cuts (built without FMA
+contraction) by one of two paths, chosen per segment by length:
+
+* segments shorter than ``LONG_MIN`` rows: one thread per segment, the
+  compensated row steps in order;
+* longer ones: one CTA per segment that speculates cuts in parallel with
+  a division-free test, verifies every speculative window with the
+  compensated steps, and repairs the first wrong one (see the source
+  note).  :func:`long_scan_plain` is that loop in plain torch, for the
+  tests; the main path never runs it.
+
+Both paths give the compensated scan's cuts bit for bit.  On a CPU tensor
+:func:`dlv_scan` runs :func:`dlv_scan_plain`, the reference's float64 host
+path in torch: segments grouped by length, wide groups through the
+compensated column row-step scan (the kernel's arithmetic, bit for bit),
+narrow groups and long segments through the exact cut-to-cut jump scan
+(same cut rule, prefix-sum rounding).
 
 So for narrow groups and single long segments the kernel and the plain
 version do two kinds of arithmetic: compensated running sums against
@@ -36,7 +46,22 @@ launches = 0
 _BATCH_MIN_COLS = 16         # below this, per-segment jump scan wins
 _MAX_COLS = 1024             # row-step width cap
 
-_SIG = {"dlv_scan_f64": (_build.P,) * 4 + (_build.I64, _build.P, _build.P)}
+# segments of at least LONG_MIN rows take the long path (one CTA each);
+# chosen on the card by chip_smoke.py's "dlv_scan threshold" sweep
+LONG_MIN = 4096
+TILE = 8192                  # the long path's speculation tile (rows)
+SPEC_CAP = 4096              # speculative cuts per pass
+# the long path's counters (``dlv_scan(..., stats=True)``), in this order:
+# sums over the call's long segments (cycles are each CTA's thread 0's:
+# speculating, of that waiting for tiles and moving and scanning them,
+# verifying), except the longest verified window, a maximum
+STAT_NAMES = ("segments", "passes", "spec_cuts", "windows", "repairs",
+              "spec_cycles", "verify_cycles", "tiles", "wait_cycles",
+              "scan_cycles", "longest_window")
+
+_SIG = {"dlv_scan_f64": (_build.P,) * 4 + (_build.I64, _build.P, _build.P),
+        "dlv_scan_long_f64": (_build.P,) * 4 + (_build.I64,) + (_build.P,) * 2
+        + (_build.I64, _build.P, _build.P)}
 
 
 def _starts(Ls: np.ndarray) -> np.ndarray:
@@ -110,6 +135,140 @@ def jump_scan_plain(v, beta: float):
     return cuts
 
 
+def _first_hits(v, a, e, beta: float, max_elems: int = 1 << 22):
+    """For each window (a[j], e[j]] of the segment ``v``: the first row at
+    which the compensated scan started fresh at row a[j] cuts, or -1
+    (``scan_cols_plain`` over the windows as columns, grouped by
+    length)."""
+    a = np.asarray(a, np.int64)
+    e = np.asarray(e, np.int64)
+    out = np.full(len(a), -1, np.int64)
+    length = e - a + 1
+    order = np.argsort(length, kind="stable")
+    i = 0
+    while i < len(order):
+        j = i + 1
+        while j < len(order) and length[order[j]] * (j + 1 - i) <= max_elems:
+            j += 1
+        sub = order[i:j]
+        i = j
+        ln = torch.as_tensor(length[sub], device=v.device)
+        st = torch.as_tensor(a[sub], device=v.device)
+        ridx = torch.arange(int(length[sub].max()), device=v.device)[:, None]
+        V = v[st[None, :] + torch.minimum(ridx, ln[None, :] - 1)]
+        bars = torch.full((len(sub),), beta, dtype=torch.float64,
+                          device=v.device)
+        hit = (scan_cols_plain(V, bars) & (ridx < ln[None, :])).cpu()
+        anyhit = hit.any(0).numpy()
+        first = torch.argmax(hit.to(torch.int32), 0).numpy()
+        out[sub] = np.where(anyhit, a[sub] + first, -1)
+    return out
+
+
+def _speculate_plain(v, beta: float, w: int, lo: int, tile: int, cap: int):
+    """The long path's speculation from window start ``w`` (hits allowed
+    from row ``lo``): tiles of ``tile`` rows, prefix sums of x - u with u
+    the tile's first value, a carry from the window start moved to each
+    tile's shift, and the division-free test k*S2 - S1^2 > beta*k^2.
+    Returns (speculative cuts, whether the walk reached the end)."""
+    L = len(v)
+    out = []
+    D = Q = kc = uprev = 0.0
+    first = True
+    t = w // tile
+    while t * tile < L:
+        ts = t * tile
+        x = v[ts:ts + tile]
+        u = float(x[0])
+        d = x - u
+        P1 = torch.cumsum(d, 0)
+        P2 = torch.cumsum(d * d, 0)
+        rows = torch.arange(ts, ts + len(x), device=v.device)
+        if first:
+            first = False
+            D = Q = kc = 0.0
+            B1 = float(P1[w - ts - 1]) if w > ts else 0.0
+            B2 = float(P2[w - ts - 1]) if w > ts else 0.0
+        else:
+            dl = u - uprev
+            Q = Q - 2.0 * dl * D + kc * dl * dl
+            D = D - kc * dl
+            B1 = B2 = 0.0
+        while True:
+            k = (rows - w + 1).to(torch.float64)
+            S1 = D + P1 - B1
+            S2 = Q + P2 - B2
+            hit = (rows >= lo) & (k * S2 - S1 * S1 > beta * (k * k))
+            if not bool(hit.any()):
+                break
+            h = int(torch.argmax(hit.to(torch.int32)))
+            out.append(ts + h)
+            B1 = float(P1[h - 1]) if h else 0.0
+            B2 = float(P2[h - 1]) if h else 0.0
+            D = Q = 0.0
+            w, lo = ts + h, ts + h + 1
+            if len(out) == cap:
+                return out, False
+        if w >= ts:
+            D, Q = float(P1[-1]) - B1, float(P2[-1]) - B2
+        else:
+            D, Q = D + float(P1[-1]), Q + float(P2[-1])
+        kc = float(ts + tile - w)
+        uprev = u
+        t += 1
+    return out, True
+
+
+def long_scan_plain(v, beta: float, *, spec=None, tile: int = TILE,
+                    cap: int = SPEC_CAP, stats: dict = None):
+    """The long path of ``csrc/dlv_scan.cu`` in plain torch, for ONE
+    segment ``v``: speculate, verify every window with the compensated
+    steps, repair at the first wrong window, until the walk is verified to
+    the end.  ``spec`` (sorted rows in [1, len(v))) replaces the first
+    pass's speculation, as the kernel's ``init_spec`` does; ``stats``
+    (a dict) receives the counts of ``STAT_NAMES`` that a CPU run has.
+    Returns the compensated scan's cut flags."""
+    L = len(v)
+    cuts = torch.zeros(L, dtype=torch.bool, device=v.device)
+    count = dict.fromkeys(("passes", "spec_cuts", "windows", "repairs"), 0)
+    w, lo = 0, 1
+    while True:
+        count["passes"] += 1
+        if count["passes"] > 2 * L + 4:
+            raise RuntimeError("long_scan_plain: repairs did not advance")
+        if spec is not None:
+            sp, ended = [int(s) for s in spec], True
+            spec = None
+        else:
+            sp, ended = _speculate_plain(v, beta, w, lo, tile, cap)
+        n = len(sp)
+        nw = n + 1 if ended else n
+        a = [w] + sp[:nw - 1]
+        e = sp[:n] + ([L - 1] if ended else [])
+        f = _first_hits(v, a, e, beta)
+        bad = [j for j in range(nw)
+               if (f[j] != e[j] if j < n else f[j] >= 0)]
+        count["spec_cuts"] += n
+        count["windows"] += nw
+        ok = bad[0] if bad else n
+        cuts[torch.as_tensor(sp[:ok], dtype=torch.int64)] = True
+        if not bad:
+            if ended:
+                break
+            w, lo = sp[-1], sp[-1] + 1
+            continue
+        count["repairs"] += 1
+        jb = bad[0]
+        if f[jb] >= 0:
+            cuts[int(f[jb])] = True
+            w, lo = int(f[jb]), int(f[jb]) + 1
+        else:
+            w, lo = a[jb], sp[jb] + 1
+    if stats is not None:
+        stats.update(count)
+    return cuts
+
+
 def _batch_cols(cuts, vals, starts, Ls, beta, sub) -> None:
     dev = vals.device
     st = torch.as_tensor(starts[sub], dtype=torch.int64, device=dev)
@@ -155,37 +314,113 @@ def dlv_scan_plain(vals, Ls, beta, *, pitch: int = 256):
     return cuts
 
 
-def dlv_scan(vals, Ls, beta, *, pitch: int = 256):
-    """Cut flags (bool, like ``vals``) for the segments of ``vals``.
-
-    ``Ls`` (segment lengths, summing to ``len(vals)``) and ``beta``
-    (per-segment bars) are host arrays; ``pitch`` (the expected distance
-    between cuts) only steers the plain version's choice of scan.
-    """
-    global launches
-    if vals.device.type != "cuda":
-        return dlv_scan_plain(vals, Ls, beta, pitch=pitch)
+def _check_vals(vals) -> None:
     if vals.dtype != torch.float64 or vals.dim() != 1 \
             or not vals.is_contiguous():
         raise ValueError("dlv_scan: vals must be a contiguous 1-d float64 "
                          "tensor")
+
+
+def _aligned(vals):
+    """``vals`` at a 16-byte aligned address (a copy if a view is not):
+    the long path's bulk copies read from the aligned row at or before a
+    tile's first, which for row 0 must be row 0 itself."""
+    return vals if vals.data_ptr() % 16 == 0 else vals.clone()
+
+
+def dlv_scan(vals, Ls, beta, *, pitch: int = 256, stats: bool = False):
+    """Cut flags (bool, like ``vals``) for the segments of ``vals``.
+
+    ``Ls`` (segment lengths, summing to ``len(vals)``) and ``beta``
+    (per-segment bars) are host arrays; ``pitch`` (the expected distance
+    between cuts) only steers the plain version's choice of scan.  On a
+    CUDA tensor segments of at least ``LONG_MIN`` rows (read at the call)
+    take the long path;
+    one call is one launch in ``launches`` whatever it starts.  With
+    ``stats`` the result is (cuts, the long path's counters: an int64
+    device tensor in ``STAT_NAMES`` order, zeros on the CPU).
+    """
+    global launches
+    if vals.device.type != "cuda":
+        cuts = dlv_scan_plain(vals, Ls, beta, pitch=pitch)
+        return (cuts, torch.zeros(len(STAT_NAMES), dtype=torch.int64)) \
+            if stats else cuts
+    _check_vals(vals)
+    vals = _aligned(vals)
     Ls = np.asarray(Ls, np.int64)
     beta = np.asarray(beta, np.float64)
     n = len(vals)
     if int(Ls.sum()) != n or len(beta) != len(Ls):
         raise ValueError("dlv_scan: segment lengths must sum to len(vals) "
                          "and match beta")
+    if len(Ls) and int(Ls.max()) >= 1 << 31:
+        raise ValueError("dlv_scan: a segment of 2^31 rows or more")
     dev = vals.device
-    cuts = torch.empty(n, dtype=torch.bool, device=dev)
-    if n == 0 or len(Ls) == 0:
-        return cuts
-    starts_t = torch.as_tensor(_starts(Ls), dtype=torch.int64, device=dev)
-    lens_t = torch.as_tensor(Ls, dtype=torch.int64, device=dev)
-    beta_t = torch.as_tensor(beta, dtype=torch.float64, device=dev)
+    st = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=dev) \
+        if stats else None
+    long = Ls >= max(int(LONG_MIN), 1)
+    cuts = (torch.zeros if long.any() else torch.empty)(
+        n, dtype=torch.bool, device=dev)
+    if n and len(Ls):
+        starts = _starts(Ls)
+        # one host-to-device copy: starts, lens, beta bits of each path
+        paths = [~long, long]
+        packed = torch.as_tensor(np.concatenate(
+            [np.concatenate([starts[p], Ls[p], beta[p].view(np.int64)])
+             for p in paths]), device=dev)
+        lib = _build.load("dlv_scan", _SIG)
+        stream = _build.stream_ptr(dev)
+        off = 0
+        for is_long, p in enumerate(paths):
+            k = int(p.sum())
+            arg = [packed[off + i * k:off + (i + 1) * k] for i in range(3)]
+            off += 3 * k
+            if not k:
+                continue
+            ptrs = (vals.data_ptr(), arg[0].data_ptr(), arg[1].data_ptr(),
+                    arg[2].view(torch.float64).data_ptr(), k,
+                    cuts.data_ptr())
+            if is_long:
+                err = lib.dlv_scan_long_f64(
+                    *ptrs, None, -1, st.data_ptr() if stats else None, stream)
+            else:
+                err = lib.dlv_scan_f64(*ptrs, stream)
+            _build.check(err, "dlv_scan")
+        launches += 1
+    return (cuts, st) if stats else cuts
+
+
+def verify_speculation(v, beta: float, spec):
+    """The long path on ONE segment ``v`` with the caller's guess ``spec``
+    (sorted distinct rows in [1, len(v)), at most ``SPEC_CAP``) in place of
+    its first speculation: the compensated cuts, and the counters.  On a
+    CUDA tensor it launches the long kernel; on a CPU tensor it runs
+    :func:`long_scan_plain`."""
+    global launches
+    spec = np.asarray(spec, np.int64)
+    L = len(v)
+    if len(spec) > SPEC_CAP or (len(spec) and (
+            spec.min() < 1 or spec.max() >= L or np.any(np.diff(spec) <= 0))):
+        raise ValueError("verify_speculation: spec must be sorted distinct "
+                         f"rows in [1, {L}), at most {SPEC_CAP}")
+    if v.device.type != "cuda":
+        got = {}
+        cuts = long_scan_plain(v, beta, spec=spec, stats=got)
+        return cuts, torch.as_tensor([got.get(k, 0) for k in STAT_NAMES])
+    _check_vals(v)
+    v = _aligned(v)
+    dev = v.device
+    meta = torch.as_tensor(np.array([0, L, np.float64(beta).view(np.int64)]),
+                           device=dev)
+    init = torch.as_tensor(spec, dtype=torch.int32, device=dev)
+    cuts = torch.zeros(L, dtype=torch.bool, device=dev)
+    st = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=dev)
     lib = _build.load("dlv_scan", _SIG)
-    err = lib.dlv_scan_f64(vals.data_ptr(), starts_t.data_ptr(),
-                           lens_t.data_ptr(), beta_t.data_ptr(), len(Ls),
-                           cuts.data_ptr(), _build.stream_ptr(dev))
+    err = lib.dlv_scan_long_f64(
+        v.data_ptr(), meta[0:1].data_ptr(), meta[1:2].data_ptr(),
+        meta[2:3].view(torch.float64).data_ptr(), 1, cuts.data_ptr(),
+        init.data_ptr(), len(spec), st.data_ptr(),
+        _build.stream_ptr(dev))
     _build.check(err, "dlv_scan")
     launches += 1
-    return cuts
+    return cuts, st

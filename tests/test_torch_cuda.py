@@ -55,8 +55,69 @@ def test_pricing_kernel(dev, dtype):
     torch.cuda.synchronize()
     assert pricing.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 1e-12
-    for g, w in zip(got, pricing.pricing_plain(*args)):
+    want = pricing.pricing_plain(*args)
+    for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        assert got[3] is None        # the float32 route writes no range
+    else:
+        assert torch.equal(got[3], pricing.ratio_range_plain(got[1]))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "none", "zeros"])
+def test_pricing_range_gives_the_bucket_edges(dev, kind):
+    """The kernel's (min, max) of the finite ratios, and the edges built
+    from it, bit-equal to the plain range and to ``bucket_edges(ratio)``,
+    also with no eligible column (every column basic) and with every
+    ratio 0; the select from those edges is the sequential rule."""
+    rng = np.random.default_rng(7)
+    m, N = 4, 100_004
+    state = rng.integers(0, 3, N)
+    if kind == "none":
+        state[:] = 2
+    d = np.abs(rng.normal(size=N)) * (kind != "zeros")
+    args = (_t(rng.normal(size=(m, N)), dev), _t(rng.normal(size=m), dev),
+            _t(d, dev), _t(state, dev, torch.int32), _t(np.zeros(N), dev),
+            _t(rng.uniform(1, 3, N), dev), _t([-1.0], dev))
+    _, ratio, cost, rr = pricing.pricing(*args)
+    plain = pricing.ratio_range_plain(ratio)
+    assert torch.equal(rr.isnan(), plain.isnan())
+    assert torch.equal(rr.nan_to_num(), plain.nan_to_num())
+    edges = bfrt.edges_from_range(rr)
+    assert torch.equal(edges.view(torch.int64),
+                       bfrt.bucket_edges(ratio).view(torch.int64))
+    r, c = ratio.cpu().numpy(), cost.cpu().numpy()
+    for budget in (0.5, 100.0, 1e9):
+        q, flips, ok = bfrt.bfrt_select(ratio, cost, budget, rng=rr)
+        wq, wf, wok = bfrt.bfrt_sequential(r, c, budget)
+        assert bool(ok) == wok
+        if wok:
+            assert int(q) == wq
+            np.testing.assert_array_equal(flips.cpu().numpy(), wf)
+
+
+def test_pricer_checks_its_inputs(dev):
+    """The loop constants are checked when the Pricer is made, the
+    per-pivot inputs at every call: wrong ones raise."""
+    m, N = 3, 100
+    A = torch.zeros(m, N, dtype=torch.float64, device=dev)
+    lo = hi = torch.zeros(N, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        pricing.Pricer(A, lo.float(), hi)
+    with pytest.raises(ValueError):
+        pricing.Pricer(A, lo[:-1], hi)
+    with pytest.raises(ValueError):
+        pricing.Pricer(A.t(), lo, hi)
+    price = pricing.Pricer(A, lo, hi)
+    rho, d = torch.zeros(m, dtype=torch.float64, device=dev), lo.clone()
+    st = torch.zeros(N, dtype=torch.int32, device=dev)
+    price(rho, d, st, -1.0)
+    for bad in ((rho[:-1], d, st, -1.0), (rho, d.float(), st, -1.0),
+                (rho, d.cpu(), st, -1.0), (rho, d, st.long(), -1.0),
+                (rho, d, st, torch.ones(2, dtype=torch.float64,
+                                        device=dev))):
+        with pytest.raises((TypeError, ValueError)):
+            price(*bad)
 
 
 def test_bfrt_select_kernel(dev):
@@ -100,12 +161,105 @@ def test_dlv_scan_kernel(dev):
     assert torch.equal(got, dlv_scan.dlv_scan_plain(vals, lens, beta))
 
 
-def _flash_agreement():
+def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.flash_agreement
+    return mod
+
+
+def _flash_agreement():
+    return _chip_smoke().flash_agreement
+
+
+def test_dlv_scan_long_and_short_segments(dev):
+    """Segments on both sides of ``LONG_MIN``: one of 1.2M rows, 200 of
+    about 43k (round 2 of the 10M build) and 300 short ones, in one call
+    (one launch).  Cuts bit-equal to ``dlv_scan_plain``; every window
+    between cuts, whole, cuts by ``scan_cols_plain`` at its last row and
+    nowhere before (``chip_smoke.row_step_check``); the long path ran."""
+    rng = np.random.default_rng(4)
+    lens = np.concatenate([[1_200_000], rng.integers(40_000, 46_000, 200),
+                           rng.integers(50, 3000, 300)])
+    rng.shuffle(lens)
+    cs = _chip_smoke()
+    v, beta = cs._segments(rng, lens)
+    vals = _t(v, dev)
+    kernels.reset_launches()
+    got, st = dlv_scan.dlv_scan(vals, lens, beta, pitch=100, stats=True)
+    assert kernels.launch_counts()["dlv_scan"] == 1
+    stats = dict(zip(dlv_scan.STAT_NAMES, st.tolist()))
+    assert stats["segments"] == int((lens >= dlv_scan.LONG_MIN).sum())
+    assert torch.equal(got, dlv_scan.dlv_scan_plain(vals, lens, beta,
+                                                    pitch=100))
+    cs.row_step_check(vals, lens, beta, got, whole=True)
+
+
+def _comp_scan_np(v, beta):
+    """The compensated scan with restarts, row by row in numpy floats (the
+    reference's ``_scan_cols_np`` for one column); also returns the running
+    variance at every row."""
+    k = s1 = c1 = s2 = c2 = 0.0
+    cuts, var = np.zeros(len(v), bool), np.empty(len(v))
+    for i, x in enumerate(v):
+        k1 = k + 1.0
+        x2 = x * x
+        y1 = x - c1
+        t1 = s1 + y1
+        c1n = (t1 - s1) - y1
+        y2 = x2 - c2
+        t2 = s2 + y2
+        c2n = (t2 - s2) - y2
+        mean = t1 / k1
+        var[i] = t2 / k1 - mean * mean
+        if var[i] > beta and k > 0:
+            cuts[i] = True
+            k, s1, c1, s2, c2 = 1.0, x, 0.0, x2, 0.0
+        else:
+            k, s1, c1, s2, c2 = k1, t1, c1n, t2, c2n
+    return cuts, var
+
+
+def test_dlv_long_path_near_ties(dev, monkeypatch):
+    """beta set to the compensated running variance of a row (and one ulp
+    to each side), so that the long path's verify meets values within
+    rounding of the bar, where its product-form test defers to the
+    division form: the cuts are the compensated scan's."""
+    rng = np.random.default_rng(8)
+    v = np.sort(rng.lognormal(0.0, 0.55, 20_000))
+    v = v - v.mean()
+    _, var = _comp_scan_np(v, np.inf)
+    vals = _t(v, dev)
+    monkeypatch.setattr(dlv_scan, "LONG_MIN", 1)
+    for r in (40, 300, 2_000, 9_000, 19_000):
+        for beta in (var[r], np.nextafter(var[r], np.inf),
+                     np.nextafter(var[r], -np.inf)):
+            got = dlv_scan.dlv_scan(vals, np.array([len(v)]),
+                                    np.array([beta]))
+            want, _ = _comp_scan_np(v, beta)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_dlv_verify_entry_repairs_a_wrong_guess(dev):
+    """The long path launched directly with a wrong speculative list (cuts
+    shifted, missing, added): it returns the compensated cuts, through
+    repairs."""
+    rng = np.random.default_rng(6)
+    v = np.sort(rng.lognormal(0.0, 0.55, 60_000))
+    v = v - v.mean()
+    beta = 13.5 * v.var() / 100 ** 2
+    want = dlv_scan.scan_cols_plain(_t(v[:, None], dev),
+                                    _t([beta], dev))[:, 0]
+    true = np.flatnonzero(want.cpu().numpy())
+    assert len(true) > 10
+    for spec in (true + 1, true[::2], np.union1d(true, true[:-1] + 3),
+                 np.zeros(0, np.int64)):
+        spec = spec[(spec >= 1) & (spec < len(v))]
+        cuts, st = dlv_scan.verify_speculation(_t(v, dev), beta, spec)
+        assert torch.equal(cuts, want)
+        if len(spec):
+            assert int(st[dlv_scan.STAT_NAMES.index("repairs")]) >= 1
 
 
 @pytest.mark.parametrize("S", [1, 64, 65, 127, 128, 129, 200])
