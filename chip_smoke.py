@@ -11,7 +11,10 @@ package.  Phases, one line each (or one per kernel):
    shared memory per block;
 2. kernels: each hand-written kernel against its plain torch version on
    the card at fixed shapes (time, plain time, bound and, where one
-   exists, the nearest single PyTorch call); for the DLV scan also its
+   exists, the nearest single PyTorch call); the BFRT select ("kernel
+   bfrt_select[...]") at N = 100,004 and 1,215 with random ratios, with
+   every ratio equal and with one outlier crowding bucket 0, each with
+   its device ms and launches per call; for the DLV scan also its
    long path's counters per case ("... long path": speculative cuts,
    windows verified, repairs, cycles speculating and verifying, the
    longest window), every window of the 10M case checked whole, and each
@@ -22,9 +25,10 @@ package.  Phases, one line each (or one per kernel):
 4. full: the 10M-row TPC-H table (d_f=100, alpha=100k) partitioned on the
    card and Q2_TPCH solved at hardness 3 and 5 through the device LP, with
    every kernel's launch count read around that run, then a profiled
-   second partition and solve, and the partition again with every scan
-   segment on the one-thread path ("profile partition, one-thread scan
-   only": the build's device time without the long path);
+   second partition and solve (device ops per pivot of the solve), and
+   the partition again with every scan segment on the one-thread path
+   ("profile partition, one-thread scan only": the build's device time
+   without the long path);
 5. main-path inputs: the main path of phase 4 run once more with a copy of
    the arguments of every kernel call kept, and each kernel held against
    its plain version on exactly those inputs; the times in the ``kernels``
@@ -92,9 +96,10 @@ SOURCES = {"pricing": ("src/repro_torch/csrc/pricing.cu",
            "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
                                "src/repro/kernels/attention.py:32")}
 TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
-             "bfrt_histogram": "q, flip mask, has_cross exact vs the "
-                               "sequential rule; counts exact; sums 1e-12 "
-                               "of max(1, |plain|)",
+             "bfrt_histogram": "select: q, flip mask, has_cross exact vs "
+                               "the sequential rule, a second run "
+                               "bit-identical; histogram: counts exact, "
+                               "sums 1e-12 of max(1, |plain|)",
              "segment_stats": "counts exact; sums 1e-12 of the group's sum "
                               "of |v|; sums of squares 1e-12 relative",
              "dlv_scan": "cuts bit-equal to dlv_scan_plain and to the "
@@ -205,34 +210,50 @@ def pricing_check(args, tol=REL_TOL) -> float:
     return worst
 
 
+def per_call_device(call, calls: int, module, prefix: str) -> dict:
+    """``call()`` ``calls`` times under the profiler: the device ms per call
+    of this repo's kernels named ``prefix...``, the launches per call (the
+    wrapper's own count, exact) and how many of them the profiler
+    recorded.  Where it recorded fewer, the device ms is their mean scaled
+    to every launch; where it recorded none, None (not measured)."""
+    before = module.launches
+    ours = device_profile(lambda: [call() for _ in range(calls)])[3]
+    launched = module.launches - before
+    mine = [(ms, n) for k, (ms, n) in ours.items() if k.startswith(prefix)]
+    seen = sum(n for _, n in mine)
+    device = sum(ms for ms, _ in mine) / seen * launched / calls \
+        if seen else None
+    return {"device_ms": device, "launches_per_call": launched / calls,
+            "profiled_launches": f"{seen} of {launched}"}
+
+
 def pricing_times(args) -> dict:
     """The per-pivot call (a ``Pricer`` made once, as the pivot loop does),
     the plain version and ``rho @ A``, back to back."""
-    from repro_torch.kernels.pricing import Pricer, pricing_plain
+    from repro_torch.kernels import pricing
     A, rho, d, state, lo, hi, s = args
     m, N = A.shape
-    price = Pricer(A, lo, hi)
+    price = pricing.Pricer(A, lo, hi)
     nbytes = (m * N + m + 1) * 8 + N * (8 + 4 + 8 + 8) + 3 * N * 8 + 16
-    calls = 20
-    ours = device_profile(lambda: [price(rho, d, state, s)
-                                   for _ in range(calls)])[3]
-    device = sum(ms for k, (ms, _) in ours.items()
-                 if k.startswith("pricing_kernel")) / calls
     return _numbers(f"m={m} N={N} f64", nbytes, 2 * m * N + 4 * N,
                     timed_ms(lambda: price(rho, d, state, s), 200),
-                    timed_ms(lambda: pricing_plain(*args), 50),
-                    timed_ms(lambda: rho @ A, 200), device_ms=device)
+                    timed_ms(lambda: pricing.pricing_plain(*args), 50),
+                    timed_ms(lambda: rho @ A, 200),
+                    **per_call_device(lambda: price(rho, d, state, s), 20,
+                                      pricing, "pricing_kernel"))
 
 
 def bfrt_check(ratio, cost, budget, rng=None) -> float:
-    """``bfrt_select`` (histogram kernel + device pass 2; edges from
-    pricing's ratio range ``rng`` where given, and then bit-equal to
-    ``bucket_edges(ratio)``) against the exact sequential rule -- q, flip
-    mask and has_cross equal -- and the histogram kernel against its plain
-    version: counts exact, sums to REL_TOL relative, two runs
-    bit-identical.  Returns the sums' max abs error."""
+    """The select kernel (a ``Selector``'s call, as the pivot loop makes it;
+    edges from pricing's ratio range ``rng`` where given, and then
+    bit-equal to ``bucket_edges(ratio)``) against the exact sequential rule
+    -- q, flip mask and has_cross equal -- and a second call bit-identical;
+    ``rng=None`` through ``bfrt_select`` (the kernel finds the range).  The
+    histogram kernel against its plain version: counts exact, sums to
+    REL_TOL relative, two runs bit-identical.  Returns the sums' max abs
+    error."""
     import torch
-    from repro_torch.kernels.bfrt import (bfrt_histogram,
+    from repro_torch.kernels.bfrt import (Selector, bfrt_histogram,
                                           bfrt_histogram_plain, bfrt_select,
                                           bfrt_sequential, bucket_edges,
                                           edges_from_range)
@@ -243,7 +264,16 @@ def bfrt_check(ratio, cost, budget, rng=None) -> float:
                           bucket_edges(ratio).view(torch.int64)),
               "bfrt: edges from pricing's ratio range differ from "
               "bucket_edges(ratio)")
-    q, flips, ok = bfrt_select(ratio, cost, budget, rng=rng)
+        select = Selector(ratio.shape[0], ratio.device)
+        b = torch.as_tensor(budget, dtype=torch.float64,
+                            device=ratio.device).reshape(1)
+        runs = [tuple(x.clone() for x in select(ratio, cost, b, rng=rng))
+                for _ in range(2)]
+    else:
+        runs = [bfrt_select(ratio, cost, budget) for _ in range(2)]
+    q, flips, ok = runs[0]
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "bfrt select: two runs differ")
     check(bool(ok) == want[2], "bfrt has_cross differs from the sequential "
                                "rule")
     if want[2]:
@@ -263,18 +293,35 @@ def bfrt_check(ratio, cost, budget, rng=None) -> float:
 
 
 def bfrt_times(ratio, cost, budget, rng=None) -> dict:
-    from repro_torch.kernels.bfrt import (bfrt_histogram,
-                                          bfrt_histogram_plain, bfrt_select,
-                                          bucket_edges)
-    edges = bucket_edges(ratio)
+    """The per-pivot select as the pivot loop makes it (a ``Selector`` made
+    once, the budget a device value, ``rng`` pricing's range: computed
+    here when not given): wall ms per call back to back, its kernels'
+    device ms and launches per call (profiler), against the plain select;
+    the histogram kernel alone beside it."""
+    import torch
+    from repro_torch.kernels import bfrt
+    from repro_torch.kernels.pricing import ratio_range_plain
+    edges = bfrt.bucket_edges(ratio)
     N, NB = ratio.shape[0], edges.shape[0]
+    if rng is None:
+        rng = ratio_range_plain(ratio)
+    b = torch.as_tensor(budget, dtype=torch.float64,
+                        device=ratio.device).reshape(1)
+    select = bfrt.Selector(N, ratio.device)
+    # bytes: ratio and cost read, the range and the budget read, q, the
+    # flip mask and has_cross written; operations: the bucket search
     return _numbers(
-        f"N={N} NB={NB} f64", 16 * N + NB * 8 + 2 * NB * 8,
+        f"N={N} NB={NB} f64", 16 * N + 24 + 8 + N + 1,
         N * (int(np.log2(NB)) + 2),
-        timed_ms(lambda: bfrt_histogram(ratio, cost, edges), 200),
-        timed_ms(lambda: bfrt_histogram_plain(ratio, cost, edges), 50),
-        None, select_ms=timed_ms(lambda: bfrt_select(ratio, cost, budget),
-                                 50))
+        timed_ms(lambda: select(ratio, cost, b, rng=rng), 200),
+        timed_ms(lambda: bfrt.bfrt_select_plain(ratio, cost, b, rng=rng),
+                 20), None,
+        **per_call_device(lambda: select(ratio, cost, b, rng=rng), 20, bfrt,
+                          "bfrt_"),
+        hist_ms=timed_ms(lambda: bfrt.bfrt_histogram(ratio, cost, edges),
+                         200),
+        hist_plain_ms=timed_ms(
+            lambda: bfrt.bfrt_histogram_plain(ratio, cost, edges), 50))
 
 
 def segstats_check(vals, ids, G) -> float:
@@ -453,17 +500,45 @@ def kernel_pricing(dev, N: int = 100_004):
 
 
 def kernel_bfrt(dev, N: int = 100_004):
+    """Fixed cases: 30% of N eligible at random ratios (the grid path, and
+    at the main path's N = 1,215 the one-CTA path), every ratio equal, and
+    one outlier that crowds the rest into bucket 0 (both crowded: the
+    refinement); each checked at four budgets with the range as pricing
+    gives it, and the random case once more without it."""
     import torch
+    from repro_torch.kernels.pricing import ratio_range_plain
     rng = np.random.default_rng(2)
-    r = np.where(rng.random(N) < 0.3, rng.uniform(0, 10, N), np.inf)
-    c = np.where(np.isfinite(r), rng.uniform(0.1, 2, N), 0.0)
-    ratio = torch.as_tensor(r, dtype=torch.float64, device=dev)
-    cost = torch.as_tensor(c, dtype=torch.float64, device=dev)
-    err = max(bfrt_check(ratio, cost, budget)
-              for budget in (0.5, 100.0, 0.3 * c.sum(), 2 * c.sum()))
-    out = bfrt_times(ratio, cost, 100.0)
-    say("kernel bfrt_histogram", max_abs_err=err, q_and_flips="exact", **out)
-    return err, out
+    out = {}
+    worst = 0.0
+    for label, n in (("random", N), ("random", 1215), ("all equal", N),
+                     ("crowded bucket 0", N)):
+        c = rng.uniform(0.1, 2, n)
+        if label == "random":
+            r = np.where(rng.random(n) < 0.3, rng.uniform(0, 10, n), np.inf)
+            c = np.where(np.isfinite(r), c, 0.0)
+        elif label == "all equal":
+            r = np.full(n, 2.5)
+        else:
+            r = rng.uniform(0, 1, n)
+            r[n // 2] = 1e6
+        ratio = torch.as_tensor(r, dtype=torch.float64, device=dev)
+        cost = torch.as_tensor(c, dtype=torch.float64, device=dev)
+        rr = ratio_range_plain(ratio)
+        tot = c.sum()
+        err = max(bfrt_check(ratio, cost, budget, rr)
+                  for budget in (0.5, 0.3 * tot + 0.0123, 0.77 * tot + 0.007,
+                                 2 * tot))
+        if label == "random":
+            bfrt_check(ratio, cost, 0.3 * tot + 0.0123)
+        worst = max(worst, err)
+        key = f"{label} N={n}"
+        out[key] = bfrt_times(ratio, cost, 0.3 * tot + 0.0123, rr)
+        say(f"kernel bfrt_select[{key}]", max_abs_err=err,
+            q_and_flips="exact", **out[key])
+    return worst, dict(out[f"random N={N}"],
+                       main_path_n=out["random N=1215"],
+                       all_equal=out[f"all equal N={N}"],
+                       crowded=out[f"crowded bucket 0 N={N}"])
 
 
 def kernel_segstats(dev, n: int = 10_000_000):
@@ -688,17 +763,22 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
     short_only(partition)()
     _sync(device)
     before_s = time.perf_counter() - t0
+    profiled = []                     # the profiled h=3 solve's result
     for label, wall, fn in (
             ("partition, one-thread scan only", before_s,
              short_only(partition)),
             ("partition", part_s, partition),
-            ("solve h=3", s3, lambda: solve(eng, q3))):
+            ("solve h=3", s3, lambda: profiled.append(solve(eng, q3)[0]))):
         busy_ms, ops, reads, ours, top = device_profile(fn)
         scan_ms = sum(ms for k, (ms, _) in ours.items()
                       if k.startswith("dlv_scan_"))
+        per_pivot = {"pivots": profiled[0].ps_stats.lp_iters,
+                     "device_ops_per_pivot":
+                         ops / max(profiled[0].ps_stats.lp_iters, 1)} \
+            if profiled else {}
         say(f"profile {label}", wall_s=wall, device_busy_s=busy_ms / 1e3,
             idle_share=1.0 - busy_ms / 1e3 / wall, scan_device_ms=scan_ms,
-            device_ops=ops, device_to_host=reads,
+            device_ops=ops, **per_pivot, device_to_host=reads,
             kernels=json.dumps(ours), top=json.dumps(top))
     say("profile pivots", layer_lps=eng.hierarchy.L,
         layer_lp_pivots=r3.ps_stats.lp_iters)
@@ -726,7 +806,7 @@ def device_profile(fn):
         if ev.key.startswith("Memcpy DtoH"):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
-        if name.startswith(("pricing_kernel", "bfrt_hist_", "segstats_",
+        if name.startswith(("pricing_kernel", "bfrt_", "segstats_",
                             "dlv_scan_", "flash_fwd_")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
@@ -745,8 +825,8 @@ def device_profile(fn):
 
 # the names by which the main path's modules call each kernel's wrapper
 CALL_SITES = {"pricing": ("repro_torch.kernels.pricing", "Pricer.__call__"),
-              "bfrt_histogram": ("repro_torch.core.lp_kernel",
-                                 "bfrt_select"),
+              "bfrt_histogram": ("repro_torch.kernels.bfrt",
+                                 "Selector.__call__"),
               "segment_stats": ("repro_torch.core.dlv", "segment_stats"),
               "dlv_scan": ("repro_torch.core.dlv", "dlv_scan"),
               "flash_attention": ("repro_torch.models.attention",
@@ -826,9 +906,10 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
                              lambda *a: pricing_check(price_args(*a)),
                              lambda p, *_: p.A.shape[1])
     out["pricing"] = (max(res), pricing_times(price_args(*a)))
-    res, (a, kw), _ = compare("bfrt_histogram", bfrt_check,
-                              lambda r, *_: r.shape[0])
-    out["bfrt_histogram"] = (max(res), bfrt_times(*a, **kw))
+    res, (a, kw), _ = compare("bfrt_histogram",
+                              lambda sel, *a, **kw: bfrt_check(*a, **kw),
+                              lambda sel, r, *_: r.shape[0])
+    out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
     res, (a, _), _ = compare("segment_stats", segstats_check,
                              lambda v, *_: v.shape[0])
     out["segment_stats"] = (max(res), segstats_times(*a))
@@ -1244,9 +1325,10 @@ def main() -> None:
         card=json.dumps(card))
     print(card, flush=True)
     ptxas_report(_build)
-    say("ptxas dlv_scan", report=json.dumps(
-        [ln.strip() for ln in _build.build_log("dlv_scan").splitlines()
-         if re.search(r"entry function|registers|spill", ln)]))
+    for name in ("dlv_scan", "bfrt"):
+        say(f"ptxas {name}", report=json.dumps(
+            [ln.strip() for ln in _build.build_log(name).splitlines()
+             if re.search(r"entry function|registers|spill", ln)]))
 
     phase_s = {"build": build_s}
 

@@ -11,8 +11,11 @@
 raises at construction when CUDA is asked for and absent.  The layer LPs
 run on the host numpy twin unless ``lp_solver=`` names the device twin
 (``repro_torch.core.lp_kernel.solve_lp_kernel``), which then runs on the
-engine's device.  SketchRefine, the cross-query cache and streamed
-relations are later work.
+engine's device.  SketchRefine, the cross-query cache, streamed
+relations and mesh distribution are later work: the reference's knobs for
+them (``cache=``, ``session``, ``layer0_backend=``, ``chunk_rows=``,
+``memory_rows=``, ``mesh=``, ``solve_sketchrefine``) raise
+``NotImplementedError`` naming their ROADMAP queue-1 item.
 """
 from __future__ import annotations
 
@@ -34,11 +37,32 @@ from repro_torch.core.shading import progressive_shading
 from repro_torch.device import resolve_device
 
 
+def _unported(what: str, item: str):
+    """The error of a reference feature the port does not have yet."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
+                               f"item {item})")
+
+
 class PackageQueryEngine:
     def __init__(self, table, attrs: Sequence[str],
                  *, d_f: int = 100, alpha: int = 100_000,
                  seed: int = 0, partitioner_backend: str = "dlv",
-                 device="cuda"):
+                 layer0_backend: Optional[str] = None,
+                 chunk_rows: Optional[int] = None,
+                 memory_rows: Optional[int] = None, mesh=None,
+                 cache=None, device="cuda"):
+        for name, value, item in (
+                ("layer0_backend=", layer0_backend, "4: streamed relations "
+                 "and bucketing"),
+                ("chunk_rows=", chunk_rows, "4: streamed relations and "
+                 "bucketing"),
+                ("memory_rows=", memory_rows, "4: streamed relations and "
+                 "bucketing"),
+                ("mesh=", mesh, "6: distributed pricing"),
+                ("cache=", None if cache is False else cache,
+                 "3: cross-query cache")):
+            if value is not None:
+                raise _unported(f"PackageQueryEngine({name})", item)
         self.table: Relation = as_relation(table, columns=list(attrs))
         self.attrs = list(attrs)
         self.d_f = d_f
@@ -52,6 +76,9 @@ class PackageQueryEngine:
     @property
     def n(self) -> int:
         return self.table.num_rows
+
+    def session(self, seed: int = 0) -> "PackageQueryEngine":
+        raise _unported("PackageQueryEngine.session", "3: cross-query cache")
 
     def partition(self) -> "PackageQueryEngine":
         t0 = time.time()
@@ -104,6 +131,10 @@ class PackageQueryEngine:
         res.report = report.finalize(res.feasible)
         res.status += f" t={time.time() - t0:.3f}s"
         return res
+
+    def solve_sketchrefine(self, query: PackageQuery, *args, **kwargs):
+        raise _unported("PackageQueryEngine.solve_sketchrefine",
+                       "5: SketchRefine")
 
     def solve_direct(self, query: PackageQuery,
                      ilp_kwargs: Optional[dict] = None) -> PackageResult:

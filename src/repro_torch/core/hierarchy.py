@@ -164,9 +164,9 @@ class Hierarchy:
     def get_group(self, l: int, t: np.ndarray) -> int:
         return self.layers[l].part.get_group(t)
 
-    def get_group_batch(self, l: int, T: np.ndarray) -> np.ndarray:
+    def get_group_batch(self, l: int, T: np.ndarray, **kw) -> np.ndarray:
         """Vectorized split-tree descent for a whole batch of tuples."""
-        return self.layers[l].part.get_group_batch(T)
+        return self.layers[l].part.get_group_batch(T, **kw)
 
     def group_box(self, l: int, g: int):
         part = self.layers[l].part

@@ -9,8 +9,9 @@ on the hand-written kernels:
   * pricing (alpha, BFRT ratios, flip costs, the finite ratios' range)
     -> ``kernels.pricing`` — a single fused pass over A per pivot, through
     one ``Pricer`` per solve (the loop constants checked once);
-  * BFRT breakpoint selection -> ``kernels.bfrt`` (bucketed two-pass
-    select, pass 1 the histogram kernel, its edges from pricing's range).
+  * BFRT breakpoint selection -> ``kernels.bfrt`` (the whole bucketed
+    select in one launch, its edges from pricing's range), through one
+    ``Selector`` per solve.
 
 The loop is a Python loop over pivots on device tensors.  Every decision
 inside a pivot is a ``torch.where`` on the device, and the refactorization
@@ -35,7 +36,7 @@ from repro_torch.core.guard import (DRIFT_TOL, NumericalMonitor,
 from repro_torch.core.lp import (BUDGET, INFEASIBLE, ITER_LIMIT, OPTIMAL,
                                  LPResult, REFACTOR_EVERY, _prep)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.bfrt import bfrt_select
+from repro_torch.kernels.bfrt import Selector
 from repro_torch.kernels.pricing import Pricer
 
 
@@ -68,6 +69,7 @@ def _solve(cf, A, l, u, basis0, at_upper0, max_iters: int,
     width = torch.where(torch.isfinite(u - l), u - l, 1e30)
     hi_safe = lo_safe + width
     price = Pricer(A, lo_safe, hi_safe)      # checks them once
+    select = Selector(N, dev)
 
     basis = basis0
     in_basis = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -119,10 +121,8 @@ def _solve(cf, A, l, u, basis0, at_upper0, max_iters: int,
         state_code = torch.where(in_basis, 2, torch.where(at_upper, 1, 0)
                                  ).to(torch.int32)
         alpha, ratio, cost, rng = price(rho, d, state_code, s)
-        # ---- CUDA kernel (pass 1) + device pass 2: bucketed BFRT ----
-        q, flip_mask, has_cross = bfrt_select(ratio, cost, delta.abs(),
-                                              rng=rng)
-        q = q.reshape(1)
+        # ---- CUDA kernel: the bucketed BFRT select, one launch ----
+        q, flip_mask, has_cross = select(ratio, cost, delta.abs(), rng=rng)
 
         stale = since > 0
         w = Binv @ A[:, q].squeeze(1)

@@ -135,7 +135,12 @@ class Partition:
     def get_group(self, t: np.ndarray) -> int:
         return self.tree.descend(np.asarray(t))
 
-    def get_group_batch(self, T: np.ndarray):
+    def get_group_batch(self, T: np.ndarray, *, jit: bool = False):
+        if jit:
+            raise NotImplementedError(
+                "the device split-tree descent (get_group_batch(jit=True)) "
+                "is not ported yet (ROADMAP queue 1, item 9: "
+                "Hierarchy.append)")
         return self.tree.descend_batch(T)
 
 
@@ -163,10 +168,19 @@ def available_backends():
     return sorted(_BACKENDS)
 
 
+# the reference's other backends, by their ROADMAP queue-1 item
+_UNPORTED = {"kdtree": "1: core/kdtree.py",
+             "bucketing": "4: streamed relations and bucketing"}
+
+
 def fit(X, *, backend: str = "dlv", **kwargs) -> Partition:
     """Partition the (n, k) array ``X`` with the named backend (backend
     keywords such as ``d_f``, ``rng`` and ``device`` pass through)."""
     _ensure_backends()
+    if backend in _UNPORTED:
+        raise NotImplementedError(f"the {backend!r} partitioner backend is "
+                                  f"not ported yet (ROADMAP queue 1, item "
+                                  f"{_UNPORTED[backend]})")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown partitioner backend {backend!r}; "
                          f"have {sorted(_BACKENDS)}")

@@ -134,6 +134,136 @@ def test_bfrt_select_kernel(dev):
             np.testing.assert_array_equal(flips.cpu().numpy(), wf)
 
 
+def _select_case(kind, N, rng):
+    """(ratio, cost, budgets) of one kind: random, ties (five distinct
+    ratios), all equal, an outlier that crowds the rest into bucket 0, no
+    eligible column, or the crossing at that outlier in bucket 127 (with
+    a range that stops short of it)."""
+    c = rng.uniform(0.1, 2, N)
+    if kind == "random":
+        r = np.where(rng.random(N) < 0.3, rng.uniform(0, 10, N), np.inf)
+    elif kind == "ties":
+        r = np.where(rng.random(N) < 0.5, rng.integers(0, 5, N) * 1.0,
+                     np.inf)
+    elif kind == "all_equal":
+        r = np.full(N, 2.5)
+    elif kind in ("outlier", "bucket_127"):
+        r = rng.uniform(0, 1, N)
+        r[N // 2] = 1e6
+    else:
+        r = np.full(N, np.inf)
+    c = np.where(np.isfinite(r), c, 0.0)
+    tot = c.sum()
+    if kind == "bucket_127":
+        return r, c, (tot - 0.5 * c[N // 2],)
+    return r, c, (0.5, 0.31 * tot + 0.0123, 0.77 * tot + 0.0071,
+                  2 * tot + 1)
+
+
+@pytest.mark.parametrize("N", [1215, bfrt.ONE_CTA_MAX, bfrt.ONE_CTA_MAX + 1,
+                               100_004])
+@pytest.mark.parametrize("kind", ["random", "ties", "all_equal", "outlier",
+                                  "bucket_127", "none"])
+def test_bfrt_selector_is_the_sequential_rule(dev, N, kind):
+    """Both launch paths (one CTA up to ONE_CTA_MAX columns, the grid
+    above), crowded buckets (above SELECT_CAP columns: the refinement)
+    included: q, flips and has_cross equal the sequential rule and the
+    kernel's torch mirror, and a second run is bit-identical."""
+    rng = np.random.default_rng(N + len(kind))
+    r, c, budgets = _select_case(kind, N, rng)
+    ratio, cost = _t(r, dev), _t(c, dev)
+    rr = pricing.ratio_range_plain(ratio)
+    if kind == "bucket_127":           # a range short of the outlier
+        rr = _t([r.min(), np.sort(r)[-2]], dev)
+    select = bfrt.Selector(N, dev)
+    for budget in budgets:
+        b = _t([budget], dev)
+        before = bfrt.launches
+        q, flips, ok = (x.clone() for x in select(ratio, cost, b, rng=rr))
+        assert bfrt.launches == before + (1 if N <= bfrt.ONE_CTA_MAX else 3)
+        q2, flips2, ok2 = select(ratio, cost, b, rng=rr)
+        assert torch.equal(q, q2) and torch.equal(flips, flips2) \
+            and torch.equal(ok, ok2)
+        wq, wf, wok = bfrt.bfrt_sequential(r, c, budget)
+        assert bool(ok) == wok
+        if wok:
+            assert int(q) == wq
+            np.testing.assert_array_equal(flips.cpu().numpy(), wf)
+        mq, mf, mok = bfrt.bfrt_select_refined_plain(ratio, cost, budget,
+                                                     rng=rr)
+        assert int(q) == int(mq) and bool(ok) == bool(mok)
+        assert torch.equal(flips, mf)
+
+
+def test_bfrt_selector_reused_over_pivots(dev):
+    """One Selector, 50 pivots of varied ratios, costs and budgets (the
+    pivot loop's use), at the main path's N and above the one-CTA limit:
+    each equals the sequential rule."""
+    rng = np.random.default_rng(9)
+    for N, pivots in ((1215, 50), (20_000, 10)):
+        select = bfrt.Selector(N, dev)
+        for i in range(pivots):
+            frac = rng.uniform(0.05, 0.9)
+            r = np.where(rng.random(N) < frac, rng.uniform(0, 10, N) ** 2,
+                         np.inf)
+            r[rng.random(N) < 0.1] = 0.0
+            c = np.where(np.isfinite(r), rng.uniform(0.01, 3, N), 0.0)
+            budget = rng.uniform(0, 1.2) * c.sum()
+            ratio = _t(r, dev)
+            q, flips, ok = select(ratio, _t(c, dev), _t([budget], dev),
+                                  rng=pricing.ratio_range_plain(ratio))
+            wq, wf, wok = bfrt.bfrt_sequential(r, c, budget)
+            assert bool(ok) == wok, (N, i)
+            if wok:
+                assert int(q) == wq, (N, i)
+                np.testing.assert_array_equal(flips.cpu().numpy(), wf)
+
+
+def test_bfrt_selector_rejects_bad_inputs(dev):
+    N = 300
+    select = bfrt.Selector(N, dev)
+    ratio = torch.zeros(N, dtype=torch.float64, device=dev)
+    b = torch.ones(1, dtype=torch.float64, device=dev)
+    rr = pricing.ratio_range_plain(ratio)
+    select(ratio, ratio, b, rng=rr)
+    for bad in ((ratio.float(), ratio, b, rr), (ratio[:-1], ratio, b, rr),
+                (ratio.cpu(), ratio, b, rr), (ratio, ratio, b.repeat(2), rr),
+                (ratio, ratio, b.cpu(), rr), (ratio, ratio, b, rr[:1]),
+                (torch.zeros(2 * N, dtype=torch.float64, device=dev)[::2],
+                 ratio, b, rr)):
+        with pytest.raises(ValueError):
+            select(*bad[:3], rng=bad[3])
+    with pytest.raises(ValueError):
+        bfrt.Selector(0, dev)
+    with pytest.raises(ValueError):
+        bfrt.Selector(N, dev, num_buckets=64)
+
+
+@pytest.mark.parametrize("N, want", [(1215, 1), (100_004, 3)])
+def test_bfrt_selector_is_its_kernels_alone(dev, N, want):
+    """A Selector call issues the select's own launches and nothing else:
+    no other kernel, copy or fill on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(4)
+    r, c, _ = _select_case("random", N, rng)
+    ratio, cost = _t(r, dev), _t(c, dev)
+    rr = pricing.ratio_range_plain(ratio)
+    b = _t([0.3 * c.sum()], dev)
+    select = bfrt.Selector(N, dev)
+    select(ratio, cost, b, rng=rr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        select(ratio, cost, b, rng=rr)
+        torch.cuda.synchronize()
+    names = {ev.key: ev.count for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA}
+    assert names and all(k.split("(")[0].replace("void ", "")
+                         .startswith("bfrt_") for k in names), names
+    assert sum(names.values()) == want, names
+
+
 def test_segment_stats_kernel(dev):
     rng = np.random.default_rng(2)
     n, k, G = 50_000, 4, 300
