@@ -14,7 +14,11 @@ package.  Phases, one line each (or one per kernel):
    exists, the nearest single PyTorch call); the BFRT select ("kernel
    bfrt_select[...]") at N = 100,004 and 1,215 with random ratios, with
    every ratio equal and with one outlier crowding bucket 0, each with
-   its device ms and launches per call; for the DLV scan also its
+   its device ms and launches per call; segment stats at 10M x 4 under
+   five sortings (G=100k, 81, 1, every row its own group, 231 with one
+   group of 476,724 rows), each also bit-equal to its torch mirror
+   ``segment_stats_tiled_plain`` and timed at every candidate tile
+   ("segstats tile"); for the DLV scan also its
    long path's counters per case ("... long path": speculative cuts,
    windows verified, repairs, cycles speculating and verifying, the
    longest window), every window of the 10M case checked whole, and each
@@ -32,7 +36,9 @@ package.  Phases, one line each (or one per kernel):
 5. main-path inputs: the main path of phase 4 run once more with a copy of
    the arguments of every kernel call kept, and each kernel held against
    its plain version on exactly those inputs; the times in the ``kernels``
-   line are taken at the largest of them.
+   line are taken at the largest of them; each segment stats call is
+   timed with the gather that precedes it in ``dlv_rounds``
+   ("main-path segment_stats call i").
 
 The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
 ``torch.Generator``):
@@ -324,14 +330,65 @@ def bfrt_times(ratio, cost, budget, rng=None) -> dict:
             lambda: bfrt.bfrt_histogram_plain(ratio, cost, edges), 50))
 
 
+SEGSTATS_BIG = 476_724    # the longest DLV window of the 10M build
+
+
+def segstats_case(rng, case: str, n: int, dev, k: int = 4):
+    """(vals (n, k), sorted ids, G) on ``dev`` for a named sorting: "G=81"
+    or "G=100k" (uniform draws of G ids), "G=1", "G=n" (every row its own
+    group), "skewed 231" (231 groups, one of ``SEGSTATS_BIG`` rows, or of
+    n/2 if n is smaller), "gaps" (two groups in three empty, and some at
+    both ends), "one group 95%", "tile edges" (runs of 1-3 whole tiles:
+    every group ends on a tile edge), "n < tile" (37 groups)."""
+    import torch
+    from repro_torch.kernels.segstats import tile_rows
+    if case == "G=1":
+        G, ids = 1, np.zeros(n, np.int64)
+    elif case == "G=n":
+        G, ids = n, np.arange(n)
+    elif case == "skewed 231":
+        big = min(SEGSTATS_BIG, n // 2)
+        sizes = np.full(231, (n - big) // 230)
+        sizes[0] += n - big - sizes.sum() + sizes[100]
+        sizes[100] = big
+        G, ids = 231, np.repeat(np.arange(231), sizes)
+    elif case == "gaps":
+        G = n // 2
+        ids = np.sort(rng.choice(np.arange(7, G - 7, 3), n))
+    elif case == "one group 95%":
+        G = 20
+        ids = np.sort(np.where(rng.random(n) < 0.95, 5,
+                               rng.integers(0, G, n)))
+    elif case == "tile edges":
+        T, m = tile_rows(k), n // tile_rows(k) + 1
+        ids = np.repeat(np.arange(m), T * rng.integers(1, 4, m))[:n]
+        G = int(ids[-1]) + 1
+    elif case == "n < tile":
+        G = 37
+        ids = np.sort(rng.integers(0, G, n))
+    else:
+        G = int(case[2:].replace("k", "000"))
+        ids = np.sort(rng.integers(0, G, n))
+    return (torch.as_tensor(rng.normal(size=(n, k)), dtype=torch.float64,
+                            device=dev),
+            torch.as_tensor(ids, dtype=torch.int64, device=dev), G)
+
+
 def segstats_check(vals, ids, G) -> float:
     """Kernel vs plain segment stats: counts exact, sums to REL_TOL of the
-    group's sum of |v|, sums of squares to REL_TOL relative, two runs
-    bit-identical.  Returns the max abs error."""
+    group's sum of |v|, sums of squares to REL_TOL relative; bit-equal to
+    ``segment_stats_tiled_plain`` (the kernel's order of additions) and to
+    a second run.  Returns the max abs error."""
     import torch
     from repro_torch.kernels.segstats import (segment_stats,
-                                              segment_stats_plain)
+                                              segment_stats_plain,
+                                              segment_stats_tiled_plain)
     cnt, sm, sq = segment_stats(vals, ids, G)
+    mirror = segment_stats_tiled_plain(vals, ids, G)
+    check(all(torch.equal(x, y) for x, y in zip((cnt, sm, sq), mirror)),
+          "segment_stats differs from segment_stats_tiled_plain (its order "
+          "of additions)")
+    del mirror
     cnt_p, sm_p, sq_p = segment_stats_plain(vals, ids, G)
     check(torch.equal(cnt, cnt_p), "segment_stats counts differ")
     mass = torch.zeros((G, vals.shape[1]), dtype=torch.float64,
@@ -349,18 +406,27 @@ def segstats_check(vals, ids, G) -> float:
     return err
 
 
-def segstats_times(vals, ids, G) -> dict:
+def segstats_times(vals, ids, G, plain: bool = True) -> dict:
+    """The kernel's ms per call back to back, its device ms and launches
+    per call (profiler), the longest group, against the plain version and
+    ``index_add_`` of the sums alone (skipped without ``plain``)."""
     import torch
-    from repro_torch.kernels.segstats import (segment_stats,
-                                              segment_stats_plain)
+    from repro_torch.kernels import segstats
     n, k = vals.shape
     acc = torch.zeros((G, k), dtype=torch.float64, device=vals.device)
+    longest = int(torch.unique_consecutive(ids, return_counts=True)[1]
+                  .max())
     return _numbers(
         f"n={n} k={k} G={G} f64 sorted ids",
         n * k * 8 + n * 8 + G * (1 + 2 * k) * 8, 3 * n * k + n,
-        timed_ms(lambda: segment_stats(vals, ids, G), 10),
-        timed_ms(lambda: segment_stats_plain(vals, ids, G), 5),
-        timed_ms(lambda: acc.index_add_(0, ids, vals), 10))
+        timed_ms(lambda: segstats.segment_stats(vals, ids, G), 10),
+        timed_ms(lambda: segstats.segment_stats_plain(vals, ids, G), 5)
+        if plain else None,
+        timed_ms(lambda: acc.index_add_(0, ids, vals), 10)
+        if plain else None,
+        longest_group=longest, tile=segstats.tile_rows(k),
+        **per_call_device(lambda: segstats.segment_stats(vals, ids, G), 10,
+                          segstats, "segstats_"))
 
 
 def row_step_check(vals, Ls, beta, cuts, max_rows: int = 2048,
@@ -541,24 +607,44 @@ def kernel_bfrt(dev, N: int = 100_004):
                        crowded=out[f"crowded bucket 0 N={N}"])
 
 
+SEGSTATS_TILES = (2048, 4096, 8192, 16_384, 32_768)
+
+
 def kernel_segstats(dev, n: int = 10_000_000):
-    """Two sortings of 10M x 4 rows: G=100k groups of ~100 rows, and round
-    1 of the 10M build's shape -- 81 groups of ~123k rows, so that every
-    run crosses ~960 of the kernel's 128-row chunks."""
+    """Sortings of 10M x 4 rows: G=100k groups of ~100 rows; 81 groups of
+    ~123k rows (round 1 of the 10M build's shape); one group; every row
+    its own group; 231 groups with one of the build's longest window
+    (476,724 rows).  Each checked against the plain version and the
+    kernel's mirror and timed, then timed at every candidate tile
+    ("segstats tile"; bit-equal to the mirror at that tile)."""
     import torch
+    from repro_torch.kernels.segstats import (TILE_ROWS,
+                                              segment_stats,
+                                              segment_stats_tiled_plain)
     rng = np.random.default_rng(3)
-    k = 4
-    vals = torch.as_tensor(rng.normal(size=(n, k)), dtype=torch.float64,
-                           device=dev)
-    worst, out = 0.0, {}
-    for G in (100_000, 81):
-        ids = torch.as_tensor(np.sort(rng.integers(0, G, n)), device=dev)
+    worst, out, tiles = 0.0, {}, {}
+    for case in ("G=100k", "G=81", "G=1", "G=n", "skewed 231"):
+        vals, ids, G = segstats_case(rng, case, n, dev)
         err = segstats_check(vals, ids, G)
         worst = max(worst, err)
-        out[G] = segstats_times(vals, ids, G)
-        say("kernel segment_stats", max_abs_err=err, **out[G],
+        out[case] = segstats_times(vals, ids, G)
+        say(f"kernel segment_stats[{case}]", max_abs_err=err,
+            mirror="bit-equal", **out[case],
             library="index_add_ (sums only: no count, sumsq)")
-    return worst, dict(out[100_000], round1_shape=out[81])
+        for T in SEGSTATS_TILES:
+            got = segment_stats(vals, ids, G, tile=T)
+            check(all(torch.equal(x, y) for x, y in zip(
+                got, segment_stats_tiled_plain(vals, ids, G, tile=T))),
+                f"segment_stats at tile {T} differs from its mirror")
+            tiles.setdefault(T, {})[case] = timed_ms(
+                lambda: segment_stats(vals, ids, G, tile=T), 10)
+        del vals, ids
+    for T, ms in tiles.items():
+        say("segstats tile", tile=T, chosen=T == TILE_ROWS,
+            **{f"ms_{k.replace(' ', '_')}": v for k, v in ms.items()})
+    return worst, dict(out["G=100k"], round1_shape=out["G=81"],
+                       one_group=out["G=1"], every_row=out["G=n"],
+                       skewed=out["skewed 231"])
 
 
 def _segments(rng, lens):
@@ -875,9 +961,22 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
     call)}."""
     import torch
     from repro_torch import kernels
+    from repro_torch.core import dlv
     kernels.reset_launches()
+    gathers = []                 # each segment_stats call's gather inputs
     with capturing() as calls:
-        main_path(table, q3, q5, alpha, device)
+        kept = dlv.segment_stats
+
+        def with_gather(*a, **kw):
+            f = sys._getframe(1).f_locals    # dlv_rounds' frame
+            gathers.append((f["Xd"], f["idxs"].clone(), f["gshift_d"]))
+            return kept(*a, **kw)
+
+        dlv.segment_stats = with_gather
+        try:
+            main_path(table, q3, q5, alpha, device)
+        finally:
+            dlv.segment_stats = kept
     again = kernels.launch_counts()
     say("main-path inputs", calls=json.dumps(
         {k: len(v) for k, v in calls.items()}),
@@ -913,6 +1012,17 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
     res, (a, _), _ = compare("segment_stats", segstats_check,
                              lambda v, *_: v.shape[0])
     out["segment_stats"] = (max(res), segstats_times(*a))
+    # every call, with the gather before it in dlv_rounds,
+    # (Xd[idxs] - gshift_d).contiguous(), timed on the same inputs
+    for c, ((args, _), (Xd, idxs, gs)) in enumerate(
+            zip(calls["segment_stats"], gathers)):
+        nums = segstats_times(*args, plain=False)
+        say(f"main-path segment_stats call {c}", n=args[0].shape[0],
+            G=args[2], longest_group=nums["longest_group"], ms=nums["ms"],
+            device_ms=nums["device_ms"], bound_ms=nums["bound_ms"],
+            launches_per_call=nums["launches_per_call"],
+            gather_ms=timed_ms(lambda: (Xd[idxs] - gs).contiguous(), 10))
+    del gathers
     res, (a, kw), big = compare("dlv_scan",
                                 lambda *a, **kw: dlv_check(*a, **kw)[1:],
                                 lambda v, *_: len(v))
@@ -1325,7 +1435,7 @@ def main() -> None:
         card=json.dumps(card))
     print(card, flush=True)
     ptxas_report(_build)
-    for name in ("dlv_scan", "bfrt"):
+    for name in ("dlv_scan", "bfrt", "segstats"):
         say(f"ptxas {name}", report=json.dumps(
             [ln.strip() for ln in _build.build_log(name).splitlines()
              if re.search(r"entry function|registers|spill", ln)]))

@@ -30,11 +30,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per-source extra flags: the scans must not contract a*b+c into FMAs,
-# or their rounding (and therefore a cut placed near beta) moves; flash,
-# the scan and the BFRT select keep ptxas's report of registers, shared
-# memory and spills (build_log)
+# or their rounding (and therefore a cut placed near beta) moves, nor
+# segment stats, or its torch mirror could not match it bit for bit;
+# flash, the scan, segment stats and the BFRT select keep ptxas's report
+# of registers, shared memory and spills (build_log)
 EXTRA_FLAGS = {"pricing": ("-fmad=false",),
                "bfrt": ("-Xptxas", "-v"),
+               "segstats": ("-fmad=false", "-Xptxas", "-v"),
                "dlv_scan": ("-fmad=false", "-Xptxas", "-v"),
                "flash_attn": ("-Xptxas", "-v")}
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn")

@@ -8,8 +8,9 @@ fixture, never at import).  On the card run them with
 (``--noconftest``: ``tests/conftest.py`` imports the JAX reference, which
 this file does not need.)
 
-Small shapes; ``chip_smoke.py`` repeats these checks at the main path's
-shapes.  Tolerances: exact for counts, cuts, q and flip masks; 1e-12
+Small shapes (segment stats at 1-3M rows, so that its adversarial
+sortings span many tiles); ``chip_smoke.py`` repeats these checks at the
+main path's shapes.  Tolerances: exact for counts, cuts, q and flip masks; 1e-12
 relative for float64 sums and products summed in another order; flash
 attention is held to the card check's bar, ``chip_smoke.flash_agreement``
 (bfloat16: one bf16 ulp plus 1e-3 rms(plain) per element and a 5e-3
@@ -274,6 +275,86 @@ def test_segment_stats_kernel(dev):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("case, n", [
+    ("G=1", 2_000_000), ("G=n", 1_000_003), ("gaps", 2_000_000),
+    ("one group 95%", 3_000_000), ("tile edges", 1_500_000),
+    ("skewed 231", 2_500_000), ("n < tile", 5_000)])
+def test_segment_stats_kernel_is_its_mirror(dev, case, n):
+    """Adversarial sortings (``chip_smoke.segstats_case``: one group, every
+    row its own group, empty groups and gaps at both ends, one group of
+    95% of the rows, every group ending on a tile edge, 231 groups with
+    one of 476,724 rows, fewer rows than a tile): the kernel bit-equal to
+    ``segment_stats_tiled_plain`` at its own tile and to a second run,
+    and within ``chip_smoke.segstats_check``'s bars of the plain version
+    (counts exact, sums 1e-12 of the group's |v| mass, sums of squares
+    1e-12 relative)."""
+    cs = _chip_smoke()
+    vals, ids, G = cs.segstats_case(np.random.default_rng(11), case, n, dev)
+    before = segstats.launches
+    got = segstats.segment_stats(vals, ids, G)
+    assert segstats.launches == before + 2
+    want = segstats.segment_stats_tiled_plain(vals, ids, G)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cs.segstats_check(vals, ids, G)
+
+
+@pytest.mark.parametrize("k", range(1, segstats.MAX_K + 1))
+@pytest.mark.parametrize("steps", [1, 3])
+def test_segment_stats_kernel_every_k_and_tile(dev, k, steps):
+    """Every k, at a tile of one step and of three: bit-equal to the
+    mirror at that tile, empty groups zero."""
+    rng = np.random.default_rng(k * 10 + steps)
+    n, G = 300_001, 40_000
+    ids = np.sort(rng.integers(5, G - 5, n))
+    vals = _t(rng.normal(size=(n, k)), dev)
+    tile = steps * segstats.step_rows(k)
+    got = segstats.segment_stats(vals, _t(ids, dev, torch.int64), G,
+                                 tile=tile)
+    want = segstats.segment_stats_tiled_plain(
+        vals, _t(ids, dev, torch.int64), G, tile=tile)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    empty = np.setdiff1d(np.arange(G), ids)
+    assert len(empty) and not bool(got[0][_t(empty, dev, torch.int64)]
+                                   .any())
+
+
+def test_segment_stats_is_its_two_kernels_alone(dev):
+    """A call issues the tile pass and the carry merge, and no other
+    kernel, copy or fill on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cs = _chip_smoke()
+    vals, ids, G = cs.segstats_case(np.random.default_rng(12), "skewed 231",
+                                    1_000_000, dev)
+    segstats.segment_stats(vals, ids, G)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        segstats.segment_stats(vals, ids, G)
+        torch.cuda.synchronize()
+    names = {ev.key.split("(")[0].replace("void ", ""): ev.count
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA}
+    assert sorted(k.split("<")[0] for k in names) == [
+        "segstats_merge", "segstats_tiles"], names
+    assert sum(names.values()) == 2, names
+
+
+def test_segment_stats_rejects_bad_inputs(dev):
+    vals = torch.zeros((100, 4), dtype=torch.float64, device=dev)
+    ids = torch.zeros(100, dtype=torch.int64, device=dev)
+    for bad in (dict(vals=vals.float()), dict(vals=vals[:, :2].t()),
+                dict(vals=torch.zeros((100, 9), dtype=torch.float64,
+                                      device=dev)),
+                dict(ids=ids.int()), dict(ids=ids[:50]),
+                dict(tile=segstats.step_rows(4) + 1), dict(tile=0)):
+        args = dict(vals=vals, ids=ids, num_groups=3) | bad
+        with pytest.raises(ValueError):
+            segstats.segment_stats(**args)
+    got = segstats.segment_stats(vals[:0], ids[:0], 3)
+    assert all(not bool(t.any()) for t in got)
 
 
 def test_dlv_scan_kernel(dev):
