@@ -40,23 +40,50 @@ package.  Phases, one line each (or one per kernel):
    timed with the gather that precedes it in ``dlv_rounds``
    ("main-path segment_stats call i").
 
+The streamed (out-of-core) path:
+
+6. streamed: a 50M-row TPC-H stand-in (``synth_tables``, chunk by chunk
+   from seed 0) written to ``build/streamed/lineitem.npy`` and opened as a
+   ``MemmapRelation``; the engine builds it within ``memory_rows`` =
+   12.5M through the bucketing backend (each bucket's DLV on the card)
+   and solves Q2_TPCH at h=3 and h=5 through the device LP, once, with
+   every launch counted and a copy of every kernel call's arguments kept:
+   buckets, layers, the build's wall split (stats pass, edge passes,
+   spill pass, bucket reads, per-bucket DLV, merge), the peak resident
+   rows of the build and of the solves beside ``memory_rows``, and, the
+   build having run under the profiler, its device busy time, idle share
+   and the bytes and device ms of its copies to the card;
+7. streamed main-path inputs: each kernel held against its plain version
+   on every call kept in phase 6 (the scan's plain version on host
+   copies; the scan calls of the bucket with the largest call also
+   against the row-step scan);
+8. streamed parity: 2M rows built with ``layer0_backend="bucketing"`` as
+   a dict and as a ``MemmapRelation`` on the card, and the memmap on the
+   CPU -- identical layers and gids, the same objective;
+9. sketchrefine: SketchRefine with ``kdtree`` and with ``dlv`` (the
+   partition on the card) and Progressive Shading on a 1M-row table,
+   Q2_TPCH at h=3: statuses, objectives, walls, refine steps.
+
+The data and the spill scratch (``build/streamed``) are removed at the
+end of phase 8, also when a check fails.
+
 The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
 ``torch.Generator``):
 
-6. kernel flash_attention: the flash kernel against its plain version at
+10. kernel flash_attention: the flash kernel against its plain version at
    fixed shapes (S=32,768 causal, and with window 4,096, in bf16; S=4,096
    in float32 at head_dim 64), timed against the plain scan and against
    ``scaled_dot_product_attention`` (achieved TFLOP/s and the ratio of the
    kernel's time to that call's);
-7. lm prefill: ``Model.prefill_logits`` on 2 prompts of 4,096 tokens with
+11. lm prefill: ``Model.prefill_logits`` on 2 prompts of 4,096 tokens with
    every launch count read around it (28 flash launches), then profiled;
-8. lm agreement: a float32 copy of the model, prefill logits at S=64
+12. lm agreement: a float32 copy of the model, prefill logits at S=64
    against 64 ``decode_step``s (2e-3);
-9. lm serve: ``ServingEngine.serve`` with the package-query scheduler, 16
+13. lm serve: ``ServingEngine.serve`` with the package-query scheduler, 16
    requests, per-tick admission and decode numbers, then the first tick
    again from the same seed (identical admission and tokens), then one
    short batch profiled;
-10. lm main-path inputs: the prefill rerun keeping every flash call's
+14. lm main-path inputs: the prefill rerun keeping every flash call's
     arguments, each held against the plain version.
 
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
@@ -71,8 +98,10 @@ import functools
 import importlib
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -509,22 +538,26 @@ def dlv_stats(st) -> dict:
     return out
 
 
-def dlv_check(vals, Ls, beta, whole=False, **kw):
-    """Scan kernel vs ``dlv_scan_plain`` (bit-equal cuts) and vs the
-    row-step scan on every window between its cuts (``whole``: long
-    windows whole).  Returns (cuts, plain ms, windows checked, the long
-    path's counters)."""
+def dlv_check(vals, Ls, beta, whole=False, row_step=True,
+              plain_host=False, **kw):
+    """Scan kernel vs ``dlv_scan_plain`` (bit-equal cuts; with
+    ``plain_host`` the plain version runs on a host copy of ``vals``) and,
+    with ``row_step``, vs the row-step scan on every window between its
+    cuts (``whole``: long windows whole).  Returns (cuts, plain ms,
+    windows checked, the long path's counters)."""
     import torch
     from repro_torch.kernels.dlv_scan import dlv_scan, dlv_scan_plain
     got, st = dlv_scan(vals, Ls, beta, stats=True, **kw)
-    windows = row_step_check(vals, Ls, beta, got, whole=whole)
+    windows = row_step_check(vals, Ls, beta, got, whole=whole) \
+        if row_step else 0
     t0 = time.perf_counter()
-    want = dlv_scan_plain(vals, Ls, beta, **kw)
+    want = dlv_scan_plain(vals.cpu() if plain_host else vals, Ls, beta, **kw)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
-    check(torch.equal(got, want),
+    cuts = got.to(want.device)
+    check(torch.equal(cuts, want),
           f"dlv_scan cuts differ from dlv_scan_plain in "
-          f"{int((got != want).sum())} rows, though they agree with the "
+          f"{int((cuts != want).sum())} rows, though they agree with the "
           f"row-step scan: rounding of the plain version's prefix sums")
     return got, plain, windows, dlv_stats(st)
 
@@ -871,13 +904,13 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
     return counts, (table, q3, q5, alpha, device)
 
 
-def device_profile(fn):
+def device_profile(fn, on_prof=None):
     """(device busy ms, device ops run, device-to-host copies, device ms
     and calls of this repo's kernels, top device ops) of one call of
     ``fn``, from
     torch.profiler's CUDA activity (kernels, copies and fills).  Only
     device events count: a host op's device time is its kernels' time,
-    which their own rows already hold."""
+    which their own rows already hold.  ``on_prof`` gets the profile."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -885,6 +918,8 @@ def device_profile(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    if on_prof is not None:
+        on_prof(prof)
     rows, reads, ours = [], 0, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -955,11 +990,74 @@ def capturing(names=PQ_KERNELS):
             setattr(mod, attr, fn)
 
 
+def hold_calls(calls, tag: str = "", row_step=None,
+               plain_host=False) -> dict:
+    """Each kernel against its plain version on every kept call of
+    ``calls`` ({kernel: [(args, kwargs), ...]}, from ``capturing``), lines
+    "main-path {tag}{kernel}"; returns {kernel: (max abs err, numbers at
+    its largest call)}.  ``row_step`` (a set of call indices, or None for
+    all) picks the scan calls also held to the row-step scan;
+    ``plain_host`` runs the scan's plain version on host copies."""
+    import torch
+
+    def compare(name, each, size):
+        """``each`` on every kept call of ``name``: (results, the largest
+        call's args and kwargs, its index)."""
+        t0 = time.perf_counter()
+        res = [each(i, *a, **kw) for i, (a, kw) in enumerate(calls[name])]
+        torch.cuda.synchronize()
+        sizes = [size(*a) for a, _ in calls[name]]
+        big = int(np.argmax(sizes))
+        say(f"main-path {tag}{name}", calls=len(res),
+            sizes=f"{min(sizes)}..{max(sizes)} ({len(set(sizes))} "
+            f"distinct)", check_s=time.perf_counter() - t0)
+        return res, calls[name][big], big
+
+    def price_args(p, rho, d, state, s):
+        return p.A, rho, d, state, p.lo, p.hi, s
+
+    out = {}
+    res, (a, _), _ = compare("pricing",
+                             lambda i, *a: pricing_check(price_args(*a)),
+                             lambda p, *_: p.A.shape[1])
+    out["pricing"] = (max(res), pricing_times(price_args(*a)))
+    res, (a, kw), _ = compare(
+        "bfrt_histogram", lambda i, sel, *a, **kw: bfrt_check(*a, **kw),
+        lambda sel, r, *_: r.shape[0])
+    out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
+    res, (a, _), _ = compare("segment_stats",
+                             lambda i, *a: segstats_check(*a),
+                             lambda v, *_: v.shape[0])
+    out["segment_stats"] = (max(res), segstats_times(*a))
+    res, (a, kw), big = compare(
+        "dlv_scan", lambda i, *a, **kw: dlv_check(
+            *a, row_step=row_step is None or i in row_step,
+            plain_host=plain_host, **kw)[1:],
+        lambda v, *_: len(v))
+    # the largest call's plain time was taken while checking it
+    out["dlv_scan"] = (0.0, dlv_times(*a, res[big][0], **kw))
+    windows = sum(r[1] for r in res)
+    stats = [r[2] for r in res]
+    say(f"main-path {tag}dlv_scan long path", calls_with_long_segments=sum(
+        st["segments"] > 0 for st in stats),
+        largest_call_long=stats[big]["segments"] > 0,
+        largest_call=json.dumps(stats[big]),
+        **{f"all_{k}": sum(st[k] for st in stats)
+           for k in ("segments", "passes", "spec_cuts", "windows",
+                     "repairs")})
+    for name, (err, nums) in out.items():
+        extra = {"row_step_windows": windows,
+                 "row_step_calls": len(calls[name]) if row_step is None
+                 else len(row_step)} if name == "dlv_scan" else {}
+        say(f"main-path {tag}{name} at its largest call", max_abs_err=err,
+            **extra, **nums)
+    return out
+
+
 def phase_main_inputs(counts, table, q3, q5, alpha, device):
     """Each kernel against its plain version on every input that the main
     path gives it; returns {kernel: (max abs err, numbers at its largest
     call)}."""
-    import torch
     from repro_torch import kernels
     from repro_torch.core import dlv
     kernels.reset_launches()
@@ -983,36 +1081,8 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
         launches_as_in_phase_4=again == counts)
     for name, got in calls.items():
         check(len(got) > 0, f"main path: no call of {name} was kept")
-
-    def compare(name, each, size):
-        """``each`` on every kept call of ``name``: (results, the largest
-        call's args and kwargs, its index)."""
-        t0 = time.perf_counter()
-        res = [each(*a, **kw) for a, kw in calls[name]]
-        torch.cuda.synchronize()
-        sizes = [size(*a) for a, _ in calls[name]]
-        big = int(np.argmax(sizes))
-        say(f"main-path {name}", calls=len(res), sizes=f"{min(sizes)}.."
-            f"{max(sizes)} ({len(set(sizes))} distinct)",
-            check_s=time.perf_counter() - t0)
-        return res, calls[name][big], big
-
-    def price_args(p, rho, d, state, s):
-        return p.A, rho, d, state, p.lo, p.hi, s
-
-    out = {}
-    res, (a, _), _ = compare("pricing",
-                             lambda *a: pricing_check(price_args(*a)),
-                             lambda p, *_: p.A.shape[1])
-    out["pricing"] = (max(res), pricing_times(price_args(*a)))
-    res, (a, kw), _ = compare("bfrt_histogram",
-                              lambda sel, *a, **kw: bfrt_check(*a, **kw),
-                              lambda sel, r, *_: r.shape[0])
-    out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
-    res, (a, _), _ = compare("segment_stats", segstats_check,
-                             lambda v, *_: v.shape[0])
-    out["segment_stats"] = (max(res), segstats_times(*a))
-    # every call, with the gather before it in dlv_rounds,
+    out = hold_calls(calls)
+    # every segment stats call, with the gather before it in dlv_rounds,
     # (Xd[idxs] - gshift_d).contiguous(), timed on the same inputs
     for c, ((args, _), (Xd, idxs, gs)) in enumerate(
             zip(calls["segment_stats"], gathers)):
@@ -1022,26 +1092,399 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
             device_ms=nums["device_ms"], bound_ms=nums["bound_ms"],
             launches_per_call=nums["launches_per_call"],
             gather_ms=timed_ms(lambda: (Xd[idxs] - gs).contiguous(), 10))
-    del gathers
-    res, (a, kw), big = compare("dlv_scan",
-                                lambda *a, **kw: dlv_check(*a, **kw)[1:],
-                                lambda v, *_: len(v))
-    # the largest call's plain time was taken while checking it
-    out["dlv_scan"] = (0.0, dlv_times(*a, res[big][0], **kw))
-    windows = sum(r[1] for r in res)
-    stats = [r[2] for r in res]
-    say("main-path dlv_scan long path", calls_with_long_segments=sum(
-        st["segments"] > 0 for st in stats),
-        largest_call_long=stats[big]["segments"] > 0,
-        largest_call=json.dumps(stats[big]),
-        **{f"all_{k}": sum(st[k] for st in stats)
-           for k in ("segments", "passes", "spec_cuts", "windows",
-                     "repairs")})
-    for name, (err, nums) in out.items():
-        extra = {"row_step_windows": windows} if name == "dlv_scan" else {}
-        say(f"main-path {name} at its largest call", max_abs_err=err,
-            **extra, **nums)
     return out
+
+
+# ------------------------------------------- the streamed (out-of-core) path
+
+# "streamed": a TPC-H stand-in on disk, partitioned through the bucketing
+# backend (Appendix D.2) within ``memory_rows`` and solved through the
+# device LP; the rows are made chunk by chunk, chunk i from seed SEED + i
+STREAMED = dict(rows=50_000_000, memory_rows=12_500_000,
+                chunk_rows=4_194_304, d_f=100, alpha=100_000, seed=0)
+STREAMED_DIR = ROOT / "build" / "streamed"
+# "streamed parity": dict vs memmap vs CPU builds at the same budget
+PARITY_STREAMED = dict(rows=2_000_000, memory_rows=500_000,
+                       chunk_rows=262_144, d_f=100, alpha=20_000)
+SR_ROWS = 1_000_000      # "sketchrefine": each refine step is a host ILP
+BUCKET_WALLS = ("stats_s", "edges_s", "spill_s", "bucket_read_s",
+                "bucket_dlv_s", "merge_s")
+
+
+def free_gb(path) -> float:
+    return shutil.disk_usage(path).free / 1e9
+
+
+def write_streamed(path: Path, rows: int, chunk: int, seed: int) -> float:
+    """``ATTRS`` as float64 rows, made by ``synth_tables`` chunk by chunk
+    (chunk i from ``seed + i``), into the ``.npy`` at ``path``; seconds."""
+    from repro_torch.data.synth_tables import make_table
+    t0 = time.perf_counter()
+    X = np.lib.format.open_memmap(str(path), mode="w+", dtype=np.float64,
+                                  shape=(rows, len(ATTRS)))
+    for i, a in enumerate(range(0, rows, chunk)):
+        b = min(a + chunk, rows)
+        t = make_table("tpch", b - a, seed=seed + i)
+        X[a:b] = np.stack([t[c] for c in ATTRS], axis=1)
+    X.flush()
+    del X
+    return time.perf_counter() - t0
+
+
+def streamed_queries(rel, chunk_rows):
+    """Q2_TPCH at h=3 and h=5 from one streaming pass's column stats."""
+    from repro_torch.core.bucketing import streaming_stats
+    from repro_torch.core.hardness import Q2_TPCH, instantiate
+    st = streaming_stats(rel.chunk_source(ATTRS), chunk_rows)
+    stats = {a: (float(st.mean[j]), float(np.sqrt(st.var[j])))
+             for j, a in enumerate(ATTRS)}
+    return instantiate(Q2_TPCH, stats, 3), instantiate(Q2_TPCH, stats, 5)
+
+
+@contextlib.contextmanager
+def bucket_walls():
+    """Seconds of the bucketed build's parts, summed over the block: the
+    stats pass, the edge (counting) passes, the spill pass, the bucket
+    reads from the scratch, each bucket's DLV (to the card's last op) and
+    the merge; ``buckets`` lists each built bucket's rows."""
+    from repro_torch.core import bucketing
+    walls = dict.fromkeys(BUCKET_WALLS, 0.0)
+    walls["buckets"] = []
+    sites = ((bucketing, "streaming_stats", "stats_s"),
+             (bucketing, "_bucket_edges", "edges_s"),
+             (bucketing, "_spill_pass", "spill_s"),
+             (bucketing.BucketSpill, "bucket", "bucket_read_s"),
+             (bucketing, "dlv", "bucket_dlv_s"),
+             (bucketing, "_merge_buckets", "merge_s"))
+    saved = []
+    for owner, attr, key in sites:
+        fn = getattr(owner, attr)
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            if _key == "bucket_dlv_s":
+                _sync(kw["device"])
+                walls["buckets"].append(len(a[0]))
+            walls[_key] += time.perf_counter() - t0
+            return out
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+    try:
+        yield walls
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def streamed_engine(rel, device, cfg=STREAMED):
+    from repro_torch.core.engine import PackageQueryEngine
+    return PackageQueryEngine(rel, ATTRS, d_f=cfg["d_f"], alpha=cfg["alpha"],
+                              seed=0, memory_rows=cfg["memory_rows"],
+                              chunk_rows=cfg["chunk_rows"], device=device)
+
+
+def streamed_path(rel, q3, q5, device, build=None):
+    """The streamed main path: partition the memmap (through ``build(fn)``
+    where given, e.g. under the profiler), then Q2_TPCH at h=3 and h=5
+    through the device LP.  Returns (engine, partition s, the build's
+    peak resident rows, r3, h=3 s, r5, h=5 s, the solves' peak)."""
+    from repro_torch.core import guard, relation
+    eng = streamed_engine(rel, device)
+    wall = {}
+
+    def partition():
+        t0 = time.perf_counter()
+        eng.partition()
+        _sync(device)
+        wall["s"] = time.perf_counter() - t0
+
+    relation.reset_peak_resident()
+    partition() if build is None else build(partition)
+    build_peak = relation.peak_resident_rows()
+    relation.reset_peak_resident()
+    r3, s3 = solve(eng, q3)
+    r5, s5 = solve(eng, q5, budget=guard.SolveBudget(deadline_s=300.0))
+    return eng, wall["s"], build_peak, r3, s3, r5, s5, \
+        relation.peak_resident_rows()
+
+
+def h2d_copies(prof) -> dict:
+    """Host-to-device copies in a profile: bytes (from the trace's memcpy
+    events), count and device ms; "not measured" where the trace gives no
+    bytes."""
+    trace = STREAMED_DIR / "profile_trace.json"
+    te = time.perf_counter()
+    prof.export_chrome_trace(str(trace))
+    try:
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+    finally:
+        trace.unlink(missing_ok=True)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    nbytes = [e.get("args", {}).get("bytes") for e in copies]
+    return {"trace_export_s": time.perf_counter() - te,
+            "h2d_copies": len(copies),
+            "h2d_bytes": sum(nbytes) if copies and None not in nbytes
+            else "not measured",
+            "h2d_device_ms": sum(e.get("dur", 0.0) for e in copies) / 1e3}
+
+
+@contextlib.contextmanager
+def bucket_boundaries(calls):
+    """The index in ``calls["dlv_scan"]`` of each bucket's first scan call
+    (a list filled inside the block)."""
+    from repro_torch.core import bucketing
+    first = []
+    kept = bucketing.dlv
+
+    def per_bucket(*a, **kw):
+        first.append(len(calls["dlv_scan"]))
+        return kept(*a, **kw)
+
+    bucketing.dlv = per_bucket
+    try:
+        yield first
+    finally:
+        bucketing.dlv = kept
+
+
+def phase_streamed(device="cuda"):
+    """The streamed cell: write the table, then build and solve it
+    out-of-core once, with every launch counted, every kernel call's
+    arguments kept (for phase 7), the build's wall split and the build
+    under the profiler; check it.  Returns (launch counts, the kept calls,
+    each bucket's first scan call)."""
+    from repro_torch import kernels
+    from repro_torch.core import guard
+    from repro_torch.core.relation import MemmapRelation
+    cfg = STREAMED
+    rows, chunk = cfg["rows"], cfg["chunk_rows"]
+    STREAMED_DIR.mkdir(parents=True, exist_ok=True)
+    say("streamed disk", free_gb_build=free_gb(STREAMED_DIR),
+        data_gb=rows * len(ATTRS) * 8 / 1e9,
+        spill_gb=rows * (len(ATTRS) + 1) * 8 / 1e9)
+    path = STREAMED_DIR / "lineitem.npy"
+    gen_s = write_streamed(path, rows, chunk, cfg["seed"])
+    rel = MemmapRelation.from_npy(str(path), ATTRS, chunk_rows=chunk)
+    t0 = time.perf_counter()
+    q3, q5 = streamed_queries(rel, chunk)
+    query_stats_s = time.perf_counter() - t0
+
+    prof = {}                            # the profiled build's numbers
+
+    def profiled(fn):
+        prof.update(zip(("busy_ms", "ops", "reads", "ours", "top"),
+                        device_profile(fn, on_prof=lambda p: prof.update(
+                            h2d_copies(p)))))
+
+    kernels.reset_launches()
+    with capturing() as calls, bucket_boundaries(calls) as first, \
+            bucket_walls() as walls:
+        eng, part_s, build_peak, r3, s3, r5, s5, solve_peak = \
+            streamed_path(rel, q3, q5, device, build=profiled)
+    counts = kernels.launch_counts()
+
+    h = eng.hierarchy
+    sizes = [ly.size for ly in h.layers]
+    buckets = walls.pop("buckets")
+    root = h.layers[1].part.tree
+    say("streamed build", rows=rows, layers=sizes, table_gen_s=gen_s,
+        query_stats_s=query_stats_s, partition_s=part_s,
+        buckets=int(root.bound_off[1] - root.bound_off[0]) + 1,
+        built_buckets=len(buckets), largest_bucket=max(buckets),
+        smallest_bucket=min(buckets), memory_rows=cfg["memory_rows"],
+        chunk_rows=chunk, peak_resident_rows_build=build_peak,
+        peak_resident_rows_solve=solve_peak,
+        upper_layers_s=part_s - sum(walls.values()), **walls)
+    for hq, r, s, q in ((3, r3, s3, q3), (5, r5, s5, q5)):
+        say(f"streamed h={hq}", solve_s=s, feasible=r.feasible, obj=r.obj,
+            lp_obj=r.lp_obj, package_size=int(r.mult.sum())
+            if r.feasible else 0, check_package=q.check_package(
+                rel, r.idx, r.mult) if r.feasible else None,
+            report_status=r.report.status,
+            lp_iters=getattr(r.ps_stats, "lp_iters", None),
+            status=json.dumps(r.status))
+    say("streamed launches", **counts)
+    # the build's device time and idle share, and its copies to the card
+    say("profile streamed partition", wall_s=part_s,
+        device_busy_s=prof["busy_ms"] / 1e3,
+        idle_share=1.0 - prof["busy_ms"] / 1e3 / part_s,
+        bucket_matrix_bytes=sum(buckets) * len(ATTRS) * 8,
+        **{k: prof[k] for k in ("h2d_copies", "h2d_bytes", "h2d_device_ms",
+                                "trace_export_s")},
+        device_ops=prof["ops"], device_to_host=prof["reads"],
+        kernels=json.dumps(prof["ours"]), top=json.dumps(prof["top"]))
+    defined = {guard.OK, guard.DEGRADED, guard.INFEASIBLE,
+               guard.BUDGET_EXHAUSTED}
+    check(bool(r3.feasible and q3.check_package(rel, r3.idx, r3.mult)),
+          "streamed: h=3 solve is not a feasible, valid package")
+    for hq, r in ((3, r3), (5, r5)):
+        check(r.report.status in defined,
+              f"streamed: h={hq} report status {r.report.status}")
+    # the reference's resident bounds: a build holds a chunk or a bucket
+    # at a time, a solve O(alpha) rows (tests/test_outofcore.py)
+    check(build_peak <= max(cfg["memory_rows"], chunk),
+          f"streamed: the build held {build_peak} rows at once")
+    check(solve_peak <= 2 * cfg["alpha"] and solve_peak < rows // 2,
+          f"streamed: a solve held {solve_peak} rows at once")
+    for name in PQ_KERNELS:
+        check(counts[name] > 0, f"streamed: kernel {name} was never "
+                                "launched on the streamed path")
+    return counts, calls, first
+
+
+def phase_streamed_inputs(calls, first):
+    """Each package-query kernel against its plain version on every call
+    that phase 6's path made (every bucket's scans and segment stats, the
+    solves' pricing and select).  The scan calls are all held to
+    ``dlv_scan_plain``, those of the bucket with the largest call also to
+    the row-step scan.  Returns {kernel: max abs error}."""
+    import torch
+    say("main-path streamed inputs", calls=json.dumps(
+        {k: len(v) for k, v in calls.items()}), buckets=len(first))
+    for name, got in calls.items():
+        check(len(got) > 0, f"streamed path: no call of {name} was kept")
+    sizes = [len(a[0]) for a, _ in calls["dlv_scan"]]
+    big = int(np.argmax(sizes))
+    edges = first + [len(sizes)]
+    b = max(i for i in range(len(first)) if edges[i] <= big)
+    out = hold_calls(calls, "streamed ",
+                     row_step=set(range(edges[b], edges[b + 1])),
+                     plain_host=True)
+    # the plain scan rounds alike on the host and on the card: hold the
+    # two against each other on the largest call
+    from repro_torch.kernels.dlv_scan import dlv_scan_plain
+    a, kw = calls["dlv_scan"][big]
+    same = torch.equal(dlv_scan_plain(*a, **kw).cpu(),
+                       dlv_scan_plain(a[0].cpu(), *a[1:], **kw))
+    check(same, "streamed: dlv_scan_plain differs between the host and "
+                "the card on the largest call")
+    say("main-path streamed dlv_scan plain", largest_call_rows=sizes[big],
+        host_equals_card=same)
+    return {name: err for name, (err, _) in out.items()}
+
+
+def phase_streamed_parity(device="cuda"):
+    """2M rows built with ``layer0_backend="bucketing"`` as a dict table and
+    as a ``MemmapRelation`` on the card, and the memmap on the CPU, at one
+    ``memory_rows`` / ``chunk_rows``: identical layers and gids, the same
+    objective (dict and memmap on the card exactly; the CPU within 1e-6,
+    as phase "parity")."""
+    from repro_torch.core.engine import PackageQueryEngine
+    from repro_torch.core.hardness import Q2_TPCH, column_stats, instantiate
+    from repro_torch.core.relation import MemmapRelation
+    from repro_torch.data.synth_tables import make_table
+    cfg = PARITY_STREAMED
+    table = make_table("tpch", cfg["rows"], seed=0)
+    path = STREAMED_DIR / "parity.npy"
+    STREAMED_DIR.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.stack([table[a] for a in ATTRS], axis=1))
+    q = instantiate(Q2_TPCH, column_stats(table, ATTRS), 3)
+    kw = dict(d_f=cfg["d_f"], alpha=cfg["alpha"], seed=0,
+              memory_rows=cfg["memory_rows"], chunk_rows=cfg["chunk_rows"])
+    runs = {}
+    for label, src, dev, extra in (
+            ("dict cuda", table, device, {"layer0_backend": "bucketing"}),
+            ("memmap cuda", MemmapRelation.from_npy(str(path), ATTRS), device,
+             {}),
+            ("memmap cpu", MemmapRelation.from_npy(str(path), ATTRS), "cpu",
+             {})):
+        eng = PackageQueryEngine(src, ATTRS, device=dev, **extra, **kw)
+        t0 = time.perf_counter()
+        eng.partition()
+        _sync(dev)
+        part_s = time.perf_counter() - t0
+        res, solve_s = solve(eng, q)
+        runs[label] = (eng.hierarchy, res, part_s, solve_s)
+    (hd, rd, _, _), (hm, rm, _, _), (hc, rc, _, _) = runs.values()
+    sizes = [ly.size for ly in hm.layers]
+    for label, other in (("dict", hd), ("cpu", hc)):
+        check([ly.size for ly in other.layers] == sizes,
+              f"streamed parity: {label} layer sizes differ")
+        for lo, lm in zip(other.layers[1:], hm.layers[1:]):
+            for f in ("gid", "order", "offsets", "reps"):
+                check(np.array_equal(getattr(lo.part, f),
+                                     getattr(lm.part, f)),
+                      f"streamed parity: {label} {f} differs from the "
+                      "memmap build on the card")
+    check(rm.feasible and q.check_package(table, rm.idx, rm.mult),
+          "streamed parity: h=3 package infeasible or invalid")
+    check(rd.obj == rm.obj and np.array_equal(rd.idx, rm.idx),
+          f"streamed parity: dict {rd.obj} vs memmap {rm.obj}")
+    rel = abs(rc.obj - rm.obj) / max(1.0, abs(rm.obj))
+    check(rel <= 1e-6, f"streamed parity: cpu {rc.obj} vs cuda {rm.obj}")
+    say("streamed parity", rows=cfg["rows"], layers=sizes,
+        memory_rows=cfg["memory_rows"], chunk_rows=cfg["chunk_rows"],
+        buckets=int(hm.layers[1].part.tree.bound_off[1]) + 1,
+        gids="identical", obj_dict_cuda=rd.obj, obj_memmap_cuda=rm.obj,
+        obj_memmap_cpu=rc.obj, rel_diff_cpu=rel,
+        **{f"partition_s_{k.replace(' ', '_')}": v[2]
+           for k, v in runs.items()},
+        **{f"solve_s_{k.replace(' ', '_')}": v[3] for k, v in runs.items()})
+    path.unlink()
+
+
+def phase_sketchrefine(rows: int = SR_ROWS, device="cuda"):
+    """SketchRefine (``kdtree``, and ``dlv`` partitioned on the card) and
+    Progressive Shading on one table, Q2_TPCH at h=3: defined statuses,
+    every feasible package valid; objectives, walls and refine steps."""
+    from repro_torch.core import guard
+    from repro_torch.core import ilp as ilp_mod
+    from repro_torch.core.engine import PackageQueryEngine
+    from repro_torch.core.hardness import Q2_TPCH, column_stats, instantiate
+    from repro_torch.core.sketchrefine import sketch_refine
+    from repro_torch.data.synth_tables import make_table
+    table = make_table("tpch", rows, seed=0)
+    q = instantiate(Q2_TPCH, column_stats(table, ATTRS), 3)
+    ilps = [0]
+    kept = ilp_mod.solve_ilp
+
+    def counted(*a, **kw):
+        ilps[0] += 1
+        return kept(*a, **kw)
+
+    out = {}
+    ilp_mod.solve_ilp = counted
+    try:
+        for backend in ("kdtree", "dlv"):
+            ilps[0] = 0
+            t0 = time.perf_counter()
+            r = sketch_refine(q, table, ATTRS, backend=backend,
+                              ilp_kwargs=ILP_KW, device=device)
+            _sync(device)
+            out[f"sr {backend}"] = (r, time.perf_counter() - t0,
+                                    max(ilps[0] - 1, 0))
+    finally:
+        ilp_mod.solve_ilp = kept
+    eng = PackageQueryEngine(table, ATTRS, d_f=100, alpha=100_000, seed=0,
+                             device=device)
+    t0 = time.perf_counter()
+    eng.partition()
+    _sync(device)
+    part_s = time.perf_counter() - t0
+    r, s = solve(eng, q)
+    out["ps"] = (r, part_s + s, None)
+    defined = {"ok", "sketch_infeasible", "refine_infeasible",
+               "refine_package_invalid"}
+    for label, (r, wall, steps) in out.items():
+        status = r.report.status if label == "ps" else r.status
+        check(status in (defined if label != "ps" else
+                         {guard.OK, guard.DEGRADED, guard.INFEASIBLE,
+                          guard.BUDGET_EXHAUSTED}),
+              f"sketchrefine: {label} status {status}")
+        if r.feasible:
+            check(q.check_package(table, r.idx, r.mult),
+                  f"sketchrefine: {label} package fails check_package")
+        say(f"sketchrefine {label}", rows=rows, status=json.dumps(status),
+            feasible=r.feasible, obj=r.obj, lp_obj=r.lp_obj, wall_s=wall,
+            refine_steps=steps, package_size=int(r.mult.sum())
+            if r.feasible else 0)
+    objs = {k: v[0].obj for k, v in out.items() if v[0].feasible}
+    say("sketchrefine compared", ps_partition_s=part_s, ps_solve_s=s,
+        ps_beats_sr=json.dumps({k: objs["ps"] > v for k, v in objs.items()
+                                if k != "ps"}) if "ps" in objs else None)
 
 
 # ----------------------------------------------- LM slice: flash kernel
@@ -1464,6 +1907,20 @@ def main() -> None:
     main_nums = phase("main-path inputs", phase_main_inputs, counts,
                       *inputs)
     del inputs
+    # the streamed phases' data and spill scratch live in STREAMED_DIR
+    STREAMED_DIR.mkdir(parents=True, exist_ok=True)
+    saved_tmp, tempfile.tempdir = tempfile.tempdir, str(STREAMED_DIR)
+    try:
+        streamed_counts, calls, first = phase("streamed", phase_streamed)
+        streamed_errs = phase("streamed main-path inputs",
+                              phase_streamed_inputs, calls, first)
+        del calls
+        torch.cuda.empty_cache()
+        phase("streamed parity", phase_streamed_parity)
+    finally:
+        tempfile.tempdir = saved_tmp
+        shutil.rmtree(STREAMED_DIR, ignore_errors=True)
+    phase("sketchrefine", phase_sketchrefine)
 
     model = phase("lm model", lm_model, dev)
     lm_counts, batch = phase("lm prefill", phase_lm_prefill, model)
@@ -1479,9 +1936,13 @@ def main() -> None:
     for name, (source, replaces) in SOURCES.items():
         err_f, nums_f = fixed[name]
         err_m, nums_m = main_nums[name]
+        paths = {"full": counts[name], "streamed": streamed_counts[name]} \
+            if name in PQ_KERNELS else {"lm prefill": counts[name]}
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": max(err_f, err_m),
+                        "launches_by_path": paths,
+                        "max_abs_err": max(err_f, err_m,
+                                           streamed_errs.get(name, 0.0)),
                         "tolerance": TOLERANCE[name], **nums_m,
                         "fixed_shape": nums_f})
     say("done", seconds=time.perf_counter() - t_all)

@@ -12,7 +12,10 @@ gathers, the sort and the cuts stay on the device; each round copies its
 cut values to the host once for the split tree.  ``finalize`` (exact
 group reps and boxes) and the split-tree assembly stay host numpy.
 
-The one-pop-per-iteration reference build (``dlv_heap``) is not ported.
+``dlv_1d`` / ``dlv_1d_partition`` run the same scan on one sorted column
+(on ``device``); ``ratio_score`` (Definition 2) is the reference's host
+numpy metric.  The one-pop-per-iteration reference build (``dlv_heap``)
+and the seed's per-span scan (``dlv_1d_seed``) are not ported.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partitioner import (Partition, SplitTree, finalize,
-                                          register_backend)
+                                          no_mesh, register_backend)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dlv_scan import dlv_scan
 from repro_torch.kernels.segstats import segment_stats
@@ -77,6 +80,58 @@ def _seg_cuts(vals_shifted, Ls, beta_seg, *, pitch: int = 256):
     cuts = dlv_scan(vals_shifted, Ls, np.asarray(beta_seg, np.float64),
                     pitch=pitch)
     return _snap_cuts_to_run_starts(vals_shifted, cuts, starts)
+
+
+def dlv_1d(values: np.ndarray, beta: float, device="cuda") -> np.ndarray:
+    """Delimiter positions for sorted ``values``; returns cut flags (n,)
+    (host numpy), the scan run on ``device``."""
+    dev = resolve_device(device)
+    v = np.asarray(values, np.float64)
+    n = len(v)
+    if n == 0:
+        return np.zeros(0, bool)
+    shift = v.mean()         # center: keeps the low-precision path accurate
+    vals = torch.as_tensor(v - shift, dtype=torch.float64, device=dev)
+    return _seg_cuts(vals, np.array([n]),
+                     np.array([float(beta)])).cpu().numpy()
+
+
+def dlv_1d_partition(values: np.ndarray, beta: float, device="cuda"):
+    """(group_id per element, boundary values d_1..d_{p-1}) for sorted
+    input."""
+    cuts = dlv_1d(values, beta, device=device)
+    gid = np.cumsum(cuts)
+    bounds = values[np.flatnonzero(cuts)]
+    return gid, bounds
+
+
+def ratio_score(values: np.ndarray, gid: np.ndarray, *,
+                weighted: bool = False) -> float:
+    """Definition 2: sum of per-partition variances / total variance.
+
+    Single vectorised host pass: per-group count/sum/sum-of-squares via
+    ``np.bincount`` (O(n + G)).  Sparse / negative / non-integer ids are
+    compacted with ONE ``np.unique`` call.  ``weighted=True`` weights each
+    group's variance by its share of tuples (the within-group variance
+    fraction, in [0, 1])."""
+    values = np.asarray(values, np.float64)
+    tot = float(np.var(values))
+    if tot <= 0:
+        return 0.0
+    gid = np.asarray(gid)
+    if gid.dtype.kind not in "iu" or (
+            len(gid) and (gid.min() < 0 or gid.max() >= len(gid))):
+        gid = np.unique(gid, return_inverse=True)[1]
+    shift = values.mean()              # numerical stabilisation
+    v = values - shift
+    cnt = np.bincount(gid)
+    s1 = np.bincount(gid, weights=v)
+    s2 = np.bincount(gid, weights=v * v)
+    nz = cnt > 0
+    var_g = np.maximum(s2[nz] / cnt[nz] - (s1[nz] / cnt[nz]) ** 2, 0.0)
+    if weighted:
+        return float((var_g * cnt[nz]).sum() / len(values)) / tot
+    return float(var_g.sum()) / tot
 
 
 # ------------------------------------------------------ GetScaleFactors
@@ -162,13 +217,16 @@ _PID_TAG = 1 << 40   # children >= _PID_TAG are unresolved leaf pids
 def dlv_rounds(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
                min_groups: Optional[int] = None,
                rng: Optional[np.random.Generator] = None,
+               mesh=None, chunk_rows: Optional[int] = None,
                log: Optional[list] = None, device="cuda") -> Partition:
     """Algorithm 6 as batched frontier rounds (see module docstring).
 
     Same rounds, selection rule and tree as the reference; ``log``
-    (optional list) receives one dict per round."""
+    (optional list) receives one dict per round; ``chunk_rows`` runs the
+    final group stats chunk by chunk (``partitioner.group_stats``)."""
     import time as _time
     t0 = _time.time()
+    no_mesh("dlv", mesh)
     dev = resolve_device(device)
     X = np.asarray(X, np.float64)
     n, k = X.shape
@@ -362,7 +420,7 @@ def dlv_rounds(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
             ~pid_to_gid[ch - _PID_TAG] if ch >= _PID_TAG else ch
             for ch in node.children]
     return finalize(X, order.cpu().numpy(), offsets,
-                    _tree_from_nodes(nodes, root))
+                    _tree_from_nodes(nodes, root), chunk_rows=chunk_rows)
 
 
 # ------------------------------------------------------------- entry point
@@ -378,6 +436,7 @@ def dlv(X: np.ndarray, d_f: int = 100, *, c: Optional[np.ndarray] = None,
         return dlv_rounds(X, d_f, c=c, min_groups=min_groups, rng=rng,
                           device=device, **kwargs)
     if method == "heap":
-        raise NotImplementedError("dlv_heap is not ported yet (ROADMAP "
-                                  "queue 1)")
+        raise NotImplementedError("dlv(method='heap') is not ported yet "
+                                  "(ROADMAP queue 1, item 8: the rest of "
+                                  "core/dlv.py)")
     raise ValueError(f"unknown dlv method {method!r}")

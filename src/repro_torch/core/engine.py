@@ -1,21 +1,31 @@
 """PackageQueryEngine: the public API tying the pipeline together (port of
-``repro.core.engine`` for in-memory tables).
+``repro.core.engine``).
 
     engine = PackageQueryEngine(table, attrs, d_f=100, alpha=100_000)
     engine.partition()                       # offline: build the hierarchy
     result = engine.solve(query)             # Progressive Shading
     result = engine.solve(query, lp_solver=solve_lp_kernel)  # device LPs
     base   = engine.solve_direct(query)      # black-box ILP (Gurobi stand-in)
+    sr     = engine.solve_sketchrefine(query)
 
-``device`` (default ``"cuda"``) is where the DLV build runs; the engine
-raises at construction when CUDA is asked for and absent.  The layer LPs
-run on the host numpy twin unless ``lp_solver=`` names the device twin
+``table`` may be a dict of resident numpy columns or any
+:class:`~repro_torch.core.relation.Relation` (e.g. ``MemmapRelation``
+over an on-disk matrix).  Streamed relations run the whole pipeline
+out-of-core: layer 0 is partitioned through the bucketing backend
+(Appendix D.2, ``memory_rows`` bounding the resident set), the shading
+cascade passes candidate-id subsets down, and Dual Reducer / validation
+gather only the <= alpha candidate rows.  ``solve_direct``/``lp_bound``
+assemble their full-relation form chunk-wise behind a size guard.
+
+``device`` (default ``"cuda"``) is where the DLV build runs (each bucket's
+DLV, for a streamed table); the engine raises at construction when CUDA
+is asked for and absent.  The layer LPs run on the host numpy twin unless
+``lp_solver=`` names the device twin
 (``repro_torch.core.lp_kernel.solve_lp_kernel``), which then runs on the
-engine's device.  SketchRefine, the cross-query cache, streamed
-relations and mesh distribution are later work: the reference's knobs for
-them (``cache=``, ``session``, ``layer0_backend=``, ``chunk_rows=``,
-``memory_rows=``, ``mesh=``, ``solve_sketchrefine``) raise
-``NotImplementedError`` naming their ROADMAP queue-1 item.
+engine's device.  The cross-query cache and mesh distribution are later
+work: the reference's knobs for them (``cache=``, ``session``,
+``mesh=``) raise ``NotImplementedError`` naming their ROADMAP queue-1
+item.
 """
 from __future__ import annotations
 
@@ -32,8 +42,9 @@ from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.lp import OPTIMAL, solve_lp_np
 from repro_torch.core.lp_kernel import solve_lp_kernel
 from repro_torch.core.paql import PackageQuery
-from repro_torch.core.relation import Relation, as_relation
+from repro_torch.core.relation import Relation, as_relation, io_retry_count
 from repro_torch.core.shading import progressive_shading
+from repro_torch.core.sketchrefine import sketch_refine
 from repro_torch.device import resolve_device
 
 
@@ -52,12 +63,6 @@ class PackageQueryEngine:
                  memory_rows: Optional[int] = None, mesh=None,
                  cache=None, device="cuda"):
         for name, value, item in (
-                ("layer0_backend=", layer0_backend, "4: streamed relations "
-                 "and bucketing"),
-                ("chunk_rows=", chunk_rows, "4: streamed relations and "
-                 "bucketing"),
-                ("memory_rows=", memory_rows, "4: streamed relations and "
-                 "bucketing"),
                 ("mesh=", mesh, "6: distributed pricing"),
                 ("cache=", None if cache is False else cache,
                  "3: cross-query cache")):
@@ -68,6 +73,9 @@ class PackageQueryEngine:
         self.d_f = d_f
         self.alpha = alpha
         self.partitioner_backend = partitioner_backend
+        self.layer0_backend = layer0_backend
+        self.chunk_rows = chunk_rows
+        self.memory_rows = memory_rows
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self.hierarchy: Optional[Hierarchy] = None
@@ -85,6 +93,9 @@ class PackageQueryEngine:
         self.hierarchy = Hierarchy(self.table, self.attrs, d_f=self.d_f,
                                    alpha=self.alpha, rng=self.rng,
                                    backend=self.partitioner_backend,
+                                   layer0_backend=self.layer0_backend,
+                                   chunk_rows=self.chunk_rows,
+                                   memory_rows=self.memory_rows,
                                    device=self.device)
         self.partition_time_s = time.time() - t0
         return self
@@ -113,6 +124,7 @@ class PackageQueryEngine:
         report = guard.SolveReport(budget=budget or guard.SolveBudget(),
                                    monitor=guard.NumericalMonitor())
         report.budget.start()
+        io0 = io_retry_count()
         try:
             res = progressive_shading(self.hierarchy, query, self.table,
                                       alpha=self.alpha, dr_q=dr_q,
@@ -128,17 +140,16 @@ class PackageQueryEngine:
             report.note(f"error: {type(e).__name__}: {e}")
             res = PackageResult(False, np.zeros(0, np.int64), np.zeros(0),
                                 0.0, 0.0, status="error")
+        report.fault_retries = io_retry_count() - io0
         res.report = report.finalize(res.feasible)
         res.status += f" t={time.time() - t0:.3f}s"
         return res
 
-    def solve_sketchrefine(self, query: PackageQuery, *args, **kwargs):
-        raise _unported("PackageQueryEngine.solve_sketchrefine",
-                       "5: SketchRefine")
-
     def solve_direct(self, query: PackageQuery,
                      ilp_kwargs: Optional[dict] = None) -> PackageResult:
-        """Black-box ILP over the full relation (the Gurobi role)."""
+        """Black-box ILP over the full relation (the Gurobi role).  The
+        standard form streams chunk-wise off a Relation; a size guard
+        raises for relations too large to hold densely."""
         c, A, bl, bu, ub = query.matrices(self.table, None)
         res = ilp_mod.solve_ilp(c, A, bl, bu, ub, **(ilp_kwargs or {}))
         if not res.feasible:
@@ -150,8 +161,20 @@ class PackageQueryEngine:
         return PackageResult(True, np.flatnonzero(nz), res.x[nz], obj,
                              lp_obj, status="ok")
 
+    def solve_sketchrefine(self, query: PackageQuery,
+                           tau_frac: float = 0.001,
+                           ilp_kwargs: Optional[dict] = None) -> PackageResult:
+        """The SketchRefine baseline (``core.sketchrefine``) over this
+        engine's table; a DLV or bucketed partition runs on the engine's
+        device."""
+        return sketch_refine(query, self.table, self.attrs,
+                             tau_frac=tau_frac, ilp_kwargs=ilp_kwargs,
+                             memory_rows=self.memory_rows,
+                             chunk_rows=self.chunk_rows, device=self.device)
+
     def lp_bound(self, query: PackageQuery) -> float:
-        """LP relaxation over the full relation (integrality-gap metric)."""
+        """LP relaxation over the full relation (integrality-gap metric).
+        Streams its matrix assembly like solve_direct (same size guard)."""
         c, A, bl, bu, ub = query.matrices(self.table, None)
         res = solve_lp_np(c, A, bl, bu, ub, max_iters=20000)
         if res.status != OPTIMAL:

@@ -1,5 +1,5 @@
 """Hierarchy of relations (paper §2, Fig. 3) — port of
-``repro.core.hierarchy`` for in-memory tables.
+``repro.core.hierarchy``.
 
 Layer 0 = original tuples; layer l >= 1 = representative tuples (group
 means) from partitioning layer l-1 with downscale factor d_f, built until
@@ -9,9 +9,23 @@ layer l-1.  The build runs the partitioner on ``device``; the layers
 themselves (attribute matrices, partitions, split trees) are host numpy,
 which is what the online solve reads.
 
+The partitioning strategy is selected by name through the Partitioner
+registry (``backend="dlv" | "kdtree" | "bucketing"``).
+
+Out-of-core layer 0: the hierarchy accepts any
+:class:`~repro_torch.core.relation.Relation` (or a dict of arrays).  A
+streamed relation is partitioned through the ``bucketing`` backend -- the
+default for out-of-core sources -- consuming the relation chunk by chunk
+without ever materialising the layer-0 attribute matrix (``Layer.X`` is
+None there); ``memory_rows`` bounds the per-bucket resident set and each
+bucket's DLV runs on ``device``.  For in-memory tables ``chunk_rows``
+routes layer-0 group stats through the chunked accumulation, and
+``layer0_backend="bucketing"`` with the same ``memory_rows`` gives the
+memmap build's partition bit for bit.
+
 :meth:`Hierarchy.from_arrays` loads a hierarchy built elsewhere (for
-example by the reference package) from plain arrays.  Appends and
-streamed layer-0 relations are later work.
+example by the reference package) from plain arrays.  Appends and the
+mesh-sharded passes are later work.
 """
 from __future__ import annotations
 
@@ -53,13 +67,15 @@ def _min_gap(X: np.ndarray, *, exact_limit: int = _EXACT_GAP_LIMIT,
 @dataclasses.dataclass
 class Layer:
     table: Union[Relation, Dict[str, np.ndarray]]
-    X: np.ndarray                    # (n_l, k) attr matrix
+    X: Optional[np.ndarray]          # (n_l, k) attr matrix; None = streamed
     part: Optional[Partition]        # partition of layer l-1 (None for layer 0)
     eps: float                       # min positive attr gap (Alg 3, line 1)
 
     @property
     def size(self) -> int:
-        return self.X.shape[0]
+        if self.X is not None:
+            return self.X.shape[0]
+        return self.table.num_rows
 
 
 class Hierarchy:
@@ -67,29 +83,67 @@ class Hierarchy:
                  d_f: int = 100, alpha: int = 100_000,
                  rng: Optional[np.random.Generator] = None,
                  max_layers: int = 12, backend: str = "dlv",
-                 backend_kwargs: Optional[dict] = None, device="cuda"):
+                 layer0_backend: Optional[str] = None,
+                 backend_kwargs: Optional[dict] = None,
+                 mesh=None, chunk_rows: Optional[int] = None,
+                 memory_rows: Optional[int] = None, device="cuda"):
+        partitioner.no_mesh("Hierarchy", mesh)
         self.attrs = list(attrs)
         self.d_f = d_f
         self.alpha = alpha
         self.backend = backend
-        self.layer0_backend = backend
         self.device = resolve_device(device)
         self._fingerprint: Optional[str] = None
         rng = rng or np.random.default_rng(0)
         rel = as_relation(table, columns=self.attrs)
-        if not rel.in_memory:
-            raise TypeError("streamed relations are not ported yet; pass an "
-                            "in-memory table")
         self.relation = rel
-        X0 = np.stack([np.asarray(rel[a], np.float64) for a in self.attrs],
-                      axis=1)
-        self.layers: List[Layer] = [Layer(rel, X0, None,
-                                          _min_gap(X0, rng=rng))]
+        if layer0_backend is None:
+            # streamed relations default layer 0 to the one chunk-capable
+            # backend; upper layers (rep arrays) keep ``backend``
+            layer0_backend = "bucketing" \
+                if (not rel.in_memory and backend == "dlv") else backend
+        if not rel.in_memory and layer0_backend != "bucketing":
+            raise TypeError(
+                f"partitioner backend {layer0_backend!r} cannot consume a "
+                "streamed relation (only 'bucketing' scans ChunkSources); "
+                "pass an in-memory table or layer0_backend='bucketing'")
+        self.layer0_backend = layer0_backend
+        if rel.in_memory:
+            X0 = np.stack([np.asarray(rel[a], np.float64)
+                           for a in self.attrs], axis=1)
+            self.layers: List[Layer] = [
+                Layer(rel, X0, None, _min_gap(X0, rng=rng))]
+        else:
+            # layer-0 eps is never consumed (Neighbor Sampling probes only
+            # layers >= 1), so a streamed build skips the sample gather
+            self.layers = [Layer(rel, None, None, 1e-9)]
         kw = dict(backend_kwargs or {})
         while self.layers[-1].size > alpha and len(self.layers) <= max_layers:
-            part = partitioner.fit(self.layers[-1].X, backend=backend,
-                                   d_f=d_f, rng=rng, device=self.device,
-                                   **kw)
+            layer_kw = dict(kw, device=self.device)
+            if len(self.layers) == 1 and not rel.in_memory:
+                # streamed layer 0: the bucketing backend consumes the
+                # relation chunk by chunk (Appendix D.2) -- the attribute
+                # matrix never materialises
+                if memory_rows is not None:
+                    layer_kw.setdefault("memory_rows", memory_rows)
+                if chunk_rows is not None:
+                    layer_kw.setdefault("chunk_rows", chunk_rows)
+                part = partitioner.fit(
+                    rel.chunk_source(self.attrs, chunk_rows),
+                    backend=layer0_backend, d_f=d_f, rng=rng, **layer_kw)
+            else:
+                lb = layer0_backend if len(self.layers) == 1 else backend
+                if len(self.layers) == 1 and chunk_rows is not None:
+                    # layer 0 is the big one: chunked group-stats
+                    # accumulation instead of a full sorted copy
+                    layer_kw["chunk_rows"] = chunk_rows
+                if len(self.layers) == 1 and lb == "bucketing" and \
+                        memory_rows is not None:
+                    # same bucket layout as the streamed path -> in-memory
+                    # and memmap builds of the same data stay bit-identical
+                    layer_kw.setdefault("memory_rows", memory_rows)
+                part = partitioner.fit(self.layers[-1].X, backend=lb,
+                                       d_f=d_f, rng=rng, **layer_kw)
             if part.num_groups >= self.layers[-1].size:
                 break  # no reduction possible
             reps = part.reps

@@ -12,14 +12,19 @@ Select a backend by name::
     part = partitioner.fit(X, backend="dlv", d_f=100, device="cuda")
     part.get_group_batch(X[:1000])
 
-The port registers ``dlv`` (the batched-frontier build on the device);
-``kdtree`` and ``bucketing`` are later work.  :func:`group_stats` is the
-in-memory ``reduceat`` pass of the reference (host numpy).
+The port registers the reference's three backends: ``dlv`` (the
+batched-frontier build, on the device), ``kdtree`` (the SketchRefine
+baseline, host numpy as in the reference) and ``bucketing`` (the
+out-of-core Appendix D.2 scheme: host streaming passes, each bucket's DLV
+on the device).  :func:`group_stats` is the reference's host pass: one
+``reduceat`` sweep in memory, or a chunked accumulation with
+``chunk_rows``.  The reference's mesh-sharded passes are not ported yet:
+``mesh=`` raises naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -160,7 +165,7 @@ def register_backend(name: str):
 def _ensure_backends() -> None:
     # Importing the strategy modules registers them (kept lazy so this
     # module stays import-cycle-free).
-    from repro_torch.core import dlv  # noqa: F401
+    from repro_torch.core import bucketing, dlv, kdtree  # noqa: F401
 
 
 def available_backends():
@@ -168,19 +173,20 @@ def available_backends():
     return sorted(_BACKENDS)
 
 
-# the reference's other backends, by their ROADMAP queue-1 item
-_UNPORTED = {"kdtree": "1: core/kdtree.py",
-             "bucketing": "4: streamed relations and bucketing"}
+def no_mesh(what: str, mesh) -> None:
+    """The error of a ``mesh=`` the port cannot serve yet."""
+    if mesh is not None:
+        raise NotImplementedError(f"{what}(mesh=...) is not ported yet "
+                                  "(ROADMAP queue 1, item 6: distributed "
+                                  "pricing)")
 
 
 def fit(X, *, backend: str = "dlv", **kwargs) -> Partition:
-    """Partition the (n, k) array ``X`` with the named backend (backend
-    keywords such as ``d_f``, ``rng`` and ``device`` pass through)."""
+    """Partition ``X`` with the named backend: an (n, k) array, or a
+    ChunkSource for ``bucketing`` (e.g. ``Relation.chunk_source()`` of an
+    out-of-core table).  Backend keywords such as ``d_f``, ``rng`` and
+    ``device`` pass through."""
     _ensure_backends()
-    if backend in _UNPORTED:
-        raise NotImplementedError(f"the {backend!r} partitioner backend is "
-                                  f"not ported yet (ROADMAP queue 1, item "
-                                  f"{_UNPORTED[backend]})")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown partitioner backend {backend!r}; "
                          f"have {sorted(_BACKENDS)}")
@@ -190,31 +196,64 @@ def fit(X, *, backend: str = "dlv", **kwargs) -> Partition:
 # ------------------------------------------------------------- group stats
 
 
-def group_stats(X: np.ndarray, order: np.ndarray, offsets: np.ndarray
+def group_stats(X: np.ndarray, order: np.ndarray, offsets: np.ndarray, *,
+                mesh=None, chunk_rows: Optional[int] = None
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(reps, boxes_lo, boxes_hi) for contiguous groups: one vectorized
-    ``reduceat`` sweep over ``X[order]``."""
+    """(reps, boxes_lo, boxes_hi) for contiguous groups -- the one
+    finalization pass shared by every backend (host numpy).
+
+    In-memory default: a single vectorized ``reduceat`` sweep over
+    ``X[order]``.  With ``chunk_rows`` set, the sorted relation is consumed
+    chunk by chunk and only the (G, k) accumulators are kept whole.
+    """
+    no_mesh("group_stats", mesh)
     X = np.asarray(X)
     n, k = X.shape
     G = len(offsets) - 1
     counts = np.diff(offsets).astype(np.float64)
-    Xo = X[order]
-    sums = np.add.reduceat(Xo, offsets[:-1], axis=0) \
-        if G else np.zeros((0, k))
-    lo = np.minimum.reduceat(Xo, offsets[:-1], axis=0) \
-        if G else np.zeros((0, k))
-    hi = np.maximum.reduceat(Xo, offsets[:-1], axis=0) \
-        if G else np.zeros((0, k))
+    if chunk_rows is None or n <= chunk_rows:
+        Xo = X[order]
+        sums = np.add.reduceat(Xo, offsets[:-1], axis=0) \
+            if G else np.zeros((0, k))
+        lo = np.minimum.reduceat(Xo, offsets[:-1], axis=0) \
+            if G else np.zeros((0, k))
+        hi = np.maximum.reduceat(Xo, offsets[:-1], axis=0) \
+            if G else np.zeros((0, k))
+        reps = sums / np.maximum(counts, 1.0)[:, None]
+        return reps, lo, hi
+
+    sums = np.zeros((G, k))
+    lo = np.full((G, k), np.inf)
+    hi = np.full((G, k), -np.inf)
+    for a in range(0, n, chunk_rows):
+        b = min(a + chunk_rows, n)
+        chunk = X[order[a:b]]
+        # contiguous layout -> chunk-local ids are sorted ascending
+        ids = np.searchsorted(offsets, np.arange(a, b), side="right") - 1
+        u0, u1 = int(ids[0]), int(ids[-1])
+        loc = ids - u0
+        nloc = u1 - u0 + 1
+        for j in range(k):
+            sums[u0:u1 + 1, j] += np.bincount(loc, weights=chunk[:, j],
+                                              minlength=nloc)
+        # boxes: reduceat over the chunk's group boundary positions
+        bpos = np.concatenate([[0], np.flatnonzero(np.diff(ids)) + 1])
+        np.minimum.at(lo, ids[bpos],
+                      np.minimum.reduceat(chunk, bpos, axis=0))
+        np.maximum.at(hi, ids[bpos],
+                      np.maximum.reduceat(chunk, bpos, axis=0))
     reps = sums / np.maximum(counts, 1.0)[:, None]
     return reps, lo, hi
 
 
 def finalize(X: np.ndarray, order: np.ndarray, offsets: np.ndarray,
-             tree: SplitTree) -> Partition:
+             tree: SplitTree, *, mesh=None,
+             chunk_rows: Optional[int] = None) -> Partition:
     """Assemble a Partition from the contiguous layout + split tree."""
     n = len(order)
     G = len(offsets) - 1
     gid = np.empty(n, np.int64)
     gid[order] = np.repeat(np.arange(G), np.diff(offsets))
-    reps, lo, hi = group_stats(X, order, offsets)
+    reps, lo, hi = group_stats(X, order, offsets, mesh=mesh,
+                               chunk_rows=chunk_rows)
     return Partition(gid, order, offsets, reps, lo, hi, tree)

@@ -8,7 +8,7 @@ goes away when its item lands.
 import numpy as np
 import pytest
 
-from repro_torch.core import partitioner
+from repro_torch.core import bucketing, dlv, partitioner
 from repro_torch.core.engine import PackageQueryEngine
 from repro_torch.core.hierarchy import Hierarchy
 
@@ -20,9 +20,6 @@ def _table(n=2_000):
 
 @pytest.mark.parametrize("kwarg, value, item", [
     ("cache", True, "item 3"),
-    ("layer0_backend", "bucketing", "item 4"),
-    ("chunk_rows", 1_000, "item 4"),
-    ("memory_rows", 1_000, "item 4"),
     ("mesh", object(), "item 6"),
 ])
 def test_unported_engine_knobs_name_their_item(kwarg, value, item):
@@ -37,20 +34,43 @@ def test_engine_knobs_left_at_their_defaults_build():
     assert eng.n == 2_000
 
 
-@pytest.mark.parametrize("method, item", [("session", "item 3"),
-                                          ("solve_sketchrefine", "item 5")])
+@pytest.mark.parametrize("method, item", [("session", "item 3")])
 def test_unported_engine_methods_name_their_item(method, item):
     eng = PackageQueryEngine(_table(), ["a", "b"], device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         getattr(eng, method)(0)
 
 
-@pytest.mark.parametrize("backend, item", [("kdtree", "item 1"),
-                                           ("bucketing", "item 4")])
-def test_unported_partitioner_backends_name_their_item(backend, item):
+@pytest.mark.parametrize("call", ["fit bucketing", "fit dlv", "hierarchy",
+                                  "group_stats", "streaming_stats"])
+def test_mesh_sharded_passes_name_item_6(call):
+    """The reference's ``mesh=`` (its sharded stats passes) is item 6."""
     X = np.random.default_rng(1).normal(size=(500, 2))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        partitioner.fit(X, backend=backend, d_f=10, device="cpu")
+    mesh = object()
+    calls = {
+        "fit bucketing": lambda: partitioner.fit(
+            X, backend="bucketing", d_f=10, mesh=mesh, device="cpu"),
+        "fit dlv": lambda: partitioner.fit(X, backend="dlv", d_f=10,
+                                           mesh=mesh, device="cpu"),
+        "hierarchy": lambda: Hierarchy(_table(), ["a", "b"], d_f=20,
+                                       alpha=150, mesh=mesh, device="cpu"),
+        "group_stats": lambda: partitioner.group_stats(
+            X, np.arange(500), np.array([0, 250, 500]), mesh=mesh,
+            chunk_rows=100),
+        "streaming_stats": lambda: bucketing.streaming_stats(
+            bucketing.ArraySource(X), 100, mesh=mesh)}
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 6"):
+        calls[call]()
+
+
+def test_heap_build_names_item_8():
+    X = np.random.default_rng(1).normal(size=(500, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        dlv.dlv(X, d_f=10, method="heap", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        partitioner.fit(X, backend="dlv", d_f=10, method="heap",
+                        device="cpu")
 
 
 @pytest.mark.parametrize("level", ["partition", "hierarchy"])
