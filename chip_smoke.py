@@ -25,7 +25,10 @@ package.  Phases, one line each (or one per kernel):
    case timed at every candidate long-path threshold ("dlv_scan
    threshold");
 3. parity: a 200k-row TPC-H table built and solved once on the card and
-   once on the CPU -- identical layers and gids, equal objective;
+   once on the CPU -- identical layers and gids, equal objective; then
+   solved again on each with the sub-ILP's B&B in waves of 8 ("parity
+   W=8": batched LP flights on each engine's device), equal objective,
+   every card flight held to the plain version;
 4. full: the 10M-row TPC-H table (d_f=100, alpha=100k) partitioned on the
    card and Q2_TPCH solved at hardness 3 and 5 through the device LP, with
    every kernel's launch count read around that run, then a profiled
@@ -38,7 +41,25 @@ package.  Phases, one line each (or one per kernel):
    its plain version on exactly those inputs; the times in the ``kernels``
    line are taken at the largest of them; each segment stats call is
    timed with the gather that precedes it in ``dlv_rounds``
-   ("main-path segment_stats call i").
+   ("main-path segment_stats call i");
+5b. lp batch: the batched LP engine (``csrc/lp_batch.cu``, one launch a
+   flight, one CTA a lane).  Its main path: B&B on the reference
+   benchmark's instance (``benchmarks/batch_lp.py``, n=150, width 0.05)
+   at W=64 on the card, launch counts reset around it, against W=1 (the
+   same package and objective) and against W=64 on the plain version
+   (the same nodes and LP iterations); dispatches, launches, lanes and
+   trips per dispatch, the workspace cache; every flight held to the
+   plain version on the card.  Then flights, each against the plain
+   version on the card and ``solve_lp_np`` lane by lane and timed (device
+   ms, host wall per dispatch, plain ms, bound): the Dual Reducer's rung
+   flight (n=300, R=12, warm from lp1), "wide" (the same rungs over
+   100,000 columns: the global-workspace path), "tall" (40 rows, m_pad
+   64: a lane's rows in the global workspace), a shared pivot budget
+   that truncates mid-flight (two launches; statuses, iterations and
+   notes equal the plain lockstep loop's); the full cell's h=3 and h=5
+   solves at W=8 against W=1 (same package and objective, flights held),
+   and four rungs of its h=3 Dual Reducer LP (its candidate set, warm
+   from its lp1);
 
 The streamed (out-of-core) path:
 
@@ -79,10 +100,12 @@ The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
    every launch count read around it (28 flash launches), then profiled;
 12. lm agreement: a float32 copy of the model, prefill logits at S=64
    against 64 ``decode_step``s (2e-3);
-13. lm serve: ``ServingEngine.serve`` with the package-query scheduler, 16
-   requests, per-tick admission and decode numbers, then the first tick
-   again from the same seed (identical admission and tokens), then one
-   short batch profiled;
+13. lm serve: ``ServingEngine.serve`` with the package-query scheduler on
+   the card (B&B waves of 8 as batched LP flights), 16 requests, per-tick
+   admission and decode numbers, the admissions tick by tick equal to a
+   ``device="cpu"`` scheduler's, any flight held to the plain version,
+   then the first tick again from the same seed (identical admission and
+   tokens), then one short batch profiled;
 14. lm main-path inputs: the prefill rerun keeping every flash call's
     arguments, each held against the plain version.
 
@@ -129,7 +152,9 @@ SOURCES = {"pricing": ("src/repro_torch/csrc/pricing.cu",
            "dlv_scan": ("src/repro_torch/csrc/dlv_scan.cu",
                         "src/repro/core/dlv.py:46"),
            "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
-                               "src/repro/kernels/attention.py:32")}
+                               "src/repro/kernels/attention.py:32"),
+           "lp_batch": ("src/repro_torch/csrc/lp_batch.cu",
+                        "src/repro/core/lp_batch.py:121")}
 TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "bfrt_histogram": "select: q, flip mask, has_cross exact vs "
                                "the sequential rule, a second run "
@@ -143,7 +168,13 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
                                 "+ 1e-3 rms(plain) (one bf16 ulp and a "
                                 "floor), ||kernel - plain|| <= 5e-3 "
                                 "||plain||; float32: 2e-3 + 2e-3 |plain| "
-                                "(the reference's bar), norm 1e-4"}
+                                "(the reference's bar), norm 1e-4",
+             "lp_batch": "per valid lane: status and iterations exact; "
+                         "unless infeasible, sorted basis and bound "
+                         "pattern exact, x within 1e-9, objective within "
+                         "1e-9 x max(1, |obj|) (the reference's 1e-9; "
+                         "relative above 1, where an ulp exceeds it); "
+                         "spent pivots exact"}
 # the flash kernel against its plain version, by dtype: an elementwise
 # limit (see flash_agreement) and a bar on the relative norm of the error
 FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
@@ -758,12 +789,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def solve(eng, query, budget=None):
+def solve(eng, query, budget=None, ilp_kwargs=ILP_KW):
     """``eng.solve`` with the layer LPs on the engine's device (the port's
     ``solve_lp_kernel``); returns (result, seconds)."""
     from repro_torch.core.lp_kernel import solve_lp_kernel
     t0 = time.perf_counter()
-    res = eng.solve(query, ilp_kwargs=ILP_KW, budget=budget,
+    res = eng.solve(query, ilp_kwargs=ilp_kwargs, budget=budget,
                     lp_solver=solve_lp_kernel)
     _sync(eng.device)
     return res, time.perf_counter() - t0
@@ -807,6 +838,23 @@ def phase_parity(rows: int = 200_000, alpha: int = 2000,
         obj_cuda=rg.obj, obj_cpu=rc.obj, rel_diff=rel,
         partition_s_cuda=pg, partition_s_cpu=pc, solve_s_cuda=sg,
         solve_s_cpu=sc)
+    # the same solve with the sub-ILP's B&B in waves of 8 (batched LP
+    # flights on each engine's device), every card flight kept
+    from repro_torch import kernels
+    kernels.reset_launches()
+    with capturing_flights() as flights:
+        w8 = [wave_solve(e, q, 8) for e in (eg, ec)]
+    launched = kernels.launch_counts()["lp_batch"]
+    (r8g, s8g), (r8c, s8c) = w8
+    check(r8g.feasible and r8c.feasible, "parity: W=8 solve infeasible")
+    check(q.check_package(table, r8g.idx, r8g.mult),
+          "parity: W=8 cuda package fails check_package")
+    rel8 = abs(r8g.obj - r8c.obj) / max(1.0, abs(r8c.obj))
+    check(rel8 <= 1e-6, f"parity: W=8 objective {r8g.obj} vs {r8c.obj}")
+    say("parity W=8", obj_cuda=r8g.obj, obj_cpu=r8c.obj, rel_diff=rel8,
+        same_package=same_package(r8g, r8c), solve_s_cuda=s8g,
+        solve_s_cpu=s8c, lp_batch_launches=launched)
+    return launched, hold_flights(flights, "parity W=8")
 
 
 def main_path(table, q3, q5, alpha, device):
@@ -901,7 +949,7 @@ def phase_full(rows: int = 10_000_000, alpha: int = 100_000,
             kernels=json.dumps(ours), top=json.dumps(top))
     say("profile pivots", layer_lps=eng.hierarchy.L,
         layer_lp_pivots=r3.ps_stats.lp_iters)
-    return counts, (table, q3, q5, alpha, device)
+    return counts, (table, q3, q5, alpha, device), eng
 
 
 def device_profile(fn, on_prof=None):
@@ -928,7 +976,7 @@ def device_profile(fn, on_prof=None):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
         if name.startswith(("pricing_kernel", "bfrt_", "segstats_",
-                            "dlv_scan_", "flash_fwd_")):
+                            "dlv_scan_", "flash_fwd_", "lp_batch_")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
                                         0.0) / 1e3, n0 + ev.count)
@@ -1093,6 +1141,404 @@ def phase_main_inputs(counts, table, q3, q5, alpha, device):
             launches_per_call=nums["launches_per_call"],
             gather_ms=timed_ms(lambda: (Xd[idxs] - gs).contiguous(), 10))
     return out
+
+
+# ---------------------------------------------- the batched LP engine
+
+# the reference benchmark's instances (benchmarks/batch_lp.py): the B&B
+# tree (``_bnb``, smoke profile) and the Dual Reducer's rung flight
+# (``_dr_rungs``); "wide": the same rungs over 100,000 columns, past
+# NS_MAX, so every lane keeps its state in the global workspace and its
+# select sorts in rounds
+LP_BNB = dict(seed=42, n=150, width=0.05, wave_width=64,
+              max_nodes=50_000)
+LP_RUNGS = dict(n=300, rungs=12, q=25.0)
+LP_WIDE = dict(n=100_000, rungs=4, q=25.0)
+LP_BUDGET = dict(seed=3, K=8, n=60, m=5)
+# more rows than the kernel keeps in shared memory (m_pad 64)
+LP_TALL = dict(seed=5, K=4, n=80, m=40)
+
+
+def random_flight(seed: int, K: int, n: int, m: int):
+    """One shared (c, A, bl, bu) around a feasible point and K bound
+    variants (``tests/test_lp_batch.py``'s flights)."""
+    rng = np.random.default_rng(seed)
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    return (c, A, act - wid, act + wid,
+            [ub * rng.uniform(0.5, 1.0, n) for _ in range(K)])
+
+
+def lp_instance(seed: int, n: int, width: float):
+    """``benchmarks/batch_lp.py::_instance``: count in [15, 45], a value
+    sum in 420 +/- width over a synthetic gift-basket table."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(14.0, 1.5, n)
+    c = np.abs(rng.normal(1.0, 0.5, n))
+    return (c, np.vstack([np.ones(n), vals]),
+            np.array([15.0, 420.0 - width]), np.array([45.0, 420.0 + width]))
+
+
+def rung_flight(c, A, bl, bu, ub, rungs, q, warm=None):
+    """The Dual Reducer's rungs ``ub_j = min(ub, E / (q 2^j))`` of one
+    (c, A), warm from lp1 (``core/dual_reducer.py``)."""
+    from repro_torch.core.lp import OPTIMAL, solve_lp_np
+    lp1 = solve_lp_np(c, A, bl, bu, ub, max_iters=20000, warm_start=warm)
+    check(lp1.status == OPTIMAL, f"lp batch: lp1 status {lp1.status}")
+    E = float(np.sum(lp1.x))
+    return [np.minimum(ub, max(E / (max(q, 1) * 2 ** j), 1e-9))
+            for j in range(rungs)], lp1
+
+
+@contextlib.contextmanager
+def capturing_flights():
+    """Keep every batched LP flight launched inside the block: (the
+    ``LaneSolver``, cf, A, the in pack, the out pack it returned)."""
+    from repro_torch.kernels import lp_batch
+    kept = []
+    call = lp_batch.LaneSolver.__call__
+
+    def keep(self, cf, A, in_pack):
+        out = call(self, cf, A, in_pack)
+        if self.cuda:
+            kept.append((self, cf, A, np.array(in_pack), out.copy()))
+        return out
+
+    lp_batch.LaneSolver.__call__ = keep
+    try:
+        yield kept
+    finally:
+        lp_batch.LaneSolver.__call__ = call
+
+
+def lp_plain(solver, cf, A, in_pack):
+    """The plain version's out pack for one flight, on the card."""
+    import torch
+    from repro_torch.kernels import lp_batch
+    out = lp_batch.lp_batch_plain(
+        cf, A, torch.as_tensor(in_pack, device=cf.device),
+        max_iters=solver.max_iters, refactor_every=solver.refactor_every)
+    return out.cpu().numpy()
+
+
+def hold_flights(flights, tag: str) -> float:
+    """Every kept flight's out pack against the plain version on the card
+    (``lane_mismatches`` and the spent pivots); returns the largest
+    difference in x or the objective."""
+    from repro_torch.kernels import lp_batch
+    t0 = time.perf_counter()
+    worst, lanes = 0.0, 0
+    for i, (solver, cf, A, in_pack, out) in enumerate(flights):
+        want = lp_plain(solver, cf, A, in_pack)
+        bad, x_err, obj_err = lp_batch.lane_mismatches(out, want, in_pack,
+                                                       solver.m_pad)
+        check(not bad, f"lp batch {tag}: flight {i}, lanes {bad} differ "
+                       "from the plain version")
+        col = 2 * solver.N + 2 * solver.m_pad + 5
+        check(out[0, col] == want[0, col], f"lp batch {tag}: flight {i} "
+              f"spent {out[0, col]} != plain {want[0, col]}")
+        worst = max(worst, x_err, obj_err)
+        lanes += int(np.count_nonzero(
+            in_pack[:, 3 * solver.N + 1 + solver.m_pad]))
+    say(f"main-path {tag} lp_batch", flights=len(flights), lanes=lanes,
+        max_abs_err=worst, check_s=time.perf_counter() - t0)
+    return worst
+
+
+def lane_bar(got, want, tag: str) -> float:
+    """LPResults lane by lane under the lane bar (TOLERANCE["lp_batch"]);
+    returns the largest difference in x or the objective."""
+    from repro_torch.core.lp import INFEASIBLE
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        check((g.status, g.iters) == (w.status, w.iters),
+              f"lp batch {tag}: lane {k} status/iters {g.status}/{g.iters}"
+              f" != {w.status}/{w.iters}")
+        if w.status == INFEASIBLE:
+            continue
+        dx = float(np.abs(g.x - w.x).max())
+        do = abs(g.obj - w.obj)
+        worst = max(worst, dx, do)
+        check(np.array_equal(np.sort(g.basis), np.sort(w.basis))
+              and np.array_equal(g.at_upper, w.at_upper)
+              and dx <= 1e-9 and do <= 1e-9 * max(1.0, abs(w.obj)),
+              f"lp batch {tag}: lane {k} differs (x err {dx}, obj err {do}"
+              ", or the basis or bound pattern)")
+    return worst
+
+
+def kernel_ms(solver, cf, A, in_pack, reps: int):
+    """(CUDA-event ms, launches) of one flight's launches alone, back to
+    back: the full launch, and the trip-limited one when the shared cap
+    truncates the lockstep loop.  Loads the flight into the solver's
+    device buffers first (one call)."""
+    from repro_torch.kernels import lp_batch
+    N, m = solver.N, solver.m_pad
+    valid = in_pack[:, 3 * N + 1 + m] != 0.0
+    solver(cf, A, in_pack)
+    solver._launch(cf, A, solver.max_iters)
+    natural = solver._read()[valid, N + 2 * m + 2].astype(np.int64)
+    trips = lp_batch.lockstep_trips(natural, int(in_pack[0, 3 * N + 2 + m]))
+    limits = [solver.max_iters] + ([trips] if trips < natural.max() else [])
+    return timed_ms(lambda: [solver._launch(cf, A, t) for t in limits],
+                    reps), len(limits)
+
+
+def flight_numbers(solver, cf, A, in_pack, out, dispatch=None,
+                   reps: int = 10) -> dict:
+    """One flight's times: ``ms`` the kernel's own (CUDA events around its
+    launches back to back: the full launch, and the trip-limited one when
+    the shared cap truncates), ``wall_ms`` one ``LaneSolver`` call (the
+    pinned copies in and out and the host sync included), ``dispatch_ms``
+    the whole ``solve_lp_batch`` call when ``dispatch`` is given (lane
+    assembly, warm validation and unpack on the host), the plain
+    version's wall on the card, and the bound, at the unpadded m rows and
+    N = n + m columns: the bytes of A and cf once a flight (the lanes
+    share them) and each valid lane's in and out rows, over HBM; pricing's
+    2 m N flops for every trip that priced (a lane's trips, less the last
+    one of a lane that ended optimal), over float64's peak."""
+    import torch
+    from repro_torch.core.lp import OPTIMAL
+    N, m = solver.N, solver.m_pad
+    valid = in_pack[:, 3 * N + 1 + m] != 0.0
+    its = out[valid, N + 2 * m + 2]
+    priced = its - (out[valid, N + 2 * m + 1] == OPTIMAL)
+    lanes = int(valid.sum())
+    # the real rows and columns: the padded ones are zero left of the
+    # slacks
+    nz = A[:, :solver.n_pad].cpu().numpy() != 0.0
+    m_real = int(nz.any(1).sum())
+    N_real = int(nz.any(0).sum()) + m_real
+    nbytes = ((m_real + 1) * N_real
+              + lanes * (in_pack.shape[1] + out.shape[1])) * 8
+    ops = float(priced.sum()) * 2 * m_real * N_real
+    solver(cf, A, in_pack)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        solver(cf, A, in_pack)
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    ms, n_launch = kernel_ms(solver, cf, A, in_pack, reps)
+    extra = {}
+    if dispatch is not None:
+        dispatch()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dispatch()
+        extra["dispatch_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    lp_plain(solver, cf, A, in_pack)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp_plain(solver, cf, A, in_pack)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    host = extra.get("dispatch_ms", wall)
+    return _numbers(f"K={lanes} of {solver.K_pad} N={N} m_pad={m}", nbytes,
+                    ops, ms, plain, None, wall_ms=wall, **extra,
+                    host_share=1.0 - ms / host, launches_per_call=n_launch,
+                    lanes=lanes, trips=int(its.max()),
+                    priced_trips=int(priced.sum()), rows=m_real, columns=N_real)
+
+
+def same_package(a, b) -> bool:
+    oa, ob = np.argsort(a.idx, kind="stable"), np.argsort(b.idx,
+                                                         kind="stable")
+    return bool(np.array_equal(np.asarray(a.idx)[oa], np.asarray(b.idx)[ob])
+                and np.array_equal(np.asarray(a.mult)[oa],
+                                   np.asarray(b.mult)[ob]))
+
+
+def wave_solve(eng, query, W: int, budget=None):
+    """``solve`` from a fresh engine rng, B&B in waves of W."""
+    eng.rng = np.random.default_rng(0)
+    return solve(eng, query, budget, ilp_kwargs={**ILP_KW, "wave_width": W})
+
+
+def phase_lp_batch(eng, table, q3, q5, alpha, device):
+    """The batched LP engine: its main path (B&B at W = 64 on the
+    reference benchmark's instance, against W = 1 and the plain version),
+    the rung, full-cell, wide and budget flights against the plain version
+    and ``solve_lp_np``, and the full cell's h=3 / h=5 solves at W = 8
+    against W = 1.  Returns {"launches", "paths", "err", "main",
+    "fixed"}."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import guard, shading
+    from repro_torch.core.ilp import solve_ilp
+    from repro_torch.core.lp_batch import (batch_cache_stats, batch_stats,
+                                           reset_batch_stats, solve_lp_batch)
+    from repro_torch.kernels import lp_batch
+    errs, paths = [], {}
+
+    # ---- the main path: B&B, W = 64, every wave's flight one launch
+    bb = LP_BNB
+    c, A, bl, bu = lp_instance(bb["seed"], bb["n"], bb["width"])
+    ub = np.ones(bb["n"])
+    kw = dict(max_nodes=bb["max_nodes"], time_limit_s=600.0)
+    t0 = time.perf_counter()
+    r1 = solve_ilp(c, A, bl, bu, ub, wave_width=1, device=device, **kw)
+    w1_s = time.perf_counter() - t0
+    reset_batch_stats()
+    kernels.reset_launches()
+    with capturing_flights() as flights:
+        t0 = time.perf_counter()
+        rw = solve_ilp(c, A, bl, bu, ub, wave_width=bb["wave_width"],
+                       device=device, **kw)
+        _sync(device)
+        ww_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stats, cache = batch_stats(), batch_cache_stats()
+    launched = counts["lp_batch"]
+    t0 = time.perf_counter()
+    rp = solve_ilp(c, A, bl, bu, ub, wave_width=bb["wave_width"],
+                   device="cpu", **kw)
+    wp_s = time.perf_counter() - t0
+    disp = max(stats["dispatches"], 1)
+    valid = [in_pack[:, 3 * sv.N + 1 + sv.m_pad] != 0.0
+             for sv, _, _, in_pack, _ in flights]
+    trips = [int(f[4][v, f[0].N + 2 * f[0].m_pad + 2].max())
+             for f, v in zip(flights, valid)]
+    say("lp batch bnb", n=bb["n"], wave_width=bb["wave_width"],
+        W1_s=w1_s, W64_s=ww_s, W64_plain_cpu_s=wp_s,
+        nodes_W1=r1.nodes, nodes_W64=rw.nodes, nodes_W64_plain=rp.nodes,
+        lp_iters_W1=r1.lp_iters, lp_iters_W64=rw.lp_iters,
+        obj_W1=r1.obj, obj_W64=rw.obj, dispatches=stats["dispatches"],
+        launches=launched, launches_per_dispatch=launched / disp,
+        lanes_per_dispatch=float(np.mean([v.sum() for v in valid])),
+        flights=len(flights), trips_per_dispatch=float(np.mean(trips)),
+        max_trips=max(trips), batch_stats=json.dumps(stats),
+        cache=json.dumps(cache), W64_wall_ms_per_dispatch=ww_s / disp * 1e3)
+    check(r1.feasible and rw.feasible, "lp batch bnb: infeasible")
+    check(np.array_equal(rw.x, r1.x) and rw.obj == r1.obj,
+          "lp batch bnb: W=64 package or objective differs from W=1")
+    check((rw.nodes, rw.lp_iters) == (rp.nodes, rp.lp_iters),
+          f"lp batch bnb: nodes/LP iterations {rw.nodes}/{rw.lp_iters} "
+          f"!= the plain version's {rp.nodes}/{rp.lp_iters}")
+    check(launched == len(flights) == stats["dispatches"] > 0,
+          f"lp batch bnb: {launched} launches for {stats['dispatches']} "
+          "dispatches")
+    paths["bnb W=64"] = launched
+    errs.append(hold_flights(flights, "bnb W=64"))
+    # the kernel's device time over every wave's flight, against the wall
+    dev_ms = [kernel_ms(f[0], f[1], f[2], f[3], 3)[0] for f in flights]
+    say("lp batch bnb device", flights=len(dev_ms),
+        device_ms_sum=float(np.sum(dev_ms)),
+        device_ms_per_dispatch=float(np.mean(dev_ms)),
+        device_ms_max=float(np.max(dev_ms)), W64_s=ww_s,
+        device_share_of_W64_wall=float(np.sum(dev_ms)) / 1e3 / ww_s)
+    big = max(flights, key=lambda f: int(np.count_nonzero(
+        f[3][:, 3 * f[0].N + 1 + f[0].m_pad])))
+    main = flight_numbers(*big)
+    say("lp batch bnb largest flight", **main)
+
+    def flight(tag, c, A, bl, bu, ubs, lp1, budget_kw=None):
+        """A flight on the card (one captured launch or two), against
+        the plain version on the card and ``solve_lp_np``; its numbers."""
+        kw = dict(warm_starts=None if lp1 is None else [lp1] * len(ubs))
+        before = lp_batch.launches
+        with capturing_flights() as kept:
+            got = solve_lp_batch(c, A, bl, bu, ubs, backend="device",
+                                 device=device, **kw, **(budget_kw or {}))
+        n_launch = lp_batch.launches - before
+        (f,) = kept
+        err = hold_flights(kept, tag)
+        if budget_kw is None:
+            err = max(err, lane_bar(got, solve_lp_batch(
+                c, A, bl, bu, ubs, backend="np", **kw), tag))
+        nums = flight_numbers(*f, dispatch=lambda: solve_lp_batch(
+            c, A, bl, bu, ubs, backend="device", device=device, **kw))
+        say(f"lp batch {tag}", launches=n_launch,
+            iters=json.dumps([g.iters for g in got]),
+            statuses=json.dumps([g.status for g in got]), **nums)
+        return got, n_launch, err, nums
+
+    # ---- the Dual Reducer's rung flight, warm from lp1
+    cr, Ar, blr, bur = lp_instance(9, LP_RUNGS["n"], 2.0)
+    ubs, lp1 = rung_flight(cr, Ar, blr, bur, np.full(LP_RUNGS["n"], 3.0),
+                           LP_RUNGS["rungs"], LP_RUNGS["q"])
+    _, n1, err, fixed = flight("rungs", cr, Ar, blr, bur, ubs, lp1)
+    check(n1 == 1, f"lp batch rungs: {n1} launches")
+    errs.append(err)
+
+    # ---- wide: the rungs over 100,000 columns (global workspace)
+    cw, Aw, blw, buw = lp_instance(9, LP_WIDE["n"], 2.0)
+    ubs, lp1 = rung_flight(cw, Aw, blw, buw, np.full(LP_WIDE["n"], 3.0),
+                           LP_WIDE["rungs"], LP_WIDE["q"])
+    _, n1, err, _ = flight("wide", cw, Aw, blw, buw, ubs, lp1)
+    check(n1 == 1, f"lp batch wide: {n1} launches")
+    errs.append(err)
+
+    # ---- tall: 40 rows, a lane's rows in the global workspace
+    _, n1, err, _ = flight("tall", *random_flight(**LP_TALL), None)
+    check(n1 == 1, f"lp batch tall: {n1} launches")
+    errs.append(err)
+
+    # ---- a shared pivot budget that stops the lockstep loop mid-flight
+    cb, Ab, blb, bub, ubs = random_flight(**LP_BUDGET)
+    free = solve_lp_batch(cb, Ab, blb, bub, ubs, backend="device",
+                          device=device)
+    its = [r.iters for r in free]
+    cap = int(np.minimum(its, int(np.median(its))).sum())
+    got, n2, err, _ = flight("budget", cb, Ab, blb, bub, ubs,
+                             None, {"budget": guard.SolveBudget(
+                                 max_pivots=cap)})
+    want = solve_lp_batch(cb, Ab, blb, bub, ubs,
+                          backend="device", device="cpu",
+                          budget=guard.SolveBudget(max_pivots=cap))
+    check([(g.status, g.iters, g.notes) for g in got]
+          == [(w.status, w.iters, w.notes) for w in want],
+          "lp batch budget: lanes differ from the plain lockstep loop")
+    check(n2 == 2 and len({g.status for g in got}) > 1,
+          f"lp batch budget: {n2} launches, statuses "
+          f"{[g.status for g in got]} (expected a truncation mid-flight)")
+    say("lp batch budget cap", max_pivots=cap, free_iters=json.dumps(its))
+    errs.append(err)
+
+    # ---- the full cell at W = 8 against W = 1; its h=3 Dual Reducer LP
+    kept_dr = []
+    dual_reducer = shading.dual_reducer
+
+    def keep_dr(query, table_, S, **kw):
+        kept_dr.append((query, table_, np.array(S), kw.get("warm_start")))
+        return dual_reducer(query, table_, S, **kw)
+
+    kernels.reset_launches()
+    with capturing_flights() as full_flights:
+        for h, q in ((3, q3), (5, q5)):
+            budget = None if h == 3 else guard.SolveBudget(deadline_s=300.0)
+            one, s1 = wave_solve(eng, q, 1, budget)
+            budget = None if h == 3 else guard.SolveBudget(deadline_s=300.0)
+            shading.dual_reducer = keep_dr
+            try:
+                eight, s8 = wave_solve(eng, q, 8, budget)
+            finally:
+                shading.dual_reducer = dual_reducer
+            same = same_package(one, eight)
+            # one package's objective, summed in another order by the
+            # wave's vectorized incumbent check (core/ilp.py): 1e-12
+            rel = abs(one.obj - eight.obj) / max(1.0, abs(one.obj))
+            say(f"lp batch full h={h} W=8", feasible=eight.feasible,
+                obj_W1=one.obj, obj_W8=eight.obj, rel_diff=rel,
+                same_package=same, solve_s_W1=s1, solve_s_W8=s8,
+                report_status=eight.report.status)
+            check(one.feasible == eight.feasible and same and rel <= 1e-12,
+                  f"lp batch full h={h}: W=8 gives another package or "
+                  "objective")
+    paths["full W=8"] = kernels.launch_counts()["lp_batch"]
+    errs.append(hold_flights(full_flights, "full W=8"))
+
+    # four rungs of the h=3 Dual Reducer LP: its candidate set, warm
+    # from its lp1
+    query, table_, S, warm = kept_dr[0]
+    cd, Ad, bld, bud, ubd = query.matrices(table_, S)
+    ubs, lp1 = rung_flight(cd, Ad, bld, bud, ubd, 4, 500, warm)
+    _, n1, err, _ = flight(f"full-cell rungs (n={len(S)})", cd, Ad, bld,
+                           bud, ubs, lp1)
+    errs.append(err)
+    torch.cuda.empty_cache()
+    return {"launches": launched, "paths": paths, "err": max(errs),
+            "main": main, "fixed": fixed}
 
 
 # ------------------------------------------- the streamed (out-of-core) path
@@ -1758,7 +2204,8 @@ def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None):
     cfg = model.cfg
     memory = torch.cuda.get_device_properties(model.device).total_memory
     sched = PackageScheduler(cfg, hbm_budget_bytes=0.05 * memory,
-                             flop_budget=5e13, max_batch=8)
+                             flop_budget=5e13, max_batch=8,
+                             device=model.device)
     rng = np.random.default_rng(seed)
     reqs = [Request(rid, int(rng.integers(64, 257)), int(rng.integers(16, 65)),
                     float(rng.uniform(0.1, 1.0))) for rid in range(requests)]
@@ -1770,13 +2217,38 @@ def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None):
     return reqs, done, engine, sched, time.perf_counter() - t0
 
 
+def cpu_admissions(model, reqs, ticks: int) -> list:
+    """The admissions, tick by tick, of a scheduler on the CPU (its B&B
+    waves on the batched engine's plain version) given serve_once's
+    requests."""
+    import torch
+    from repro_torch.serving import PackageScheduler
+    memory = torch.cuda.get_device_properties(model.device).total_memory
+    sched = PackageScheduler(model.cfg, hbm_budget_bytes=0.05 * memory,
+                             flop_budget=5e13, max_batch=8, device="cpu")
+    for r in reqs:
+        sched.submit(r)
+    return [[r.rid for r in sched.tick()] for _ in range(ticks)]
+
+
 def phase_lm_serve(model):
     from repro_torch import kernels
     from repro_torch.core import guard
     cfg = model.cfg
     kernels.reset_launches()
-    reqs, done, engine, sched, wall = serve_once(model)
+    with capturing_flights() as flights:
+        reqs, done, engine, sched, wall = serve_once(model)
     counts = kernels.launch_counts()
+    per_tick, at = [], 0
+    for t in engine.tick_log:
+        per_tick.append([g.rid for g in done[at:at + t.admitted]])
+        at += t.admitted
+    want = cpu_admissions(model, reqs, len(engine.tick_log))
+    say("lm serve admissions", card=json.dumps(per_tick),
+        cpu=json.dumps(want), lp_batch_launches=counts["lp_batch"])
+    check(per_tick == want, "lm serve: the card's admissions differ from "
+                            "a CPU scheduler's")
+    lp_err = hold_flights(flights, "lm serve")
     for i, t in enumerate(engine.tick_log):
         per_tok = t.decode_s / max(t.steps - 1, 1)
         say(f"lm serve tick {i}", admitted=t.admitted,
@@ -1823,7 +2295,7 @@ def phase_lm_serve(model):
         device_busy_s=busy_ms / 1e3, idle_share=1.0 - busy_ms / 1e3 / gen_s,
         decode_steps=steps, device_ops_per_step=ops / steps,
         device_to_host=reads, top=json.dumps(top))
-    return counts
+    return counts["lp_batch"], lp_err
 
 
 def phase_lm_main_inputs(model, batch, counts):
@@ -1902,11 +2374,12 @@ def main() -> None:
                      ("flash_attention", kernel_flash)):
         fixed[name] = phase(f"kernel {name}", fn, dev)
 
-    phase("parity", phase_parity)
-    counts, inputs = phase("full", phase_full)
+    parity_lp = phase("parity", phase_parity)
+    counts, inputs, eng = phase("full", phase_full)
     main_nums = phase("main-path inputs", phase_main_inputs, counts,
                       *inputs)
-    del inputs
+    lp = phase("lp batch", phase_lp_batch, eng, *inputs)
+    del inputs, eng
     # the streamed phases' data and spill scratch live in STREAMED_DIR
     STREAMED_DIR.mkdir(parents=True, exist_ok=True)
     saved_tmp, tempfile.tempdir = tempfile.tempdir, str(STREAMED_DIR)
@@ -1926,18 +2399,28 @@ def main() -> None:
     lm_counts, batch = phase("lm prefill", phase_lm_prefill, model)
     counts["flash_attention"] = lm_counts["flash_attention"]
     phase("lm agreement", phase_lm_agreement, model)
-    phase("lm serve", phase_lm_serve, model)
+    serve_lp = phase("lm serve", phase_lm_serve, model)
     main_nums["flash_attention"] = phase(
         "lm main-path inputs", phase_lm_main_inputs, model, batch, lm_counts)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
+
+    # the batched LP engine: its main path is phase "lp batch"'s B&B;
+    # its launches on every other path that batches LP flights
+    fixed["lp_batch"] = (lp["err"], lp["fixed"])
+    main_nums["lp_batch"] = (max(lp["err"], parity_lp[1], serve_lp[1]),
+                             lp["main"])
+    counts["lp_batch"] = lp["launches"]
+    lp_paths = {**lp["paths"], "parity W=8": parity_lp[0],
+                "lm serve": serve_lp[0]}
 
     entries = []
     for name, (source, replaces) in SOURCES.items():
         err_f, nums_f = fixed[name]
         err_m, nums_m = main_nums[name]
         paths = {"full": counts[name], "streamed": streamed_counts[name]} \
-            if name in PQ_KERNELS else {"lm prefill": counts[name]}
+            if name in PQ_KERNELS else lp_paths if name == "lp_batch" \
+            else {"lm prefill": counts[name]}
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "launches_by_path": paths,

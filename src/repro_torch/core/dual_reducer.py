@@ -73,7 +73,8 @@ def dual_reducer(query: PackageQuery, table, S: np.ndarray, *, q: int = 500,
                  aux: str = "lp", warm_start=None,
                  budget=None, report=None,
                  ladder: bool = True, aux_rungs: int = 1,
-                 batch_backend: str = "auto") -> PackageResult:
+                 batch_backend: str = "auto",
+                 device="cuda") -> PackageResult:
     """aux: 'lp' (paper's auxiliary LP, line 4-5) | 'random' (Mini-Exp 4
     ablation: random sample of ~q tuples instead).  warm_start seeds the
     first LP (see module docstring).  ``table`` may be a dict of arrays or
@@ -87,7 +88,9 @@ def dual_reducer(query: PackageQuery, table, S: np.ndarray, *, q: int = 500,
     fallback would otherwise have to re-solve for after doubling q, so
     each fallback round widens ``sel`` from a precomputed rung before
     falling back to random sampling.  ``aux_rungs=1`` is byte-identical
-    to the classic single auxiliary solve.
+    to the classic single auxiliary solve.  ``device`` (default
+    ``"cuda"``) is where flights of more than two lanes run, the rungs'
+    and the sub-ILP's B&B waves.
 
     Guard integration: ``budget`` (guard.SolveBudget) is threaded through
     every LP and the sub-ILPs; ``report`` (guard.SolveReport) accumulates
@@ -102,6 +105,7 @@ def dual_reducer(query: PackageQuery, table, S: np.ndarray, *, q: int = 500,
     """
     rng = rng or np.random.default_rng(0)
     ilp_kwargs = dict(ilp_kwargs or {})
+    ilp_kwargs.setdefault("device", device)
     monitor = report.monitor if report is not None else None
     S = np.asarray(S)
     n = len(S)
@@ -146,7 +150,8 @@ def dual_reducer(query: PackageQuery, table, S: np.ndarray, *, q: int = 500,
         auxs = solve_lp_batch(c, A, bl, bu, ub_variants,
                               max_iters=max_lp_iters,
                               warm_starts=[lp1] * rungs, budget=budget,
-                              monitor=monitor, backend=batch_backend)
+                              monitor=monitor, backend=batch_backend,
+                              device=device)
         if report is not None:
             report.absorb_batch(auxs)
         for jr, lp2 in enumerate(auxs):

@@ -18,14 +18,15 @@ gather only the <= alpha candidate rows.  ``solve_direct``/``lp_bound``
 assemble their full-relation form chunk-wise behind a size guard.
 
 ``device`` (default ``"cuda"``) is where the DLV build runs (each bucket's
-DLV, for a streamed table); the engine raises at construction when CUDA
-is asked for and absent.  The layer LPs run on the host numpy twin unless
-``lp_solver=`` names the device twin
-(``repro_torch.core.lp_kernel.solve_lp_kernel``), which then runs on the
-engine's device.  The cross-query cache and mesh distribution are later
-work: the reference's knobs for them (``cache=``, ``session``,
-``mesh=``) raise ``NotImplementedError`` naming their ROADMAP queue-1
-item.
+DLV, for a streamed table) and where batched LP flights run (the batched
+engine, ``core.lp_batch``: B&B waves with ``ilp_kwargs={"wave_width":
+W}``); the engine raises at construction when CUDA is asked for and
+absent.  The layer LPs run on the host numpy twin unless ``lp_solver=``
+names the device twin (``repro_torch.core.lp_kernel.solve_lp_kernel``),
+which then runs on the engine's device.  The cross-query cache and mesh
+distribution are later work: the reference's knobs for them
+(``cache=``, ``session``, ``mesh=``) raise ``NotImplementedError``
+naming their ROADMAP queue-1 item.
 """
 from __future__ import annotations
 
@@ -114,7 +115,8 @@ class PackageQueryEngine:
         ``guard.SolveReport`` (``res.report``) with a defined status and
         never raises; ``budget=`` bounds the whole cascade end to end.
         ``guarded=False`` disables the degradation ladder and re-raises.
-        ``lp_solver=solve_lp_kernel`` runs on the engine's ``device``."""
+        ``lp_solver=solve_lp_kernel`` runs on the engine's ``device``, as
+        do the batched LP flights (B&B waves, Dual Reducer rungs)."""
         if self.hierarchy is None:
             self.partition()
         if ps_kwargs.get("lp_solver") is solve_lp_kernel:
@@ -130,7 +132,8 @@ class PackageQueryEngine:
                                       alpha=self.alpha, dr_q=dr_q,
                                       rng=self.rng, ilp_kwargs=ilp_kwargs,
                                       budget=report.budget, report=report,
-                                      ladder=guarded, **ps_kwargs)
+                                      ladder=guarded, device=self.device,
+                                      **ps_kwargs)
         # guard contract: a guarded solve never raises -- contain, report
         # and return an empty (infeasible) result
         except Exception as e:
@@ -151,7 +154,9 @@ class PackageQueryEngine:
         standard form streams chunk-wise off a Relation; a size guard
         raises for relations too large to hold densely."""
         c, A, bl, bu, ub = query.matrices(self.table, None)
-        res = ilp_mod.solve_ilp(c, A, bl, bu, ub, **(ilp_kwargs or {}))
+        res = ilp_mod.solve_ilp(c, A, bl, bu, ub,
+                                **{"device": self.device,
+                                   **(ilp_kwargs or {})})
         if not res.feasible:
             return PackageResult(False, np.zeros(0, np.int64), np.zeros(0),
                                  0.0, 0.0, status="ilp_infeasible")

@@ -54,7 +54,8 @@ def _round_feasible(x, c, A, bl, bu, lb, ub, tol):
 
 
 def _dive(c, A, bl, bu, lb, ub, tol, max_lp_iters, max_steps=400,
-          warm_start=None, budget=None, probe_batch: bool = False):
+          warm_start=None, budget=None, probe_batch: bool = False,
+          device="cuda"):
     """LP-guided fractional diving.
 
     Package-query LPs have at most m fractional (basic) variables, so
@@ -95,7 +96,7 @@ def _dive(c, A, bl, bu, lb, ub, tol, max_lp_iters, max_steps=400,
             probes = solve_lp_batch(
                 c, A, bl, bu, [vv[1] for vv in variants],
                 [vv[0] for vv in variants], max_iters=max_lp_iters,
-                warm_starts=[warm] * len(variants))
+                warm_starts=[warm] * len(variants), device=device)
         else:
             probes = None
         for i, (lb2, ub2) in enumerate(variants):
@@ -232,7 +233,8 @@ def solve_ilp(c, A, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
               time_limit_s: float = 60.0, max_lp_iters: int = 8000,
               warm_start=None, warm_nodes: bool = True,
               budget=None, monitor=None, wave_width: int = 1,
-              batch_backend: Optional[str] = None) -> ILPResult:
+              batch_backend: Optional[str] = None,
+              device="cuda") -> ILPResult:
     """warm_nodes=False disables node-LP warm starting (benchmark knob).
 
     ``budget=`` (a ``guard.SolveBudget``) clamps the node/time limits to
@@ -250,7 +252,9 @@ def solve_ilp(c, A, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
     extra node expansions (children of wave-mates can't prune each
     other before solving) for one dispatch per wave.  ``batch_backend``
     overrides the engine choice (default: ``"np"`` for W=1, ``"auto"``
-    otherwise).
+    otherwise); a wave of more than two children runs on ``device``
+    (default ``"cuda"``: the batched engine's kernel; ``"cpu"`` its plain
+    version).
     """
     c = np.asarray(c, np.float64)
     A = np.atleast_2d(np.asarray(A, np.float64))
@@ -309,7 +313,7 @@ def solve_ilp(c, A, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
         best_x, best_obj = _dive(c, A, bl, bu, lb0, ub0, tol, max_lp_iters,
                                  max_steps=4 * m + 8, warm_start=root,
                                  budget=budget,
-                                 probe_batch=wave_width > 1)
+                                 probe_batch=wave_width > 1, device=device)
     if best_x is None:
         best_x, best_obj = _feasibility_pump(c, A, bl, bu, lb0, ub0, tol,
                                              max_lp_iters, warm_start=root,
@@ -375,7 +379,7 @@ def solve_ilp(c, A, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
                 c, A, bl, bu, [s[1] for s in wave_specs],
                 [s[0] for s in wave_specs], max_iters=max_lp_iters,
                 warm_starts=[s[2] for s in wave_specs], budget=budget,
-                monitor=monitor, backend=batch_backend)
+                monitor=monitor, backend=batch_backend, device=device)
             # vectorized _round_feasible over the wave: one (K, n)
             # round/clip and one matmul per wave instead of per child —
             # acceptance stays sequential (best_obj updates prune later

@@ -50,12 +50,14 @@ Warm-start contract:
   falls back to the cold all-slack start when invalid — a warm start can
   only change the iteration count, never the answer.
 
-Two twin implementations with identical pivot rules:
+Three twin implementations with identical pivot rules:
   solve_lp_np      — numpy (host), used by branch & bound re-solves, the
                      Dual Reducer, the shading cascade's default layer
                      solver, and as the oracle;
   solve_lp_kernel  — the device twin (``repro_torch.core.lp_kernel``):
-                     pricing and BFRT run as hand-written CUDA kernels.
+                     pricing and BFRT run as hand-written CUDA kernels;
+  solve_lp         — the reference's jitted twin: one lane of the batched
+                     engine (``core.lp_batch``, ``csrc/lp_batch.cu``).
 """
 from __future__ import annotations
 
@@ -457,6 +459,66 @@ def solve_lp_np(c, A_t, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
     return LPResult(status, x[:n], obj_min, iters, basis.copy(),
                     at_upper.copy(), y * scale,   # duals in original units
                     notes=tuple(notes))
+
+
+def solve_lp(c, A_t, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
+             max_iters: int = 5000, warm_start=None, mesh=None,
+             budget: Optional[SolveBudget] = None,
+             monitor: Optional[NumericalMonitor] = None,
+             device="cuda") -> LPResult:
+    """The reference's jitted twin (``repro.core.lp.solve_lp``): one lane
+    of the batched engine (``core.lp_batch``) on ``device`` -- a launch of
+    ``csrc/lp_batch.cu`` on a CUDA device, its plain version on the CPU.
+    Same conventions as ``solve_lp_np``, including the warm-start and
+    budget/monitor contracts: tolerance 1e-7, the pivot cap
+    ``budget.lp_iter_cap(max_iters)`` and no shared cap, as in the
+    reference.  ``mesh=`` (the distributed pricing backend) is not ported
+    yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_lp(mesh=) is not ported yet (ROADMAP queue 1, item 6: "
+            "distributed pricing)")
+    from repro_torch.core.lp_batch import _dispatch, _monitor
+    from repro_torch.device import resolve_device
+    c = np.asarray(c, np.float64)
+    A_t = np.atleast_2d(np.asarray(A_t, np.float64))
+    m, n = A_t.shape
+    dev = resolve_device(device)
+    lb_row = np.zeros(n) if lb is None else np.asarray(lb, np.float64)
+    ub_row = np.asarray(ub, np.float64)
+    cap = max_iters
+    if budget is not None:
+        budget.start()
+        if budget.out_of_time() or budget.remaining_pivots() <= 0:
+            # the reference returns the starting basis it prepared
+            arrs, _, _, _, start = _prep(c, A_t, bl, bu, ub_row, lb_row,
+                                         warm_start)
+            if arrs is None:
+                return LPResult(INFEASIBLE, np.zeros(n), 0.0, 0,
+                                np.arange(n, n + m), np.zeros(n + m, bool),
+                                np.zeros(m))
+            basis0, at_upper0, _, wnote = start
+            notes = ([] if wnote is None else [wnote]) \
+                + ["budget: exhausted before LP solve"]
+            return LPResult(BUDGET, np.zeros(n), 0.0, 0,
+                            np.asarray(basis0), np.asarray(at_upper0, bool),
+                            np.zeros(m), notes=tuple(notes))
+        cap = budget.lp_iter_cap(max_iters)
+    results, lanes, _ = _dispatch(
+        c, A_t, bl, bu, ub_row[None], lb_row[None], np.full(1, 1e-7),
+        [warm_start], cap=cap, pivot_cap=None,
+        refactor_every=REFACTOR_EVERY, device=dev)
+    if results[0] is not None:
+        return results[0]                      # an infeasible box
+    lane = lanes[0]
+    st, notes = lane.status, lane.notes()
+    _monitor(monitor, lanes)
+    if budget is not None:
+        budget.charge_pivots(lane.iters)
+        if st == ITER_LIMIT and (cap < max_iters or budget.exhausted()):
+            st = BUDGET
+            notes.append(f"budget: truncated at pivot cap {cap}")
+    return lane.result(st, notes)
 
 
 # ------------------------------------------------------- certificate check

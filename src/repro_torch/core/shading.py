@@ -113,7 +113,7 @@ def shading(hier: Hierarchy, l: int, alpha: int, S_l: np.ndarray,
             rng: Optional[np.random.Generator] = None,
             warm_start=None, return_state: bool = False,
             lp_solver=None, budget=None, report=None, widen=None,
-            ladder: bool = True, skip_lp: bool = False):
+            ladder: bool = True, skip_lp: bool = False, device="cuda"):
     """One Shading step (Algorithm 2): layer-l candidates -> layer-(l-1).
 
     Ablation knobs (paper Mini-Experiments 1 and 2):
@@ -139,7 +139,9 @@ def shading(hier: Hierarchy, l: int, alpha: int, S_l: np.ndarray,
     α escalation — the paper's premature-discard remedy), (3) the
     top-objective seed fallback below, each recorded as a rung.
     ``skip_lp=True`` (budget exhausted upstream) bypasses the layer LP
-    entirely and descends via the seed path.
+    entirely and descends via the seed path.  ``device`` is where a
+    batched flight would run (the two-lane ladder flight runs on the
+    host, as ``backend="auto"`` sends K <= 2 there).
     """
     lp_solver = lp_solver or solve_lp_np
     monitor = report.monitor if report is not None else None
@@ -164,7 +166,7 @@ def shading(hier: Hierarchy, l: int, alpha: int, S_l: np.ndarray,
         from repro_torch.core.ilp import solve_ilp
         c, A, bl, bu, ub = query.matrices(layer_table, S_used)
         res_i = solve_ilp(c, A, bl, bu, ub, max_nodes=100, time_limit_s=10,
-                          budget=budget, monitor=monitor)
+                          budget=budget, monitor=monitor, device=device)
         s_prime = S_used[res_i.x > 1e-9] if res_i.feasible \
             else np.zeros(0, np.int64)
     else:
@@ -202,7 +204,7 @@ def shading(hier: Hierarchy, l: int, alpha: int, S_l: np.ndarray,
                     warm_starts=[_expand_warm(res, pos, len(S_used),
                                               len(U)), None],
                     max_iters=max_lp_iters, budget=budget,
-                    monitor=monitor)
+                    monitor=monitor, device=device)
                 retry, wide_res = lanes
                 if report is not None:
                     report.lp_batches += 1
@@ -321,7 +323,8 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
                         warm_starts: bool = True,
                         lp_solver=None,
                         budget=None, report=None,
-                        ladder: bool = True) -> PackageResult:
+                        ladder: bool = True,
+                        device="cuda") -> PackageResult:
     """Algorithm 1: iterate Shading from layer L to 0, then Dual Reducer.
 
     Each layer's LP is warm-started from the previous layer's final basis
@@ -335,8 +338,9 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
     is exhausted the remaining layer LPs are skipped (``budget_descend``
     rung).  If Dual Reducer fails and budget remains, the layer-0
     candidate set is rebuilt at double α from the layer-1 support and
-    Dual Reducer retried (``dr_alpha_escalation``).  The reference's
-    cross-query cache is not ported yet.
+    Dual Reducer retried (``dr_alpha_escalation``).  ``device`` (default
+    ``"cuda"``) is where batched LP flights run (the Dual Reducer's rungs,
+    B&B waves).  The reference's cross-query cache is not ported yet.
     """
     t0 = time.time()
     alpha = alpha or hier.alpha
@@ -360,7 +364,8 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
             hier, l, alpha, S, query, layer_solver=layer_solver,
             sampler=sampler, rng=rng, warm_start=warm,
             return_state=True, lp_solver=lp_solver, budget=budget,
-            report=report, widen=widen, ladder=ladder, skip_lp=skip)
+            report=report, widen=widen, ladder=ladder, skip_lp=skip,
+            device=device)
         if lp_res is not None:
             stats.lp_iters += int(lp_res.iters)
             _count_warm_rejects(lp_res, stats, report)
@@ -378,7 +383,7 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
     res = dual_reducer(query, table, S, q=dr_q, rng=rng,
                        ilp_kwargs=ilp_kwargs, aux=dr_aux,
                        warm_start=warm, budget=budget, report=report,
-                       ladder=ladder)
+                       ladder=ladder, device=device)
     if not res.feasible and ladder and support is not None \
             and len(support) and not (budget is not None
                                       and budget.exhausted()):
@@ -393,7 +398,7 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
             res2 = dual_reducer(query, table, S_wide, q=dr_q, rng=rng,
                                 ilp_kwargs=ilp_kwargs, aux=dr_aux,
                                 budget=budget, report=report,
-                                ladder=ladder)
+                                ladder=ladder, device=device)
             if res2.feasible:
                 res = res2
                 sizes[-1] = len(S_wide)

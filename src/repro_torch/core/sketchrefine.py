@@ -40,6 +40,7 @@ def sketch_refine(query: PackageQuery, table, attrs, *,
     each step's fixed tuples + one group's members."""
     dev = resolve_device(device)
     ilp_kwargs = dict(ilp_kwargs or {})
+    ilp_kwargs.setdefault("device", dev)      # wide B&B waves, if asked
     rel = as_relation(table, columns=list(attrs))
     n = rel.num_rows
     tau = max(2, int(tau_frac * n))

@@ -7,11 +7,12 @@ kernel launch.  Importing builds nothing: ``nvcc`` runs on first use.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import attention, bfrt, dlv_scan, pricing, segstats
+from repro_torch.kernels import (attention, bfrt, dlv_scan, lp_batch,
+                                 pricing, segstats)
 
 KERNELS = {"pricing": pricing, "bfrt_histogram": bfrt,
            "segment_stats": segstats, "dlv_scan": dlv_scan,
-           "flash_attention": attention}
+           "flash_attention": attention, "lp_batch": lp_batch}
 
 
 def reset_launches() -> None:

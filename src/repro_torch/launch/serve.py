@@ -48,7 +48,7 @@ def main(argv=None):
         cfg,
         hbm_budget_bytes=args.hbm_frac * memory,
         flop_budget=5e13,
-        max_batch=args.max_batch)
+        max_batch=args.max_batch, device=dev)
     for rid in range(args.requests):
         sched.submit(Request(
             rid=rid,

@@ -11,7 +11,10 @@ a package query:
           AND SUM(P.prefill_flops) <= flop_budget
     MAXIMIZE  SUM(P.priority)
 
-solved with the port's Dual Reducer (host numpy, as in the reference).
+solved with the port's Dual Reducer: host numpy, as in the reference,
+except the sub-ILP's B&B waves (``wave_width``, default 8), which run as
+batched LP flights on ``device`` (default ``"cuda"``; the serving engine
+passes its model's device).
 The feature table is kept incrementally: columns are appended once at
 ``submit`` and mask-compacted on admission.  Each tick solves under a
 ``guard.SolveBudget`` deadline and contains any solver exception into an
@@ -32,6 +35,7 @@ from repro_torch.core.dual_reducer import dual_reducer
 from repro_torch.core.guard import ERROR, NumericalMonitor, SolveBudget, \
     SolveReport
 from repro_torch.core.paql import Constraint, PackageQuery
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -96,13 +100,15 @@ class PackageScheduler:
 
     def __init__(self, cfg, *, hbm_budget_bytes: float,
                  flop_budget: float, max_batch: int = 64, seed: int = 0,
-                 time_limit_s: float = 5.0, wave_width: int = 8):
+                 time_limit_s: float = 5.0, wave_width: int = 8,
+                 device="cuda"):
         self.cfg = cfg
         self.hbm_budget = hbm_budget_bytes
         self.flop_budget = flop_budget
         self.max_batch = max_batch
         self.time_limit_s = time_limit_s
         self.wave_width = wave_width
+        self.device = resolve_device(device)
         self.queue: List[Request] = []
         self.rng = np.random.default_rng(seed)
         self._store = _ColumnStore()
@@ -145,6 +151,7 @@ class PackageScheduler:
                 res = dual_reducer(query, cols, np.arange(n),
                                    q=min(500, n), rng=self.rng,
                                    budget=budget, report=report,
+                                   device=self.device,
                                    ilp_kwargs=dict(
                                        max_nodes=200,
                                        wave_width=self.wave_width))

@@ -532,3 +532,250 @@ def test_model_prefill_goes_through_the_kernel(dev):
     for t in range(12):
         logits, cache = model.decode_step(cache, toks[:, t:t + 1])
         torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------- the batched LP engine (lp_batch)
+
+
+def _lp_instance(seed, n, width):
+    """The reference benchmark's gift-basket table
+    (``benchmarks/batch_lp.py::_instance``)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(14.0, 1.5, n)
+    c = np.abs(rng.normal(1.0, 0.5, n))
+    return (c, np.vstack([np.ones(n), vals]), np.array([15.0, 420.0 - width]),
+            np.array([45.0, 420.0 + width]))
+
+
+def _rungs(n, R=12, q=25.0):
+    """The Dual Reducer's rung flight of ``benchmarks/batch_lp.py``:
+    ``ub`` caps E / (q 2^j) of one (c, A), warm from lp1."""
+    from repro_torch.core.lp import solve_lp_np
+    c, A, bl, bu = _lp_instance(9, n, 2.0)
+    ub = np.full(n, 3.0)
+    lp1 = solve_lp_np(c, A, bl, bu, ub)
+    E = float(np.sum(lp1.x))
+    return c, A, bl, bu, [np.minimum(ub, max(E / (q * 2 ** j), 1e-9))
+                          for j in range(R)], lp1
+
+
+def _lane_bar(got, want):
+    from repro_torch.core.lp import OPTIMAL
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert (g.status, g.iters) == (w.status, w.iters), k
+        if w.status == OPTIMAL:
+            assert abs(g.obj - w.obj) <= 1e-9, k
+            assert np.array_equal(np.sort(g.basis), np.sort(w.basis)), k
+            assert np.array_equal(g.at_upper, w.at_upper), k
+            assert np.abs(g.x - w.x).max() <= 1e-9, k
+
+
+@pytest.mark.parametrize("n", [300, 5000])
+def test_lp_batch_rung_flight(dev, n):
+    """The rung flight (n = 300, and 5,000 columns: past the kernel's
+    2,048 shared-memory columns (``NS_MAX`` in ``csrc/lp_batch.cu``), a
+    lane's state in the global workspace) in one launch, lane for lane the
+    plain version and ``solve_lp_np`` (the reference's lane bar)."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    from repro_torch.kernels import lp_batch
+    c, A, bl, bu, ubs, lp1 = _rungs(n)
+    kw = dict(warm_starts=[lp1] * len(ubs))
+    before = lp_batch.launches
+    got = solve_lp_batch(c, A, bl, bu, ubs, backend="device", device=dev,
+                         **kw)
+    assert lp_batch.launches == before + 1
+    _lane_bar(got, solve_lp_batch(c, A, bl, bu, ubs, backend="device",
+                                  device="cpu", **kw))
+    _lane_bar(got, solve_lp_batch(c, A, bl, bu, ubs, backend="np", **kw))
+
+
+@pytest.mark.parametrize("m", [3, 7, 13, 20, 40, 100])
+def test_lp_batch_every_row_class(dev, m):
+    """Random flights at m_pad = 4, 8, 16 and 32 (rows in shared memory)
+    and 64 and 128 (rows in the global workspace), cold: kernel = plain."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        n = max(40, 2 * m)
+        c, A = rng.normal(size=n), rng.normal(size=(m, n))
+        ub = rng.integers(1, 4, size=n).astype(float)
+        act = A @ (rng.uniform(0, 1, n) * ub)
+        wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+        ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(6)]
+        got = solve_lp_batch(c, A, act - wid, act + wid, ubs,
+                             backend="device", device=dev)
+        _lane_bar(got, solve_lp_batch(c, A, act - wid, act + wid, ubs,
+                                      backend="device", device="cpu"))
+
+
+def test_lp_batch_bnb_instance(dev):
+    """B&B at W = 64 on the reference benchmark's instance: the card's
+    waves give the plain version's search (nodes, LP iterations) and the
+    node loop's package and objective."""
+    from repro_torch.core.ilp import solve_ilp
+    from repro_torch.kernels import lp_batch
+    c, A, bl, bu = _lp_instance(42, 150, 0.05)
+    ub = np.ones(150)
+    kw = dict(max_nodes=50_000, time_limit_s=600)
+    before = lp_batch.launches
+    got = solve_ilp(c, A, bl, bu, ub, wave_width=64, device=dev, **kw)
+    assert lp_batch.launches > before
+    plain = solve_ilp(c, A, bl, bu, ub, wave_width=64, device="cpu", **kw)
+    one = solve_ilp(c, A, bl, bu, ub, wave_width=1, device="cpu", **kw)
+    assert (got.nodes, got.lp_iters) == (plain.nodes, plain.lp_iters)
+    assert np.array_equal(got.x, one.x) and got.obj == one.obj
+
+
+def test_lp_batch_shared_budget_truncates_mid_flight(dev):
+    """A shared pivot cap that stops the lockstep loop mid-flight: two
+    launches, and every lane's status, iterations and notes equal the
+    plain version's lockstep loop."""
+    from repro_torch.core.guard import SolveBudget
+    from repro_torch.core.lp_batch import solve_lp_batch
+    from repro_torch.kernels import lp_batch
+    rng = np.random.default_rng(3)
+    n, m = 60, 5
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(8)]
+    args = (c, A, act - wid, act + wid, ubs)
+    its = [r.iters for r in solve_lp_batch(*args, backend="device",
+                                           device="cpu")]
+    cap = int(np.minimum(its, int(np.median(its))).sum())
+    before = lp_batch.launches
+    got = solve_lp_batch(*args, backend="device", device=dev,
+                         budget=SolveBudget(max_pivots=cap))
+    want = solve_lp_batch(*args, backend="device", device="cpu",
+                          budget=SolveBudget(max_pivots=cap))
+    assert [(g.status, g.iters, g.notes) for g in got] == \
+        [(w.status, w.iters, w.notes) for w in want]
+    assert lp_batch.launches == before + 2
+
+
+def test_lp_batch_kernel_and_plain_on_the_card(dev):
+    """One ``LaneSolver`` call against ``lp_batch_plain`` on the same card
+    tensors (out packs held lane by lane, ``lane_mismatches``)."""
+    from repro_torch.core import lp_batch as core
+    from repro_torch.kernels import lp_batch
+    c, A, bl, bu, ubs, lp1 = _rungs(300)
+    kept = []
+    saved = lp_batch.LaneSolver.__call__
+
+    def keep(self, cf, Ad, in_pack):
+        kept.append((self, cf, Ad, in_pack.copy()))
+        return saved(self, cf, Ad, in_pack)
+
+    lp_batch.LaneSolver.__call__ = keep
+    try:
+        core.solve_lp_batch(c, A, bl, bu, ubs, warm_starts=[lp1] * len(ubs),
+                            backend="device", device=dev)
+    finally:
+        lp_batch.LaneSolver.__call__ = saved
+    (solver, cf, Ad, in_pack), = kept
+    got = solver(cf, Ad, in_pack)
+    want = lp_batch.lp_batch_plain(
+        cf, Ad, torch.as_tensor(in_pack, device=dev),
+        max_iters=solver.max_iters,
+        refactor_every=solver.refactor_every).cpu().numpy()
+    bad, _, _ = lp_batch.lane_mismatches(got, want, in_pack, solver.m_pad)
+    assert not bad, bad
+    with pytest.raises(ValueError):
+        solver(cf, Ad, in_pack[:, :-1])
+
+
+def _one_flight(dev, *args, **kw):
+    """The (solver, cf, A, in pack) of one ``solve_lp_batch`` flight on
+    the card, and the out pack the kernel gave."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    from repro_torch.kernels import lp_batch
+    kept = []
+    saved = lp_batch.LaneSolver.__call__
+
+    def keep(self, cf, Ad, in_pack):
+        out = saved(self, cf, Ad, in_pack)
+        kept.append((self, cf, Ad, in_pack.copy(), out.copy()))
+        return out
+
+    lp_batch.LaneSolver.__call__ = keep
+    try:
+        solve_lp_batch(*args, backend="device", device=dev, **kw)
+    finally:
+        lp_batch.LaneSolver.__call__ = saved
+    (flight,) = kept
+    return flight
+
+
+def _plain_pack(solver, cf, Ad, in_pack):
+    from repro_torch.kernels import lp_batch
+    return lp_batch.lp_batch_plain(
+        cf, Ad, torch.as_tensor(in_pack, device=cf.device),
+        max_iters=solver.max_iters,
+        refactor_every=solver.refactor_every).cpu().numpy()
+
+
+def test_lp_batch_nan_cost(dev):
+    """A NaN in c gives NaN reduced costs, so NaN ratios among the
+    eligible breakpoints: the kernel sorts them last, as the plain version
+    does (it neither drops them nor spins), and its lanes equal the plain
+    version's (status, iterations, basis, bound pattern exact; x within
+    1e-9, NaN where the plain version has NaN)."""
+    rng = np.random.default_rng(4)
+    n, m = 40, 4
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    c[[5, 17]] = np.nan
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(6)]
+    solver, cf, Ad, in_pack, got = _one_flight(dev, c, A, act - wid,
+                                               act + wid, ubs)
+    want = _plain_pack(solver, cf, Ad, in_pack)
+    N, mp = solver.N, solver.m_pad
+    o = N + mp
+    for k in range(len(ubs)):
+        g, w = got[k], want[k]
+        assert np.array_equal(g[o + 1 + mp:o + 3 + mp],
+                              w[o + 1 + mp:o + 3 + mp]), k
+        assert np.array_equal(np.sort(g[o + 1:o + 1 + mp]),
+                              np.sort(w[o + 1:o + 1 + mp])), k
+        assert np.array_equal(g[o + 5 + mp:o + 5 + mp + N],
+                              w[o + 5 + mp:o + 5 + mp + N]), k
+        np.testing.assert_allclose(g[:N], w[:N], rtol=0, atol=1e-9,
+                                   equal_nan=True)
+
+
+def test_lp_batch_threads_share_one_class(dev):
+    """Four threads dispatch flights of one shape class on the card at
+    once through one cached LaneSolver: each gets its own flight's lanes,
+    equal to that flight solved alone and to the plain version."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    from repro_torch.runtime.racecheck import run_threads
+
+    def flight(seed):
+        rng = np.random.default_rng(seed)
+        n, m = 60, 5
+        c, A = rng.normal(size=n), rng.normal(size=(m, n))
+        ub = rng.integers(1, 4, size=n).astype(float)
+        act = A @ (rng.uniform(0, 1, n) * ub)
+        wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+        return (c, A, act - wid, act + wid,
+                [ub * rng.uniform(0.5, 1.0, n) for _ in range(8)])
+
+    seeds = range(4)
+    alone = {s: solve_lp_batch(*flight(s), backend="device", device=dev)
+             for s in seeds}
+    for s in seeds:
+        _lane_bar(alone[s], solve_lp_batch(*flight(s), backend="device",
+                                           device="cpu"))
+    runs = run_threads([
+        (lambda s=s: [solve_lp_batch(*flight(s), backend="device",
+                                     device=dev) for _ in range(5)])
+        for s in seeds])
+    for s, got in zip(seeds, runs):
+        for g in got:
+            assert [(r.status, r.iters) for r in g] == \
+                [(r.status, r.iters) for r in alone[s]]
+            for r, a in zip(g, alone[s]):
+                assert r.obj == a.obj and np.array_equal(r.x, a.x)

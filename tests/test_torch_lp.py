@@ -11,6 +11,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import lp as ref_lp
 from repro_torch.core import guard
@@ -120,18 +121,35 @@ def test_kernel_lp_budget_contract():
 
 
 def test_lp_batch_sequential_matches_reference():
-    """Bound-variants through the sequential flight == reference numpy
-    solves lane by lane, at K = 2 and at K = 3 (where the reference's
-    "auto" takes its batched engine, pinned lane by lane to the same
-    solves); forcing the batched engine names the unported item."""
+    """Bound-variants through a flight == reference numpy solves lane by
+    lane, at K = 2 (the sequential path) and at K = 3 (where "auto" takes
+    the batched engine, here its plain version on the CPU, pinned lane by
+    lane to the same solves); the reference's backend name "jax" raises
+    and names the port's, "device"."""
     c, A, bl, bu, ub = _random_lp(5)
     ubs = [ub, np.minimum(ub, 1.0), np.minimum(ub, 0.5)]
     for flight in (ubs[:2], ubs):
-        got = solve_lp_batch(c, A, bl, bu, flight)
+        got = solve_lp_batch(c, A, bl, bu, flight, device="cpu")
         assert len(got) == len(flight)
         for g, u in zip(got, flight):
             want = ref_lp.solve_lp_np(c, A, bl, bu, u)
             assert (g.status, g.iters) == (want.status, want.iters)
             assert g.obj == pytest.approx(want.obj, rel=1e-9, abs=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'device'"):
         solve_lp_batch(c, A, bl, bu, [ub], backend="jax")
+
+
+def test_lp_batch_device_backend_needs_a_card():
+    """The batched engine on the default device raises without CUDA (no
+    silent CPU fallback), forced or under "auto" at K > 2; K <= 2 under
+    "auto" stays on the host and needs no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card contract is moot")
+    c, A, bl, bu, ub = _random_lp(5)
+    ubs = [ub, np.minimum(ub, 1.0), np.minimum(ub, 0.5)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_lp_batch(c, A, bl, bu, ubs[:1], backend="device",
+                       device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_lp_batch(c, A, bl, bu, ubs)
+    assert len(solve_lp_batch(c, A, bl, bu, ubs[:2])) == 2

@@ -3,7 +3,8 @@ admission (tick by tick), greedy generation, and the serve launcher.
 
 Admissions must be identical request for request: both schedulers solve
 the same package query with Dual Reducer and B&B at ``wave_width=8``
-(the default), whose wide flights the port solves lane by lane.  Greedy
+(the default), whose wide flights the port's batched LP engine solves
+(here its plain version: the schedulers run with ``device="cpu"``).  Greedy
 tokens must be identical on the same converted parameters and prompts.
 """
 import dataclasses
@@ -43,7 +44,7 @@ def test_scheduler_admits_as_reference(arch, hbm_frac, n):
     kw = dict(hbm_budget_bytes=hbm_frac * 16 * 2**30, flop_budget=5e13,
               max_batch=8, time_limit_s=600.0)
     ref = RefScheduler(ref_config(arch), **kw)
-    port = PackageScheduler(get_config(arch), **kw)
+    port = PackageScheduler(get_config(arch), device="cpu", **kw)
     assert port.wave_width == ref.wave_width == 8
     for r in _requests(n, seed=0, prompt=(4, 2048)):
         ref.submit(RefRequest(**r))
@@ -92,7 +93,7 @@ def test_serve_records_every_tick():
     from repro_torch.models import Model
     cfg = get_config("smollm-135m").smoke()
     sched = PackageScheduler(cfg, hbm_budget_bytes=2**30, flop_budget=5e13,
-                             max_batch=3)
+                             max_batch=3, device="cpu")
     for r in _requests(5, seed=2):
         sched.submit(Request(**r))
     engine = ServingEngine(Model(cfg, device="cpu").init(seed=0),
