@@ -43,18 +43,25 @@ package.  Phases, one line each (or one per kernel):
    timed with the gather that precedes it in ``dlv_rounds``
    ("main-path segment_stats call i");
 5b. lp batch: the batched LP engine (``csrc/lp_batch.cu``, one launch a
-   flight, one CTA a lane).  Its main path: B&B on the reference
-   benchmark's instance (``benchmarks/batch_lp.py``, n=150, width 0.05)
-   at W=64 on the card, launch counts reset around it, against W=1 (the
-   same package and objective) and against W=64 on the plain version
-   (the same nodes and LP iterations); dispatches, launches, lanes and
-   trips per dispatch, the workspace cache; every flight held to the
-   plain version on the card.  Then flights, each against the plain
-   version on the card and ``solve_lp_np`` lane by lane and timed (device
-   ms, host wall per dispatch, plain ms, bound): the Dual Reducer's rung
+   flight: one warp a lane, several lanes a CTA, for m_pad <= 32 and N
+   <= WARP_N_MAX; one CTA a lane above).  Its main path: B&B on the
+   reference benchmark's instance (``benchmarks/batch_lp.py``, n=150,
+   width 0.05) at W=64 on the card, launch counts reset around it,
+   against W=1 (the same package and objective) and against W=64 on the
+   plain version (the same nodes and LP iterations); dispatches,
+   launches, lanes and trips per dispatch, the workspace cache; every
+   flight held to the plain version on the card, with the path and the
+   lanes a CTA it took; the flights' kernel time (CUDA events, and the
+   profiler's device time); one dispatch's host time split into lane
+   assembly, ``_validate_warm_batch``, the ``LaneSolver`` call (its
+   copies and sync, and the kernel) and unpack ("lp batch bnb dispatch
+   split").  Then flights, each against the plain version on the card
+   and ``solve_lp_np`` lane by lane and timed (device ms, host wall per
+   dispatch, plain ms, bound, path): the Dual Reducer's rung
    flight (n=300, R=12, warm from lp1), "wide" (the same rungs over
-   100,000 columns: the global-workspace path), "tall" (40 rows, m_pad
-   64: a lane's rows in the global workspace), a shared pivot budget
+   100,000 columns: the CTA path, its global workspace), "tall" (40
+   rows, m_pad 64: the CTA path, a lane's rows in the global
+   workspace), a shared pivot budget
    that truncates mid-flight (two launches; statuses, iterations and
    notes equal the plain lockstep loop's); the full cell's h=3 and h=5
    solves at W=8 against W=1 (same package and objective, flights held),
@@ -1213,6 +1220,150 @@ def capturing_flights():
         lp_batch.LaneSolver.__call__ = call
 
 
+@contextlib.contextmanager
+def keeping_dual_reducer():
+    """Keep the (query, table, S, warm start) of every Dual Reducer call
+    made inside the block (``core/shading.py``'s)."""
+    from repro_torch.core import shading
+    kept, dual_reducer = [], shading.dual_reducer
+
+    def keep(query, table_, S, **kw):
+        kept.append((query, table_, np.array(S), kw.get("warm_start")))
+        return dual_reducer(query, table_, S, **kw)
+
+    shading.dual_reducer = keep
+    try:
+        yield kept
+    finally:
+        shading.dual_reducer = dual_reducer
+
+
+def dr_rungs(kept_dr):
+    """Four rungs of the first kept Dual Reducer LP: its candidate set,
+    warm from its lp1 -- (c, A, bl, bu, ubs, lp1)."""
+    query, table_, S, warm = kept_dr[0]
+    cd, Ad, bld, bud, ubd = query.matrices(table_, S)
+    ubs, lp1 = rung_flight(cd, Ad, bld, bud, ubd, 4, 500, warm)
+    return cd, Ad, bld, bud, ubs, lp1
+
+
+def lp_main_flights(device, full: bool = True) -> dict:
+    """The batched LP engine's main-path flights on ``device``, each as
+    ``capturing_flights`` keeps it: every flight of B&B at W = 64 on the
+    reference benchmark's instance, the Dual Reducer's rung flight (warm
+    from lp1), the parity cell's flights (200k rows, h=3, its sub-ILP's
+    B&B at W = 8) and, with ``full``, four rungs of the full cell's h=3
+    Dual Reducer LP (the 10M-row build, its sub-ILP at W = 8)."""
+    from repro_torch.core.ilp import solve_ilp
+    from repro_torch.core.lp_batch import solve_lp_batch
+    bb = LP_BNB
+    c, A, bl, bu = lp_instance(bb["seed"], bb["n"], bb["width"])
+    with capturing_flights() as bnb:
+        solve_ilp(c, A, bl, bu, np.ones(bb["n"]), wave_width=bb["wave_width"],
+                  max_nodes=bb["max_nodes"], time_limit_s=600.0,
+                  device=device)
+    out = {"bnb": bnb}
+    cr, Ar, blr, bur = lp_instance(9, LP_RUNGS["n"], 2.0)
+    ubs, lp1 = rung_flight(cr, Ar, blr, bur, np.full(LP_RUNGS["n"], 3.0),
+                           LP_RUNGS["rungs"], LP_RUNGS["q"])
+    with capturing_flights() as out["rungs"]:
+        solve_lp_batch(cr, Ar, blr, bur, ubs, warm_starts=[lp1] * len(ubs),
+                       backend="device", device=device)
+    from repro_torch.core.engine import PackageQueryEngine
+    from repro_torch.core.hardness import Q2_TPCH, column_stats, instantiate
+    from repro_torch.data.synth_tables import make_table
+    table = make_table("tpch", 200_000, seed=0)
+    q = instantiate(Q2_TPCH, column_stats(table, ATTRS), 3)
+    eng = PackageQueryEngine(table, ATTRS, d_f=100, alpha=2000, seed=0,
+                             device=device)
+    eng.partition()
+    with capturing_flights() as out["parity W=8"]:
+        wave_solve(eng, q, 8)
+    if full:
+        table = make_table("tpch", 10_000_000, seed=0)
+        q3 = instantiate(Q2_TPCH, column_stats(table, ATTRS), 3)
+        eng = PackageQueryEngine(table, ATTRS, d_f=100, alpha=100_000,
+                                 seed=0, device=device)
+        eng.partition()
+        with keeping_dual_reducer() as kept:
+            wave_solve(eng, q3, 8)
+        cd, Ad, bld, bud, ubs, lp1 = dr_rungs(kept)
+        with capturing_flights() as out["full-cell rungs"]:
+            solve_lp_batch(cd, Ad, bld, bud, ubs,
+                           warm_starts=[lp1] * len(ubs), backend="device",
+                           device=device)
+    return out
+
+
+@contextlib.contextmanager
+def dispatch_split():
+    """Time every batched LP dispatch made inside the block by its parts
+    (one thread).  Yields a list, one dict of seconds a dispatch:
+    ``dispatch`` all of ``core/lp_batch.py::_dispatch``; ``validate``
+    its ``_validate_warm_batch``; ``solver`` the ``LaneSolver`` call
+    (pinned copies in and out, the launches, the sync); ``assembly`` the
+    dispatch before that call less ``validate``; ``unpack`` after it."""
+    from repro_torch.core import lp_batch as core
+    from repro_torch.kernels import lp_batch
+    rows = []
+    disp, val = core._dispatch, core._validate_warm_batch
+    call = lp_batch.LaneSolver.__call__
+
+    def timed_dispatch(*a, **kw):
+        row = {"validate": 0.0, "start": time.perf_counter()}
+        rows.append(row)
+        out = disp(*a, **kw)
+        row["end"] = time.perf_counter()
+        return out
+
+    def timed_validate(*a, **kw):
+        t0 = time.perf_counter()
+        out = val(*a, **kw)
+        rows[-1]["validate"] += time.perf_counter() - t0
+        return out
+
+    def timed_call(self, *a, **kw):
+        rows[-1]["call0"] = time.perf_counter()
+        out = call(self, *a, **kw)
+        rows[-1]["call1"] = time.perf_counter()
+        return out
+
+    core._dispatch, core._validate_warm_batch = timed_dispatch, timed_validate
+    lp_batch.LaneSolver.__call__ = timed_call
+    split = []
+    try:
+        yield split
+    finally:
+        core._dispatch, core._validate_warm_batch = disp, val
+        lp_batch.LaneSolver.__call__ = call
+        for r in rows:
+            if "call0" in r and "end" in r:
+                split.append({
+                    "dispatch": r["end"] - r["start"],
+                    "validate": r["validate"],
+                    "solver": r["call1"] - r["call0"],
+                    "assembly": r["call0"] - r["start"] - r["validate"],
+                    "unpack": r["end"] - r["call1"]})
+
+
+def lp_cta_flights(device) -> dict:
+    """The CTA path's flights of phase "lp batch", kept as
+    ``capturing_flights`` keeps them: "wide" (the rung flight over
+    100,000 columns) and "tall" (40 rows)."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    cw, Aw, blw, buw = lp_instance(9, LP_WIDE["n"], 2.0)
+    ubs, lp1 = rung_flight(cw, Aw, blw, buw, np.full(LP_WIDE["n"], 3.0),
+                           LP_WIDE["rungs"], LP_WIDE["q"])
+    out = {}
+    with capturing_flights() as out["wide"]:
+        solve_lp_batch(cw, Aw, blw, buw, ubs, warm_starts=[lp1] * len(ubs),
+                       backend="device", device=device)
+    with capturing_flights() as out["tall"]:
+        solve_lp_batch(*random_flight(**LP_TALL), backend="device",
+                       device=device)
+    return out
+
+
 def lp_plain(solver, cf, A, in_pack):
     """The plain version's out pack for one flight, on the card."""
     import torch
@@ -1223,14 +1374,34 @@ def lp_plain(solver, cf, A, in_pack):
     return out.cpu().numpy()
 
 
+def warp_n_max() -> int:
+    """The widest flight (N) the batched LP kernel runs one warp a lane."""
+    src = (ROOT / SOURCES["lp_batch"][0]).read_text()
+    return int(re.search(r"#define WARP_N_MAX (\d+)", src)[1])
+
+
+def lp_path(solver) -> str:
+    """The path a flight must take: "warp" for m_pad <= 32 and N <=
+    WARP_N_MAX (the narrow flights), else "cta"."""
+    return "warp" if solver.m_pad <= 32 and solver.N <= warp_n_max() \
+        else "cta"
+
+
 def hold_flights(flights, tag: str) -> float:
     """Every kept flight's out pack against the plain version on the card
-    (``lane_mismatches`` and the spent pivots); returns the largest
-    difference in x or the objective."""
+    (``lane_mismatches`` and the spent pivots), and its path against
+    ``lp_path``; returns the largest difference in x or the objective."""
     from repro_torch.kernels import lp_batch
     t0 = time.perf_counter()
-    worst, lanes = 0.0, 0
+    worst, lanes, paths = 0.0, 0, {}
     for i, (solver, cf, A, in_pack, out) in enumerate(flights):
+        plan = solver.plan
+        check(plan["path"] == lp_path(solver), f"lp batch {tag}: flight {i}"
+              f" (m_pad {solver.m_pad}, N {solver.N}) took the "
+              f"{plan['path']} path")
+        key = f"{plan['path']}, {plan['lanes_per_cta']} lanes a CTA" \
+            + (", (cf, A) staged" if plan["staged"] else "")
+        paths[key] = paths.get(key, 0) + 1
         want = lp_plain(solver, cf, A, in_pack)
         bad, x_err, obj_err = lp_batch.lane_mismatches(out, want, in_pack,
                                                        solver.m_pad)
@@ -1243,7 +1414,8 @@ def hold_flights(flights, tag: str) -> float:
         lanes += int(np.count_nonzero(
             in_pack[:, 3 * solver.N + 1 + solver.m_pad]))
     say(f"main-path {tag} lp_batch", flights=len(flights), lanes=lanes,
-        max_abs_err=worst, check_s=time.perf_counter() - t0)
+        paths=json.dumps(paths), max_abs_err=worst,
+        check_s=time.perf_counter() - t0)
     return worst
 
 
@@ -1290,7 +1462,9 @@ def flight_numbers(solver, cf, A, in_pack, out, dispatch=None,
                    reps: int = 10) -> dict:
     """One flight's times: ``ms`` the kernel's own (CUDA events around its
     launches back to back: the full launch, and the trip-limited one when
-    the shared cap truncates), ``wall_ms`` one ``LaneSolver`` call (the
+    the shared cap truncates), ``device_ms`` the same under the profiler
+    (the kernels' device time, without the host's gaps between
+    launches), ``wall_ms`` one ``LaneSolver`` call (the
     pinned copies in and out and the host sync included), ``dispatch_ms``
     the whole ``solve_lp_batch`` call when ``dispatch`` is given (lane
     assembly, warm validation and unpack on the host), the plain
@@ -1301,6 +1475,7 @@ def flight_numbers(solver, cf, A, in_pack, out, dispatch=None,
     one of a lane that ended optimal), over float64's peak."""
     import torch
     from repro_torch.core.lp import OPTIMAL
+    from repro_torch.kernels import lp_batch
     N, m = solver.N, solver.m_pad
     valid = in_pack[:, 3 * N + 1 + m] != 0.0
     its = out[valid, N + 2 * m + 2]
@@ -1327,6 +1502,8 @@ def flight_numbers(solver, cf, A, in_pack, out, dispatch=None,
         for _ in range(reps):
             dispatch()
         extra["dispatch_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    device = per_call_device(lambda: solver(cf, A, in_pack), reps, lp_batch,
+                             "lp_batch")["device_ms"]
     lp_plain(solver, cf, A, in_pack)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1335,7 +1512,8 @@ def flight_numbers(solver, cf, A, in_pack, out, dispatch=None,
     plain = (time.perf_counter() - t0) * 1e3
     host = extra.get("dispatch_ms", wall)
     return _numbers(f"K={lanes} of {solver.K_pad} N={N} m_pad={m}", nbytes,
-                    ops, ms, plain, None, wall_ms=wall, **extra,
+                    ops, ms, plain, None, device_ms=device, **solver.plan,
+                    wall_ms=wall, **extra,
                     host_share=1.0 - ms / host, launches_per_call=n_launch,
                     lanes=lanes, trips=int(its.max()),
                     priced_trips=int(priced.sum()), rows=m_real, columns=N_real)
@@ -1364,7 +1542,7 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
     "fixed"}."""
     import torch
     from repro_torch import kernels
-    from repro_torch.core import guard, shading
+    from repro_torch.core import guard
     from repro_torch.core.ilp import solve_ilp
     from repro_torch.core.lp_batch import (batch_cache_stats, batch_stats,
                                            reset_batch_stats, solve_lp_batch)
@@ -1418,23 +1596,54 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
     check(launched == len(flights) == stats["dispatches"] > 0,
           f"lp batch bnb: {launched} launches for {stats['dispatches']} "
           "dispatches")
+    check(all(lp_path(f[0]) == "warp" for f in flights),
+          "lp batch bnb: a flight is not narrow (m_pad <= 32, N <= "
+          "WARP_N_MAX)")
     paths["bnb W=64"] = launched
     errs.append(hold_flights(flights, "bnb W=64"))
     # the kernel's device time over every wave's flight, against the wall
     dev_ms = [kernel_ms(f[0], f[1], f[2], f[3], 3)[0] for f in flights]
+    # and under the profiler: the kernels' own device time, every flight
+    # once (its LaneSolver call), without the host's launch gaps
+    prof = per_call_device(lambda: [f[0](f[1], f[2], f[3])
+                                    for f in flights], 1, lp_batch,
+                           "lp_batch")
     say("lp batch bnb device", flights=len(dev_ms),
         device_ms_sum=float(np.sum(dev_ms)),
         device_ms_per_dispatch=float(np.mean(dev_ms)),
-        device_ms_max=float(np.max(dev_ms)), W64_s=ww_s,
+        device_ms_max=float(np.max(dev_ms)),
+        profiled_ms_sum=prof["device_ms"],
+        profiled_launches=prof["profiled_launches"], W64_s=ww_s,
         device_share_of_W64_wall=float(np.sum(dev_ms)) / 1e3 / ww_s)
+    # one B&B dispatch's host time, split: the same solve again, timed
+    with dispatch_split() as split:
+        t0 = time.perf_counter()
+        solve_ilp(c, A, bl, bu, ub, wave_width=bb["wave_width"],
+                  device=device, **kw)
+        _sync(device)
+        split_s = time.perf_counter() - t0
+    check(len(split) == len(dev_ms), f"lp batch bnb split: {len(split)} "
+          f"dispatches timed, {len(dev_ms)} flights")
+    part = {k: float(np.mean([r[k] for r in split])) * 1e3
+            for k in ("dispatch", "assembly", "validate", "solver", "unpack")}
+    kern = float(np.mean(dev_ms))
+    say("lp batch bnb dispatch split", dispatches=len(split),
+        wall_ms_per_dispatch=split_s / len(split) * 1e3,
+        dispatch_ms=part["dispatch"], lane_assembly_ms=part["assembly"],
+        validate_warm_batch_ms=part["validate"],
+        lane_solver_ms=part["solver"], kernel_ms=kern,
+        copies_and_sync_ms=part["solver"] - kern,
+        unpack_ms=part["unpack"],
+        outside_dispatch_ms=split_s / len(split) * 1e3 - part["dispatch"])
     big = max(flights, key=lambda f: int(np.count_nonzero(
         f[3][:, 3 * f[0].N + 1 + f[0].m_pad])))
     main = flight_numbers(*big)
     say("lp batch bnb largest flight", **main)
 
-    def flight(tag, c, A, bl, bu, ubs, lp1, budget_kw=None):
-        """A flight on the card (one captured launch or two), against
-        the plain version on the card and ``solve_lp_np``; its numbers."""
+    def flight(tag, c, A, bl, bu, ubs, lp1, budget_kw=None, path=None):
+        """A flight on the card (one captured launch or two), on ``path``
+        where given (always on ``lp_path``'s), against the plain version
+        on the card and ``solve_lp_np``; its numbers."""
         kw = dict(warm_starts=None if lp1 is None else [lp1] * len(ubs))
         before = lp_batch.launches
         with capturing_flights() as kept:
@@ -1442,6 +1651,8 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
                                  device=device, **kw, **(budget_kw or {}))
         n_launch = lp_batch.launches - before
         (f,) = kept
+        check(path in (None, f[0].plan["path"]), f"lp batch {tag}: the "
+              f"{f[0].plan['path']} path, not the {path} path")
         err = hold_flights(kept, tag)
         if budget_kw is None:
             err = max(err, lane_bar(got, solve_lp_batch(
@@ -1465,12 +1676,13 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
     cw, Aw, blw, buw = lp_instance(9, LP_WIDE["n"], 2.0)
     ubs, lp1 = rung_flight(cw, Aw, blw, buw, np.full(LP_WIDE["n"], 3.0),
                            LP_WIDE["rungs"], LP_WIDE["q"])
-    _, n1, err, _ = flight("wide", cw, Aw, blw, buw, ubs, lp1)
+    _, n1, err, _ = flight("wide", cw, Aw, blw, buw, ubs, lp1, path="cta")
     check(n1 == 1, f"lp batch wide: {n1} launches")
     errs.append(err)
 
     # ---- tall: 40 rows, a lane's rows in the global workspace
-    _, n1, err, _ = flight("tall", *random_flight(**LP_TALL), None)
+    _, n1, err, _ = flight("tall", *random_flight(**LP_TALL), None,
+                           path="cta")
     check(n1 == 1, f"lp batch tall: {n1} launches")
     errs.append(err)
 
@@ -1496,24 +1708,16 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
     errs.append(err)
 
     # ---- the full cell at W = 8 against W = 1; its h=3 Dual Reducer LP
-    kept_dr = []
-    dual_reducer = shading.dual_reducer
-
-    def keep_dr(query, table_, S, **kw):
-        kept_dr.append((query, table_, np.array(S), kw.get("warm_start")))
-        return dual_reducer(query, table_, S, **kw)
-
     kernels.reset_launches()
+    kept_dr = []
     with capturing_flights() as full_flights:
         for h, q in ((3, q3), (5, q5)):
             budget = None if h == 3 else guard.SolveBudget(deadline_s=300.0)
             one, s1 = wave_solve(eng, q, 1, budget)
             budget = None if h == 3 else guard.SolveBudget(deadline_s=300.0)
-            shading.dual_reducer = keep_dr
-            try:
+            with keeping_dual_reducer() as kept:
                 eight, s8 = wave_solve(eng, q, 8, budget)
-            finally:
-                shading.dual_reducer = dual_reducer
+            kept_dr += kept
             same = same_package(one, eight)
             # one package's objective, summed in another order by the
             # wave's vectorized incumbent check (core/ilp.py): 1e-12
@@ -1530,11 +1734,9 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
 
     # four rungs of the h=3 Dual Reducer LP: its candidate set, warm
     # from its lp1
-    query, table_, S, warm = kept_dr[0]
-    cd, Ad, bld, bud, ubd = query.matrices(table_, S)
-    ubs, lp1 = rung_flight(cd, Ad, bld, bud, ubd, 4, 500, warm)
-    _, n1, err, _ = flight(f"full-cell rungs (n={len(S)})", cd, Ad, bld,
-                           bud, ubs, lp1)
+    cd, Ad, bld, bud, ubs, lp1 = dr_rungs(kept_dr)
+    _, n1, err, _ = flight(f"full-cell rungs (n={len(kept_dr[0][2])})", cd,
+                           Ad, bld, bud, ubs, lp1)
     errs.append(err)
     torch.cuda.empty_cache()
     return {"launches": launched, "paths": paths, "err": max(errs),

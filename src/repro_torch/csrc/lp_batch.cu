@@ -1,6 +1,6 @@
 // The batched bound-variant LP engine for Hopper (sm_90a): a whole flight
 // of revised-dual-simplex solves with the bound-flipping ratio test as ONE
-// launch, one CTA per lane.
+// launch.
 //
 // Replaces repro/core/lp_batch.py::_batched_core (a jitted, vmapped
 // lax.while_loop over the single twin's pivot pieces, repro/core/lp.py
@@ -8,40 +8,65 @@
 // _optimal_suspect_gate, _pivot_core and _gather_solution).  The K lanes
 // share (cf, A) and differ in bounds, tolerance and starting basis.  In
 // the reference the lanes interact only through the shared pivot cap,
-// so here each CTA runs its own lane to its own end: it never waits on
-// another lane, and the host imposes the cap by a trip limit (below).
+// so here each lane runs to its own end: it never waits on another
+// lane, and the host imposes the cap by a trip limit (below).
 //
-// Per lane (blockIdx.x): the m x m basis inverse Binv, xB, y and the
-// pivot row rho live in shared memory up to m_pad = 32 rows
-// (ROWS_SMEM_MAX), in a global workspace above; d, alpha, the breakpoint
-// keys, the bound flags and the bounds l/u live in shared memory when N
-// fits (N <= NS_MAX), else in the global workspace (l/u are then read
-// from the in pack).  (cf, A) stay in global memory; every lane reads
-// them, and at these sizes (m ~ 2-20, N ~ 1e2-1e5) they stay in L2.  Row
-// sums over the columns (A xN at a refresh, A dxN for the flips) are
-// accumulated in registers 32 rows at a time, so any m builds.  Each trip
-// is the reference's batched loop body for one lane:
+// Each trip is the reference's batched loop body for one lane:
 //   1. drift gate: max |Binv B - I| > DRIFT_TOL (on stale factors), or
 //      since >= refactor_every, and the optimal-suspect gate (every row
 //      feasible on stale factors) -> refresh: an m x m Gauss-Jordan
-//      inverse with partial pivoting in shared memory, then xB, y, d;
+//      inverse with partial pivoting, then xB, y, d;
 //   2. leaving row: the violation's argmax, or Bland's smallest basic
 //      index; pricing alpha = rho @ A (rows added in order 0..m-1),
 //      eligibility, ratio max(d / (s alpha), 0) as an order-preserving
 //      64-bit key, flip cost |alpha| (u - l);
 //   3. the BFRT select: eligible breakpoints in (ratio, index) order --
 //      np.argsort(kind="stable")'s order -- their flip costs added one by
-//      one from 0 by one thread, exactly np.cumsum's running sum; q is
-//      the first to reach |delta| - 1e-12, and every breakpoint before it
-//      flips.  The breakpoints are sorted in shared memory (bitonic), at
-//      most CAPW a round: when more are eligible, a radix pass over the
-//      96-bit (ratio, index) keys picks a boundary with at most CAPW keys
-//      below it, and the next round continues the walk above it;
+//      one from 0, exactly np.cumsum's running sum; q is the first to
+//      reach |delta| - 1e-12, and every breakpoint before it flips;
 //   4. the pivot: flip absorption xB -= Binv (A dxN), the basis exchange,
 //      d -= theta alpha, y += theta rho, the Sherman-Morrison update of
 //      Binv, and the anti-cycling and drift bookkeeping.
 // At exit a lane with since > 0 is refreshed, and x, y, obj, the basis,
 // the counters and the bound pattern are written to its out-pack row.
+//
+// Two paths, picked per flight from (m_pad, N) and the shared-memory
+// budget (plan(), exported as lp_batch_plan):
+//
+// The warp path (m_pad <= 32 and N <= WARP_N_MAX: the B&B waves, the
+// Dual Reducer's rungs): one warp a lane, up to WARP_LANES_MAX lanes a
+// CTA, as many as their state fits.  A lane's state -- d, alpha, l/u,
+// flags, its sorted runs, Binv, B = A[:, basis] (one column rewritten a
+// pivot) and its row vectors -- lives in shared memory; (cf, A) is
+// copied into shared memory once per CTA by a bulk asynchronous copy
+// completed on an mbarrier (while the lanes load their rows), when it
+// fits beside the lanes without costing one and N is even (the copy's
+// 16-byte unit), else read from global memory (L2).  No block barrier
+// after that copy: a lane's barriers are __syncwarp(), its reductions
+// shuffles in a fixed order, and its scalars registers, equal in every
+// thread of the warp.  Thread t owns columns t, t + 32, ... and row t.  The select is an ordered merge
+// that stops at the crossing: each thread sorts its own eligible
+// (ratio, index) keys (a run); the warp takes the least of the 32 run
+// heads (three __reduce_min_sync) once a breakpoint and adds its flip
+// cost to the running sum, and stops at the first key whose sum
+// reaches the threshold; the flips are the runs' consumed prefixes.
+// With no negative cost, a sum of every eligible cost that is certainly below
+// the threshold ends the select with no crossing before any walk.  The
+// keys and the running sums are the sequential walk's, so q, the flip
+// set and the sum are.
+//
+// The CTA path (the rest: "wide" lanes of N > WARP_N_MAX, "tall" lanes
+// of m_pad > 32): one CTA of 256 threads a lane.  Binv, xB, y and rho
+// in shared memory up to m_pad = 32 rows (ROWS_SMEM_MAX), in a global
+// workspace above; d, alpha, the keys, the flags and l/u in shared
+// memory when N <= NS_MAX, else in the global workspace (l/u then read
+// from the in pack); (cf, A) from global memory.  Row sums over the
+// columns are accumulated 32 rows at a time in registers, so any m
+// builds.  The select sorts the eligible breakpoints in shared memory
+// (bitonic), at most CAPW a round: when more are eligible, a radix pass
+// over the 96-bit (ratio, index) keys picks a boundary with at most CAPW
+// keys below it, and the next round continues the walk above it; one
+// thread walks each sorted round.
 //
 // The shared pivot cap: after T lockstep trips the reference has spent
 // sum_k min(it_k, T) pivots, and a lane's trajectory is its own.  So the
@@ -50,11 +75,17 @@
 // trip_limit = T (kernels/lp_batch.py::LaneSolver), which gives the
 // lockstep loop's lanes exactly.
 //
-// Bound: operations.  Each pivot prices the N columns (2 m N flops) and
-// walks them a few times; a lane's bytes (A and its state) are read from
-// L2, not HBM.  A trip is ~20 barriers plus the sort's, so at the pivot
-// loop's sizes a lane is latency-bound: the design point is one launch
-// per flight instead of ~200 host-issued ops and a host sync per trip.
+// Bound: operations (2 m N flops of pricing a trip), but a lane at the
+// pivot loop's sizes (m ~ 2-20, N ~ 1e2-1e3) is latency-bound: its
+// trip is a chain of dependent reductions, divisions and one select.
+// The warp path makes each of them a warp operation (on the B&B
+// flights the CTA path spends ~35 block barriers a trip, a quarter of
+// its cycles in the bitonic sort; scripts/lp_batch_phase_cycles.py),
+// keeps a lane's Gauss-Jordan inverse in registers (m_pad <= 16) and
+// loads each batch of columns before it stores (the compiler may not
+// move a load of one column above a store of another).  The CTA path's
+// wide lanes walk N columns a few times a trip; its tall lanes do m^3
+// work in the drift gate and the refresh.
 // Built with -fmad=false, so the running sum and the cost products round
 // as numpy's do.  Every sum has a fixed order, so a run is repeatable.
 #include <cuda_runtime.h>
@@ -69,6 +100,38 @@ typedef unsigned long long u64;
 #define NS_MAX 2048          // N up to which per-column state is in shared
 #define ROWS_SMEM_MAX 32     // m_pad up to which per-row state is in shared
 #define CAPW 4096            // breakpoints one select round sorts
+// N up to which a lane of m_pad <= 32 runs on one warp.  Measured on the
+// main path's flights (scripts/lp_batch_layouts.py, H100) against the
+// CTA path: 30% less time on the B&B (N = 164) and full-cell rung (100)
+// flights, 8% less over the parity cell's 27 flights (N up to 516), and
+// 17% more on the rung flight (308), whose optimal lanes walk ~150
+// breakpoints a select (the merge's ~200 cycles a breakpoint against
+// the CTA path's sort and one-thread walk); 256 would trade the parity
+// flights' gain for the rung flight's, so the bound stays at 1,024
+#ifndef WARP_N_MAX
+#define WARP_N_MAX 1024
+#endif
+#ifndef WARP_LANES_MAX
+#define WARP_LANES_MAX 4     // lanes (warps) a CTA of the warp path holds
+#endif
+#ifndef STAGE_CF_A
+#define STAGE_CF_A 1         // the warp path may stage (cf, A) in shared
+#endif
+// the warp path's Gauss-Jordan inverse in registers for m_pad <= 16 (else
+// in shared memory, as at m_pad 32), and its runs of <= 8 keys sorted by
+// a network in registers (else by insertion): compile-time switches so
+// that scripts/lp_batch_layouts.py can time each against the general one
+#ifndef WARP_INVERT_REGS
+#define WARP_INVERT_REGS 1
+#endif
+#ifndef WARP_SORT_NET
+#define WARP_SORT_NET 1
+#endif
+// the dynamic shared memory a CTA may take: 227 KB less 2 KB for the
+// kernels' static shared memory
+#define SMEM_BUDGET (227 * 1024 - 2048)
+static_assert(WARP_N_MAX <= 65535 && WARP_N_MAX <= NS_MAX,
+              "the warp path keeps column indices in 16 bits");
 #define FULL 0xffffffffu
 #define KEY_NONE 0xffffffffffffffffull   // an ineligible column's key
 #define KEY_NAN (KEY_NONE - 1)           // a NaN ratio: after +inf, as numpy
@@ -84,6 +147,18 @@ typedef unsigned long long u64;
 
 #define F_BASIC 1            // flag bits of a column
 #define F_UPPER 2
+
+// The phases of a trip.  scripts/lp_batch_phase_cycles.py builds a copy
+// with PROBE defined, whose hooks add the clock64() cycles since the last
+// hook to the phase that ends there; in this build they are empty.
+enum { PH_GATES, PH_REFRESH, PH_LEAVE, PH_PRICE, PH_COLLECT, PH_SORT,
+       PH_WALK, PH_FLIPS, PH_PIVOT, PH_OUT, NPH };
+#ifndef PROBE
+#define PROBE_INIT()
+#define PROBE_CTA(ph)
+#define PROBE_WARP(ph)
+#define PROBE_END(path, trips)
+#endif
 
 struct Sc {                  // a lane's scalars
   double tol, delta, s, rmin, thr, wr, theta, t, xq, base;
@@ -465,7 +540,9 @@ struct Lane {
         sh[i] = KEY_NONE; sl[i] = 0xffffffffu;
       }
       __syncthreads();
+      PROBE_CTA(PH_COLLECT);
       bitonic(P);
+      PROBE_CTA(PH_SORT);
       if (tid == 0) {
         // every eligible key is below KEY_NONE, so a round that collects
         // none has lost count: stop the card rather than spin
@@ -485,6 +562,7 @@ struct Lane {
         sc->all = 0;
       }
       __syncthreads();
+      PROBE_CTA(PH_WALK);
     }
     if (tid == 0) sc->has_cross = sc->found;
     __syncthreads();
@@ -493,6 +571,7 @@ struct Lane {
   // one trip of the reference's batched loop body for this lane
   __device__ void trip() {
     const int tid = threadIdx.x, m = rows();
+    PROBE_CTA(PH_OUT);
     // ---- drift gate (repro/core/lp.py::_drift_gate)
     double res = 0.0;
     for (int e = tid; e < m * m; e += THREADS) {
@@ -517,7 +596,9 @@ struct Lane {
       sc->need = need;
     }
     __syncthreads();
+    PROBE_CTA(PH_GATES);
     if (sc->need) refresh();
+    PROBE_CTA(PH_REFRESH);
     // ---- the leaving row (_pivot_core)
     if (tid == 0) {
       int rmax = 0, rbl = 0, bmin = INT_MAX;
@@ -548,6 +629,7 @@ struct Lane {
     if (!sc->done) {
       for (int i = tid; i < m; i += THREADS) rho[i] = Binv[sc->r * m + i];
       __syncthreads();
+      PROBE_CTA(PH_LEAVE);
       // ---- pricing, eligibility, ratio keys
       const double s = sc->s, tol = sc->tol;
       int cnt = 0;
@@ -576,6 +658,7 @@ struct Lane {
       rmin = block_minn(rmin, redd);
       if (tid == 0) { sc->k_elig = cnt; sc->rmin = rmin; }
       __syncthreads();
+      PROBE_CTA(PH_PRICE);
       if (cnt > 0) {
         if (sc->bland) {
           // Bland: the smallest-index min-ratio column, no flips
@@ -594,6 +677,7 @@ struct Lane {
             sc->kq_hi = rk[qb]; sc->kq_lo = (unsigned)qb;
           }
           __syncthreads();
+          PROBE_CTA(PH_WALK);
         } else {
           select();
         }
@@ -645,6 +729,7 @@ struct Lane {
         for (int j = tid; j < N; j += THREADS)
           if (flips(j)) fl[j] ^= F_UPPER;
         __syncthreads();
+        PROBE_CTA(PH_FLIPS);
       }
       if (tid == 0) {
         const int r = sc->r, q = sc->q, b = basis[r];
@@ -692,6 +777,7 @@ struct Lane {
       sc->it += 1;
     }
     __syncthreads();
+    PROBE_CTA(PH_PIVOT);
   }
 };
 
@@ -742,6 +828,7 @@ lp_batch_kernel(const double* __restrict__ cf, const double* __restrict__ A,
   const int64_t wout = 2 * (int64_t)N + 2 * m + 6;
   const double* row = in_pack + blockIdx.x * win;
   double* orow = out_pack + blockIdx.x * wout;
+  PROBE_INIT();
   if (row[3 * N + 1 + m] == 0.0) {          // padded or decided on the host
     for (int64_t e = tid; e < wout; e += THREADS) orow[e] = 0.0;
     return;
@@ -845,6 +932,8 @@ lp_batch_kernel(const double* __restrict__ cf, const double* __restrict__ A,
     orow[N + 2 * m + 4] = sc.n_drift;
     orow[2 * N + 2 * m + 5] = 0.0;     // spent: the wrapper's
   }
+  PROBE_CTA(PH_OUT);
+  PROBE_END(0, sc.it);
 }
 
 static size_t smem_bytes(int M, int MR, int64_t N) {
@@ -877,13 +966,768 @@ static int launch(const double* cf, const double* A, const double* in_pack,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the warp path
+
+__device__ __forceinline__ double warp_maxn(double v) {
+  for (int o = 16; o > 0; o >>= 1) v = maxn(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_minn(double v) {
+  for (int o = 16; o > 0; o >>= 1) v = minn(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// the least (key, idx) over the warp, in every thread: three
+// __reduce_min_sync, the key's high and low words, then the index
+__device__ __forceinline__ void warp_argmin(u64 key, unsigned idx, u64& kmin,
+                                            unsigned& imin) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned m1 = __reduce_min_sync(FULL, hi);
+  const bool c1 = hi == m1;
+  const unsigned m2 = __reduce_min_sync(FULL, c1 ? lo : 0xffffffffu);
+  const bool c2 = c1 && lo == m2;
+  imin = __reduce_min_sync(FULL, c2 ? idx : 0xffffffffu);
+  kmin = ((u64)m1 << 32) | m2;
+}
+
+// a key whose least value is the largest v, NaN before any number
+// (jnp.argmax's rule, with the first index among ties)
+__device__ __forceinline__ u64 max_first_key(double v) {
+  return isnan(v) ? 0ull : ~order_bits(v);
+}
+
+// a lane's shared state on the warp path: the doubles (Binv, the
+// Gauss-Jordan ping-pong, B, xB, y, rho, w; l, u, d, alpha; the run
+// keys), the basis' ints, the run columns, the flags
+__host__ __device__ inline int run_slots(int64_t N) {
+  return (int)(32 * ((N + 31) / 32));
+}
+__host__ __device__ inline int64_t warp_lane_bytes(int64_t m, int64_t N) {
+  const int64_t S = run_slots(N);
+  return (8 * (6 * m * m + 4 * m + 4 * N + S) + 4 * m + 2 * S + N + 15)
+         & ~(int64_t)15;
+}
+__host__ __device__ inline int64_t staged_bytes(int64_t m, int64_t N) {
+  return 16 + ((8 * N + 15) & ~(int64_t)15) + 8 * m * N;  // mbarrier, cf, A
+}
+
+struct Plan {
+  int warp;        // 1: the warp path
+  int lanes;       // lanes a CTA
+  int staged;      // (cf, A) copied into shared memory
+  int64_t smem;    // dynamic shared memory a CTA
+};
+
+// The path of a flight.  Lanes of m_pad <= 32 and N <= WARP_N_MAX run one
+// warp each, as many a CTA as fit the budget (at most WARP_LANES_MAX and
+// K_pad); (cf, A) is staged when it fits beside that many lanes (staging
+// never costs a lane) and its rows are whole 16-byte units (N even: the
+// bulk copy's unit; the engine's N = n_pad + m_pad always is), else read
+// from global memory.
+static Plan plan(int64_t m_pad, int64_t N, int64_t K_pad) {
+  Plan p = {0, 1, 0, 0};
+  if (m_pad > ROWS_SMEM_MAX || N > WARP_N_MAX) return p;
+  const int64_t lane = warp_lane_bytes(m_pad, N);
+  const int64_t want = K_pad < WARP_LANES_MAX ? K_pad : WARP_LANES_MAX;
+  int64_t fit = SMEM_BUDGET / lane;
+  if (fit < 1) return p;
+  if (fit > want) fit = want;
+  const int64_t st = staged_bytes(m_pad, N);
+  p.warp = 1;
+  p.lanes = (int)fit;
+  p.staged = STAGE_CF_A && N % 2 == 0 && st + fit * lane <= SMEM_BUDGET;
+  p.smem = (p.staged ? st : 0) + fit * lane;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// (cf, A) into shared memory: one bulk asynchronous copy each, completed
+// on an mbarrier that stage_wait() waits for.  The plan stages only whole
+// 16-byte units, and the host entry only 16-byte aligned cf and A.  Every
+// thread of the CTA calls it.
+__device__ void stage_issue(const double* cf, const double* A, double* cf_s,
+                            double* A_s, uint64_t* bar, int m, int N) {
+  const uint32_t cb = 8u * (uint32_t)N, ab = 8u * (uint32_t)(m * N);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(cb + ab) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(cf_s)), "l"((uint64_t)cf), "r"(cb),
+           "r"(smem_u32(bar))
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(A_s)), "l"((uint64_t)A), "r"(ab),
+           "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+__device__ void stage_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(0) : "memory");
+    if (!done && tries == (1u << 26)) __trap();   // a lost copy: fail
+  }
+}
+
+// One lane on one warp (M = m_pad <= 32).  Every thread holds the lane's
+// scalars; thread t owns columns t, t + 32, ... and row t (t < M).
+template <int M>
+struct WLane {
+  const double* __restrict__ cf;     // shared when staged, else global
+  const double* __restrict__ A;
+  int N, refactor_every, t;          // t: the thread's index in the warp
+  double *Binv, *aug, *B, *xB, *y, *rho, *w;
+  double *lo, *up, *d, *al;
+  u64* sk;                           // run keys: slot s of thread t at s*32+t
+  unsigned short* si;                // their columns
+  unsigned char* fl;
+  int* basis;
+  double tol, theta;
+  int status, it, since, stall, bland, n_bland, n_drift;
+
+  __device__ double Aij(int i, int j) const { return A[i * N + j]; }
+
+  // xB[t] -= Binv[t] . (the warp's sums of part), t < M: every thread
+  // gets every row's sum by the butterfly, so none goes through memory
+  __device__ void absorb_rows(double (&part)[M], bool negate) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) part[i] = warp_sum(part[i]);
+    if (t < M) {
+      double s = 0.0;
+#pragma unroll
+      for (int k = 0; k < M; ++k) s += Binv[t * M + k] * part[k];
+      xB[t] = negate ? -s : xB[t] - s;
+    }
+  }
+
+  // Binv = B^-1: Gauss-Jordan on [B | I] with partial pivoting (the
+  // first largest |.| at or below the diagonal), thread t holding column
+  // t of [B | I] in registers (M <= 16: 2M <= 32 columns).  The pivot
+  // column's owner finds the pivot row as the CTA path's thread 0 does;
+  // every update is the CTA path's, so the inverse is bit for bit its.
+  __device__ void invert_registers() {
+    double col[M];
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+      col[r] = t < M ? B[r * M + t] : (t - M == r ? 1.0 : 0.0);
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      int p = c;
+      if (t == c) {
+        double best = fabs(col[c]);
+#pragma unroll
+        for (int r = c + 1; r < M; ++r) {
+          const double v = fabs(col[r]);
+          if (v > best) { best = v; p = r; }
+        }
+      }
+      p = __shfl_sync(FULL, p, c);
+      double pc[M];                        // the pivot column
+#pragma unroll
+      for (int r = 0; r < M; ++r) pc[r] = __shfl_sync(FULL, col[r], c);
+      double pv = pc[c], cp = col[c];
+#pragma unroll
+      for (int r = c + 1; r < M; ++r)
+        if (r == p) { pv = pc[r]; cp = col[r]; }
+      const double rowc = cp / pv;         // new row c
+      const double xc = col[c], pcc = pc[c];
+#pragma unroll
+      for (int r = 0; r < M; ++r) {        // rows c and p swap
+        if (r == c) continue;
+        col[r] = r == p ? xc - pcc * rowc : col[r] - pc[r] * rowc;
+      }
+      col[c] = rowc;
+    }
+    if (t >= M && t < 2 * M) {
+#pragma unroll
+      for (int r = 0; r < M; ++r) Binv[r * M + t - M] = col[r];
+    }
+    __syncwarp();
+  }
+
+  // the same in shared memory (M = 32, or any M), ping-pong
+  __device__ void invert_shared() {
+    constexpr int W2 = 2 * M;
+    double* cur = aug;
+    double* nxt = aug + M * W2;
+    for (int e = t; e < M * W2; e += 32) {
+      const int i = e / W2, c = e % W2;
+      cur[e] = c < M ? B[i * M + c] : (c - M == i ? 1.0 : 0.0);
+    }
+    __syncwarp();
+    for (int c = 0; c < M; ++c) {
+      // partial pivoting: the first largest |.| below the diagonal; a
+      // NaN pivot stays, a NaN below it is never taken
+      u64 key = KEY_NONE;
+      if (t >= c && t < M) {
+        const double v = fabs(cur[t * W2 + c]);
+        key = isnan(v) ? (t == c ? 0ull : KEY_NONE) : ~order_bits(v);
+      }
+      u64 km;
+      unsigned p;
+      warp_argmin(key, (unsigned)t, km, p);
+      const double pv = cur[p * W2 + c];
+      for (int e = t; e < M * W2; e += 32) {
+        const int r = e / W2, col = e % W2;
+        const double rowc = cur[p * W2 + col] / pv;       // new row c
+        const int sr = r == c ? p : (r == (int)p ? c : r);  // rows c, p swap
+        nxt[e] = r == c ? rowc : cur[sr * W2 + col] - cur[sr * W2 + c] * rowc;
+      }
+      __syncwarp();
+      double* tmp = cur; cur = nxt; nxt = tmp;
+    }
+    for (int e = t; e < M * M; e += 32)
+      Binv[e] = cur[(e / M) * W2 + M + e % M];
+    __syncwarp();
+  }
+
+  // Binv, xB, y, d from the basis (repro/core/lp.py::_refreshed)
+  __device__ void refresh() {
+    if constexpr (WARP_INVERT_REGS && M <= 16) invert_registers();
+    else invert_shared();
+    // A @ xN over the nonbasic columns, each thread's in column order
+    double part[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) part[i] = 0.0;
+#pragma unroll 4
+    for (int j = t; j < N; j += 32) {
+      const unsigned char f = fl[j];
+      if (f & F_BASIC) continue;
+      const double x = (f & F_UPPER) ? up[j] : lo[j];
+#pragma unroll
+      for (int i = 0; i < M; ++i) part[i] += Aij(i, j) * x;
+    }
+    absorb_rows(part, true);                // xB = -Binv (A xN)
+    if (t < M) {
+      double u = 0.0;
+      for (int k = 0; k < M; ++k) u += Binv[k * M + t] * cf[basis[k]];
+      y[t] = u;
+    }
+    __syncwarp();
+    double yr[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) yr[i] = y[i];
+    // d over this thread's columns, four at a time: every load of a
+    // batch before its stores (which the compiler may not reorder)
+    for (int j0 = t; j0 < N; j0 += 128) {
+      double s4[4], c4[4];
+      bool b4[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u;
+        s4[u] = c4[u] = 0.0;
+        b4[u] = true;
+        if (j < N) {
+          b4[u] = fl[j] & F_BASIC;
+          c4[u] = cf[j];
+          double sj = 0.0;
+#pragma unroll
+          for (int i = 0; i < M; ++i) sj += Aij(i, j) * yr[i];
+          s4[u] = sj;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < N) d[j] = b4[u] ? 0.0 : c4[u] - s4[u];
+      }
+    }
+    since = 0;
+    __syncwarp();
+  }
+
+  // this thread's run of cnt <= 8 keys, sorted by (key, column) in
+  // registers: an optimal 19-comparator network, unused slots KEY_NONE
+  __device__ void sort_run8(int cnt) {
+    u64 k[8];
+    unsigned c[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      k[e] = e < cnt ? sk[e * 32 + t] : KEY_NONE;
+      c[e] = e < cnt ? si[e * 32 + t] : 0xffffu;
+    }
+    constexpr int NET[19][2] = {{0, 2}, {1, 3}, {4, 6}, {5, 7}, {0, 4},
+                                {1, 5}, {2, 6}, {3, 7}, {0, 1}, {2, 3},
+                                {4, 5}, {6, 7}, {2, 4}, {3, 5}, {1, 4},
+                                {3, 6}, {1, 2}, {3, 4}, {5, 6}};
+#pragma unroll
+    for (int n = 0; n < 19; ++n) {
+      const int a = NET[n][0], b = NET[n][1];
+      if (key_lt(k[b], c[b], k[a], c[a])) {
+        const u64 tk = k[a]; k[a] = k[b]; k[b] = tk;
+        const unsigned tc = c[a]; c[a] = c[b]; c[b] = tc;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e < cnt) {
+        sk[e * 32 + t] = k[e];
+        si[e * 32 + t] = (unsigned short)c[e];
+      }
+    }
+  }
+
+  // row t's violation (t < M)
+  __device__ double viol(int i) const {
+    const int b = basis[i];
+    return maxn(lo[b] - xB[i], xB[i] - up[b]);
+  }
+
+  // one trip of the reference's batched loop body for this lane
+  __device__ void trip() {
+    PROBE_WARP(PH_OUT);
+    // ---- drift gate (repro/core/lp.py::_drift_gate), on B
+    double res = 0.0;
+    for (int e = t; e < M * M; e += 32) {
+      const int i = e / M, j = e % M;
+      double s = 0.0;
+      for (int k = 0; k < M; ++k) s += Binv[i * M + k] * B[k * M + j];
+      res = maxn(res, fabs(s - (i == j ? 1.0 : 0.0)));
+    }
+    res = warp_maxn(res);
+    const int drift = res > DRIFT_TOL && since > 0;
+    n_drift += drift;
+    // optimal-suspect gate (_optimal_suspect_gate)
+    const double vmax = warp_maxn(t < M ? viol(t) : -INFINITY);
+    const bool need = drift || since >= refactor_every
+                      || (vmax <= tol && since > 0);
+    PROBE_WARP(PH_GATES);
+    if (need) refresh();
+    PROBE_WARP(PH_REFRESH);
+    // ---- the leaving row (_pivot_core)
+    const double v = t < M ? viol(t) : 0.0;
+    u64 km;
+    unsigned rmax, rbl = 0;
+    warp_argmin(t < M ? max_first_key(v) : KEY_NONE, (unsigned)t, km, rmax);
+    const double best = __shfl_sync(FULL, v, rmax);
+    if (bland)                   // Bland's row: the smallest basic index
+      warp_argmin(t < M ? (u64)(v > tol ? basis[t] : N) : KEY_NONE,
+                  (unsigned)t, km, rbl);
+    const bool done = best <= tol;
+    const int r = bland ? (int)rbl : (int)rmax;
+    const bool stale = since > 0;
+    int k_elig = 0, has_cross = 0, q = 0, unsafe = 0, h = 0;
+    u64 kq = 0;
+    double wr = 0.0, delta = 0.0;
+    bool above = false;
+    {
+      const int b = basis[r];
+      const double vlo = lo[b] - xB[r], vhi = xB[r] - up[b];
+      above = vhi >= vlo;
+      delta = above ? xB[r] - up[b] : xB[r] - lo[b];
+    }
+    double rh[M];
+    if (!done) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) rh[i] = Binv[r * M + i];
+      if (t < M) rho[t] = Binv[r * M + t];
+      PROBE_WARP(PH_LEAVE);
+      // ---- pricing, eligibility, ratio keys: this thread's run
+      const double s = delta > 0 ? 1.0 : -1.0;
+      int cnt = 0, neg = 0;
+      double rmin = INFINITY, total = 0.0;
+      for (int j0 = t; j0 < N; j0 += 128) {     // four columns a batch
+        double a4[4], d4[4], w4[4];
+        unsigned char f4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u;
+          a4[u] = d4[u] = w4[u] = 0.0;
+          f4[u] = F_BASIC;
+          if (j < N) {
+            double a = 0.0;
+#pragma unroll
+            for (int i = 0; i < M; ++i) a += rh[i] * Aij(i, j);
+            a4[u] = a;
+            f4[u] = fl[j];
+            d4[u] = d[j];
+            w4[u] = up[j] - lo[j];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u;
+          if (j >= N) continue;
+          const double a = a4[u];
+          al[j] = a;
+          const double sa = s * a;
+          const unsigned char f = f4[u];
+          const bool atu = f & F_UPPER;
+          const bool elig = !(f & F_BASIC) &&
+                            ((!atu && sa > tol) || (atu && sa < -tol));
+          if (elig) {
+            const double den = fabs(sa) > tol ? sa : 1.0;
+            const double rt = maxn(d4[u] / den, 0.0);
+            sk[cnt * 32 + t] = order_bits(rt);
+            si[cnt * 32 + t] = (unsigned short)j;
+            ++cnt;
+            rmin = minn(rmin, rt);
+            const double cost = fabs(a) * w4[u];
+            total += cost;
+            neg |= cost < 0.0;
+          }
+        }
+      }
+      k_elig = __reduce_add_sync(FULL, (unsigned)cnt);
+      rmin = warp_minn(rmin);
+      total = warp_sum(total);
+      neg = __any_sync(FULL, neg);
+      __syncwarp();                                // alpha, read by all
+      PROBE_WARP(PH_PRICE);
+      if (k_elig > 0) {
+        if (bland) {
+          // Bland: the smallest-index min-ratio column, no flips (this
+          // thread's run is still in column order)
+          unsigned qb = 0xffffffffu;
+          for (int c = 0; c < cnt; ++c) {
+            if (ratio_of(sk[c * 32 + t]) <= rmin + 1e-12) {
+              qb = si[c * 32 + t];
+              break;
+            }
+          }
+          qb = __reduce_min_sync(FULL, qb);
+          q = qb == 0xffffffffu ? 0 : (int)qb;   // NaN minimum: argmax of none
+          has_cross = 1;
+          PROBE_WARP(PH_WALK);
+        } else if (!neg && total * (1.0 + (4.0 * k_elig + 32.0) * 0x1p-53)
+                   < fabs(delta) - 1e-12) {
+          // no crossing, certainly: with costs >= 0 every running sum
+          // of the walk is at most its last, the sum of every eligible
+          // cost in (ratio, index) order, and that is within (2k + 5)
+          // ulps of this sum in another order (k terms, a butterfly of
+          // 32), so below the threshold; the walk would consume every
+          // key and find none (has_cross = 0, no flips)
+          PROBE_WARP(PH_WALK);
+        } else {
+          // the run, sorted by (key, column): up to 8 keys by a sorting
+          // network in registers, longer runs by insertion (stable by
+          // key alone: the run's columns came in order)
+          if (WARP_SORT_NET && __all_sync(FULL, cnt <= 8)) sort_run8(cnt);
+          else for (int c = 1; c < cnt; ++c) {
+            const u64 k = sk[c * 32 + t];
+            const unsigned short j = si[c * 32 + t];
+            int e = c - 1;
+            for (; e >= 0 && k < sk[e * 32 + t]; --e) {
+              sk[(e + 1) * 32 + t] = sk[e * 32 + t];
+              si[(e + 1) * 32 + t] = si[e * 32 + t];
+            }
+            sk[(e + 1) * 32 + t] = k;
+            si[(e + 1) * 32 + t] = j;
+          }
+          PROBE_WARP(PH_SORT);
+          // the ordered merge: the least run head, its cost added to the
+          // running sum in that order, until the sum reaches thr
+          const double thr = fabs(delta) - 1e-12;
+          double base = 0.0;
+          u64 hk = cnt > 0 ? sk[t] : KEY_NONE;
+          unsigned hj = cnt > 0 ? si[t] : 0xffffffffu;
+          for (;;) {
+            u64 kmin;
+            unsigned jm;
+            warp_argmin(hk, hj, kmin, jm);
+            if (kmin == KEY_NONE) break;            // every key consumed
+            base += fabs(al[jm]) * (up[jm] - lo[jm]);
+            if (base >= thr) {
+              has_cross = 1; q = (int)jm; kq = kmin;
+              break;
+            }
+            if (hj == jm) {
+              ++h;
+              hk = h < cnt ? sk[h * 32 + t] : KEY_NONE;
+              hj = h < cnt ? si[h * 32 + t] : 0xffffffffu;
+            }
+          }
+          PROBE_WARP(PH_WALK);
+        }
+      }
+      if (has_cross) {
+        if (t < M) {
+          double s2 = 0.0;
+          for (int k = 0; k < M; ++k) s2 += Binv[t * M + k] * Aij(k, q);
+          w[t] = s2;
+        }
+        __syncwarp();
+        wr = w[r];
+        unsafe = fabs(wr) < 1e-11;
+      }
+    }
+    const int no_pivot = k_elig == 0 || !has_cross;
+    status = done ? OPTIMAL : (no_pivot && !stale ? INFEASIBLE : ITER_LIMIT);
+    const int do_pivot = status == ITER_LIMIT && !no_pivot && !unsafe;
+    if (do_pivot) {
+      // ---- flip absorption: xB -= Binv (A dxN) over the flipped
+      // columns, this thread's consumed prefix (none when ratio_q is NaN;
+      // with no flips the sums are 0 and xB is kept exactly)
+      if (!bland) {
+        const int nf = kq == KEY_NAN ? 0 : h;
+        double part[M];
+#pragma unroll
+        for (int i = 0; i < M; ++i) part[i] = 0.0;
+        for (int c = 0; c < nf; ++c) {             // in this run's order
+          const int j = si[c * 32 + t];
+          const unsigned char f = fl[j];
+          const double x = (f & F_UPPER) ? lo[j] - up[j] : up[j] - lo[j];
+#pragma unroll
+          for (int i = 0; i < M; ++i) part[i] += Aij(i, j) * x;
+          fl[j] = f ^ F_UPPER;
+        }
+        absorb_rows(part, false);             // xB -= Binv (A dxN)
+        __syncwarp();
+        PROBE_WARP(PH_FLIPS);
+      }
+      const int leave = basis[r];
+      const double target = above ? up[leave] : lo[leave];
+      const double tt = (xB[r] - target) / wr;
+      const double xq = (fl[q] & F_UPPER) ? up[q] : lo[q];
+      theta = d[q] / wr;
+      __syncwarp();
+      if (t < M) {
+        xB[t] = t == r ? xq + tt : xB[t] - tt * w[t];
+        y[t] = y[t] + theta * rho[t];
+        B[t * M + r] = Aij(t, q);
+      }
+      for (int e = t; e < M * M; e += 32) {
+        const int i = e / M, jc = e % M;
+        const double br = rho[jc] / wr;
+        Binv[e] = i == r ? br : Binv[e] - w[i] * br;
+      }
+      for (int j0 = t; j0 < N; j0 += 128) {
+        double d4[4], a4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u;
+          d4[u] = a4[u] = 0.0;
+          if (j < N) { d4[u] = d[j]; a4[u] = al[j]; }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u;
+          if (j < N)
+            d[j] = j == leave ? -theta
+                              : (j == q ? 0.0 : d4[u] - theta * a4[u]);
+        }
+      }
+      __syncwarp();
+      if (t == 0) {
+        fl[q] = F_BASIC;
+        fl[leave] = above ? F_UPPER : 0;
+        basis[r] = q;
+      }
+      __syncwarp();
+    }
+    // ---- since, anti-cycling (degenerate streaks), counters
+    if (do_pivot) since += 1;
+    else if ((no_pivot || unsafe) && stale) since = refactor_every;
+    const double at = fabs(theta);
+    const int degen = do_pivot && at <= THETA_EPS;
+    const int progress = do_pivot && at > THETA_EPS;
+    n_bland += bland && do_pivot;
+    stall = progress ? 0 : (degen ? stall + 1 : stall);
+    bland = progress ? 0 : (bland || stall >= STALL_BLAND);
+    if (degen && stall == STALL_REFACTOR) since = refactor_every;
+    it += 1;
+    PROBE_WARP(PH_PIVOT);
+  }
+};
+
+template <int M>
+__global__ void __launch_bounds__(32 * WARP_LANES_MAX, 1)
+lp_batch_warp(const double* __restrict__ cf, const double* __restrict__ A,
+              const double* __restrict__ in_pack,
+              double* __restrict__ out_pack, int N, int K_pad,
+              int max_iters, int trip_limit, int refactor_every, int lanes,
+              int staged, int64_t lane_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  PROBE_INIT();
+  unsigned char* p = smem;
+  const double* cfp = cf;
+  const double* Ap = A;
+  uint64_t* bar = (uint64_t*)p;
+  if (staged) {            // the copy runs while the lanes load their rows
+    double* cf_s = (double*)(p + 16);
+    double* A_s = cf_s + ((N + 1) & ~1);
+    stage_issue(cf, A, cf_s, A_s, bar, M, N);
+    cfp = cf_s;
+    Ap = A_s;
+    p += staged_bytes(M, N);
+  }
+  const int t = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int k = blockIdx.x * lanes + wp;
+  const int64_t win = 3 * (int64_t)N + M + 3;
+  const int64_t wout = 2 * (int64_t)N + 2 * M + 6;
+  const double* row = in_pack + k * win;
+  double* orow = out_pack + k * wout;
+  if (k >= K_pad || row[3 * N + 1 + M] == 0.0) {  // padded, host-decided
+    if (k < K_pad)
+      for (int64_t e = t; e < wout; e += 32) orow[e] = 0.0;
+    if (staged) stage_wait(bar);         // no CTA leaves a copy in flight
+    return;
+  }
+  WLane<M> ln;
+  ln.cf = cfp; ln.A = Ap; ln.N = N; ln.refactor_every = refactor_every;
+  ln.t = t;
+  const int S = run_slots(N);
+  double* q = (double*)(p + wp * lane_bytes);
+  ln.Binv = q; q += M * M;
+  ln.aug = q; q += 4 * M * M;
+  ln.B = q; q += M * M;
+  ln.xB = q; q += M;
+  ln.y = q; q += M;
+  ln.rho = q; q += M;
+  ln.w = q; q += M;
+  ln.lo = q; q += N;
+  ln.up = q; q += N;
+  ln.d = q; q += N;
+  ln.al = q; q += N;
+  ln.sk = (u64*)q; q += S;
+  ln.basis = (int*)q;
+  ln.si = (unsigned short*)(ln.basis + M);
+  ln.fl = (unsigned char*)(ln.si + S);
+
+  // ---- initial state (_init_pivot_state), then the eager refresh; the
+  // row's loads four columns a thread at a time, so that they overlap
+  for (int j0 = t; j0 < N; j0 += 128) {
+    double l4[4], u4[4], f4[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < N) {
+        l4[u] = row[j];
+        u4[u] = row[N + j];
+        f4[u] = row[2 * N + 1 + M + j];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < N) {
+        ln.lo[j] = l4[u];
+        ln.up[j] = u4[u];
+        ln.fl[j] = f4[u] != 0.0 ? F_UPPER : 0;
+      }
+    }
+  }
+  if (t < M) ln.basis[t] = (int)row[2 * N + 1 + t];
+  if (staged) stage_wait(bar);
+  ln.tol = row[2 * N];
+  ln.status = ITER_LIMIT; ln.it = 0; ln.since = refactor_every;
+  ln.stall = 0; ln.bland = 0; ln.n_bland = 0; ln.n_drift = 0;
+  ln.theta = 0.0;
+  __syncwarp();
+  if (t < M) ln.fl[ln.basis[t]] = F_BASIC;        // at_upper0 & ~in_basis
+  for (int e = t; e < M * M; e += 32)             // B = A[:, basis]
+    ln.B[e] = ln.Aij(e / M, ln.basis[e % M]);
+  __syncwarp();
+  ln.refresh();
+
+  const int lim = min(max_iters, trip_limit);
+  while (ln.status == ITER_LIMIT && ln.it < lim) ln.trip();
+  if (ln.since > 0) ln.refresh();                 // the exit refactorization
+
+  // ---- _gather_solution and the out pack
+  double objp = 0.0;
+  for (int j0 = t; j0 < N; j0 += 128) {
+    double x4[4], c4[4];
+    unsigned char f4[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      x4[u] = c4[u] = 0.0;
+      f4[u] = 0;
+      if (j < N) {
+        f4[u] = ln.fl[j];
+        c4[u] = ln.cf[j];
+        x4[u] = (f4[u] & F_UPPER) ? ln.up[j] : ln.lo[j];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      if (j >= N) continue;
+      if (f4[u] & F_BASIC) {
+        int pos = 0;
+        for (int i = 0; i < M; ++i) if (ln.basis[i] == j) { pos = i; break; }
+        x4[u] = ln.xB[pos];
+      }
+      orow[j] = x4[u];
+      objp += c4[u] * (isfinite(x4[u]) ? x4[u] : 0.0);
+      orow[N + 2 * M + 5 + j] = (f4[u] & F_UPPER) ? 1.0 : 0.0;
+    }
+  }
+  const double obj = warp_sum(objp);
+  if (t < M) {
+    orow[N + t] = ln.y[t];
+    orow[N + M + 1 + t] = (double)ln.basis[t];
+  }
+  if (t == 0) {
+    orow[N + M] = obj;
+    orow[N + 2 * M + 1] = ln.status;
+    orow[N + 2 * M + 2] = ln.it;
+    orow[N + 2 * M + 3] = ln.n_bland;
+    orow[N + 2 * M + 4] = ln.n_drift;
+    orow[2 * N + 2 * M + 5] = 0.0;     // spent: the wrapper's
+  }
+  PROBE_WARP(PH_OUT);
+  PROBE_END(1, ln.it);
+}
+
+template <int M>
+static int launch_warp(const Plan& pl, const double* cf, const double* A,
+                       const double* in_pack, double* out_pack, int64_t N,
+                       int64_t K_pad, int64_t max_iters, int64_t trip_limit,
+                       int64_t refactor_every, cudaStream_t st) {
+  if (pl.staged && ((uintptr_t)cf % 16 || (uintptr_t)A % 16))
+    return (int)cudaErrorMisalignedAddress;   // the bulk copy's alignment
+  cudaError_t e = cudaFuncSetAttribute(
+      lp_batch_warp<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((K_pad + pl.lanes - 1) / pl.lanes);
+  lp_batch_warp<M><<<grid, 32 * pl.lanes, pl.smem, st>>>(
+      cf, A, in_pack, out_pack, (int)N, (int)K_pad, (int)max_iters,
+      (int)trip_limit, (int)refactor_every, pl.lanes, pl.staged,
+      warp_lane_bytes(M, N));
+  return (int)cudaGetLastError();
+}
+
 // ws: K_pad x lp_batch_ws_lane_bytes(m_pad, N) bytes (none for m_pad <=
-// ROWS_SMEM_MAX and N <= NS_MAX).  in_pack (K_pad, 3N + m_pad + 3) and
-// out_pack (K_pad, 2N + 2 m_pad + 6): repro/core/lp_batch.py::
-// _batched_core's layouts.  m_pad: a power of two, 4 to M_PAD_MAX.
+// ROWS_SMEM_MAX and N <= NS_MAX, so none on the warp path).  in_pack
+// (K_pad, 3N + m_pad + 3) and out_pack (K_pad, 2N + 2 m_pad + 6):
+// repro/core/lp_batch.py::_batched_core's layouts.  m_pad: a power of
+// two, 4 to M_PAD_MAX.
 #define M_PAD_MAX 4096
 extern "C" int64_t lp_batch_ws_lane_bytes(int64_t m_pad, int64_t N) {
   return ws_lane_bytes(m_pad, N);
+}
+
+// the path a flight takes: out = {warp path, lanes a CTA, (cf, A) staged,
+// dynamic shared memory a CTA}
+extern "C" int lp_batch_plan(int64_t m_pad, int64_t N, int64_t K_pad,
+                             int64_t* out) {
+  if (N < 1 || K_pad < 1 || m_pad < 4 || m_pad > M_PAD_MAX || !out)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(m_pad, N, K_pad);
+  out[0] = p.warp; out[1] = p.lanes; out[2] = p.staged; out[3] = p.smem;
+  return 0;
 }
 
 extern "C" int lp_batch_f64(const void* cf, const void* A,
@@ -904,6 +1748,19 @@ extern "C" int lp_batch_f64(const void* cf, const void* A,
   const double* ip = (const double*)in_pack;
   double* op = (double*)out_pack;
   unsigned char* w = (unsigned char*)ws;
+  const Plan pl = plan(m_pad, N, K_pad);
+  if (pl.warp) {
+#define LAUNCH_WARP(MM) launch_warp<MM>(pl, c, a, ip, op, N, K_pad,    \
+                                        max_iters, trip_limit,         \
+                                        refactor_every, st)
+    switch (m_pad) {
+      case 4: return LAUNCH_WARP(4);
+      case 8: return LAUNCH_WARP(8);
+      case 16: return LAUNCH_WARP(16);
+      default: return LAUNCH_WARP(32);
+    }
+#undef LAUNCH_WARP
+  }
 #define LAUNCH(MM) launch<MM>(c, a, ip, op, w, m_pad, N, K_pad, max_iters, \
                               trip_limit, refactor_every, st)
   switch (m_pad) {

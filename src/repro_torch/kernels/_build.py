@@ -56,20 +56,24 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, defines: tuple = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with its flags and the extra
+    ``-D`` flags ``defines`` (compile-time variants), named by a hash of
+    the source and every flag."""
     src = CSRC / f"{name}.cu"
-    flags = " ".join(BASE_FLAGS + EXTRA_FLAGS.get(name, ()))
+    flags = " ".join(BASE_FLAGS + EXTRA_FLAGS.get(name, ()) + tuple(defines))
     h = hashlib.sha1(src.read_bytes() + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def _start(name: str):
-    out = lib_path(name)
+def _start(name: str, defines: tuple = ()):
+    out = lib_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *BASE_FLAGS, *EXTRA_FLAGS.get(name, ()),
+    # one temporary file per process and thread: threads may build at once
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *BASE_FLAGS, *EXTRA_FLAGS.get(name, ()), *defines,
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -106,6 +110,15 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _open(path: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use), with
     ``argtypes``/``restype`` set from ``signatures`` (entry -> argtypes)."""
@@ -113,13 +126,19 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(lib_path(name)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = _open(lib_path(name), signatures)
         return lib
+
+
+def load_variant(name: str, signatures: Dict[str, tuple],
+                 defines: tuple) -> ctypes.CDLL:
+    """A build of ``csrc/<name>.cu`` with extra ``-D`` flags (compile-time
+    variants that scripts and card tests time or hold against the
+    default build), beside the default one in the build directory.
+    Threads may build several at once."""
+    defines = tuple(defines)
+    _finish(name, _start(name, defines))
+    return _open(lib_path(name, defines), signatures)
 
 
 def check(err: int, what: str) -> None:

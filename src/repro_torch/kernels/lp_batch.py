@@ -27,15 +27,17 @@ on any device; the CPU tests and ``chip_smoke.py`` hold the kernel to it.
 :class:`LaneSolver` is the per-shape-class launch workspace (made once
 per ``(m_pad, n_pad, K_pad, max_iters, refactor_every)``, like
 ``Pricer``): given CUDA ``(cf, A)`` a call launches ``csrc/lp_batch.cu``
-once, one CTA per lane, each lane run to its own end (the kernel needs no
-grid-wide sync: in the reference lanes interact only through the shared
-cap).  If the lanes' trips reach ``pivot_cap`` it finds the least lockstep
-trip count T that spends the cap, ``sum_k min(it_k, T) >= pivot_cap``,
-and launches once more with every lane limited to T trips, which is the
-lockstep loop's result exactly.  Given CPU tensors it runs the plain
-version.  Its buffers serve one flight at a time: a call holds the
-solver's lock from the copy in to the copy out, so threads that dispatch
-the same shape class take turns.
+once, each lane run to its own end (the kernel needs no grid-wide sync:
+in the reference lanes interact only through the shared cap), on the
+path the kernel's plan gives the class (``LaneSolver.plan``): one warp a
+lane, several lanes a CTA, for m_pad <= 32 and N <= ``WARP_N_MAX``;
+one CTA a lane for the rest.  If the lanes' trips reach ``pivot_cap``
+it finds the least lockstep trip count T that spends the cap,
+``sum_k min(it_k, T) >= pivot_cap``, and launches once more with every
+lane limited to T trips, which is the lockstep loop's result exactly.
+Given CPU tensors it runs the plain version.  Its buffers serve one
+flight at a time: a call holds the solver's lock from the copy in to the
+copy out, so threads that dispatch the same shape class take turns.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ M_PAD_MAX = 4096             # rows the kernel takes (m_pad, a power of two)
 _SIG = {"lp_batch_f64": (_build.P, _build.P, _build.P, _build.P, _build.P,
                          _build.I64, _build.I64, _build.I64, _build.I64,
                          _build.I64, _build.I64, _build.P),
-        "lp_batch_ws_lane_bytes": (_build.I64, _build.I64)}
+        "lp_batch_ws_lane_bytes": (_build.I64, _build.I64),
+        "lp_batch_plan": (_build.I64, _build.I64, _build.I64, _build.P)}
 
 
 def in_width(N: int, m_pad: int) -> int:
@@ -300,6 +303,74 @@ def lp_batch_plain(cf, A, in_pack, *, max_iters: int,
                                  device=dev)], 1)
 
 
+KEY_NAN = 2 ** 64 - 2        # the kernel's key of a NaN ratio
+
+
+def order_keys(ratio) -> np.ndarray:
+    """The kernel's 64-bit keys of float64 ratios (``order_bits``): in
+    numpy's sort order, -0 equal to +0, every NaN one key after +inf."""
+    r = np.asarray(ratio, np.float64) + 0.0
+    b = r.view(np.int64)
+    k = np.where(b < 0, ~b.view(np.uint64),
+                 b.view(np.uint64) | np.uint64(1 << 63))
+    return np.where(np.isnan(r), np.uint64(KEY_NAN), k)
+
+
+def bfrt_merge_walk_plain(ratio, cost, elig, delta: float, lanes: int = 32):
+    """The warp path's BFRT select, round for round (tests only): thread t
+    of ``lanes`` (a power of two) owns columns t, t + lanes, ...  First
+    the shortcut: with no negative cost, when the sum of the eligible
+    costs (each thread's in column order, then a butterfly over the
+    threads) times 1 + (4k + 32) 2^-53 is below |delta| - 1e-12, no
+    running sum can reach it and there is no crossing.  Else each
+    thread's run is its eligible columns sorted by key (stable); the
+    merge takes the least (key, index) run head, adds its cost to the
+    running sum from 0, and stops at the first whose sum reaches the
+    threshold.  Returns (q, flips, base, has_cross, walked): q the
+    crossing column (-1 without one), flips the columns consumed before
+    it (none when q's ratio is NaN), base the running sum where the
+    merge stopped (the butterfly's sum after the shortcut), walked
+    whether the merge ran."""
+    ratio = np.asarray(ratio, np.float64)
+    cost = np.asarray(cost, np.float64)
+    elig = np.asarray(elig, bool)
+    N = len(ratio)
+    keys = order_keys(ratio)
+    thr = abs(float(delta)) - 1e-12
+    cols = [np.arange(t, N, lanes) for t in range(lanes)]
+    cols = [c[elig[c]] for c in cols]
+    part = []
+    for c in cols:
+        total = 0.0
+        for j in c:
+            total = total + float(cost[j])
+        part.append(total)
+    o = lanes // 2
+    while o:
+        part = [part[t] + part[t ^ o] for t in range(lanes)]
+        o //= 2
+    k = int(elig.sum())
+    if k and not np.any(cost[elig] < 0) \
+            and part[0] * (1.0 + (4.0 * k + 32.0) * 2.0 ** -53) < thr:
+        return -1, np.zeros(N, bool), part[0], False, False
+    runs = [c[np.argsort(keys[c], kind="stable")].tolist() for c in cols]
+    heads = [0] * lanes
+    base = 0.0
+    consumed = np.zeros(N, bool)
+    while True:
+        live = [(int(keys[r[h]]), r[h], t)
+                for t, (r, h) in enumerate(zip(runs, heads)) if h < len(r)]
+        if not live:
+            return -1, consumed, base, False, True
+        key, j, t = min(live)
+        base = base + float(cost[j])
+        if base >= thr:
+            flips = consumed if key != KEY_NAN else np.zeros(N, bool)
+            return j, flips, base, True, True
+        consumed[j] = True
+        heads[t] += 1
+
+
 # ------------------------------------------------------------- the kernel
 
 
@@ -330,7 +401,7 @@ class LaneSolver:
 
     On a CUDA ``cf``/``A`` (float64, contiguous, ``cf`` (N,), ``A``
     (m_pad, N)) the call copies the in pack to the card through a pinned
-    buffer, launches ``csrc/lp_batch.cu`` (one CTA per lane; a second
+    buffer, launches ``csrc/lp_batch.cu`` (on ``plan``'s path; a second
     launch only when the shared pivot cap truncates, see the module
     docstring) and copies the out pack back; a failed build or launch
     raises.  On CPU tensors it runs :func:`lp_batch_plain`.
@@ -356,15 +427,12 @@ class LaneSolver:
         self.shape_in = (K_pad, in_width(self.N, m_pad))
         self.shape_out = (K_pad, out_width(self.N, m_pad))
         self._lock = InstrumentedLock("lane_solver")
+        self.plan = {"path": "plain"}
         if not self.cuda:
             return
         if not (4 <= m_pad <= M_PAD_MAX and m_pad & (m_pad - 1) == 0):
             raise ValueError(f"lp_batch kernel: m_pad {m_pad} is not a "
                              f"power of two in [4, {M_PAD_MAX}]")
-        lib = _build.load("lp_batch", _SIG)
-        self.fn = lib.lp_batch_f64
-        ws_bytes = lib.lp_batch_ws_lane_bytes
-        ws_bytes.restype = ctypes.c_int64
         f64 = dict(dtype=torch.float64, device=self.device)
         self.in_dev = torch.empty(self.shape_in, **f64)
         self.out_dev = torch.empty(self.shape_out, **f64)
@@ -372,13 +440,29 @@ class LaneSolver:
                                    pin_memory=True)
         self.out_host = torch.empty(self.shape_out, dtype=torch.float64,
                                     pin_memory=True)
-        # lanes taller or wider than the kernel's shared memory keep their
-        # per-row or per-column state in this workspace
-        lane_bytes = ws_bytes(m_pad, self.N)
-        self.ws = torch.empty(K_pad * lane_bytes, dtype=torch.uint8,
-                              device=self.device) if lane_bytes else None
         self.index = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
+        self._bind(_build.load("lp_batch", _SIG))
+
+    def _bind(self, lib) -> None:
+        """Launch ``lib``'s kernel (a build of ``csrc/lp_batch.cu``) with
+        the workspace its lanes need (lanes taller or wider than the
+        kernel's shared memory keep their per-row or per-column state
+        there), and read the path the kernel takes for this class
+        (``plan``: "warp" or "cta", lanes a CTA, ``(cf, A)`` staged in
+        shared memory, the CTA's dynamic shared bytes)."""
+        self.fn = lib.lp_batch_f64
+        ws_bytes = lib.lp_batch_ws_lane_bytes
+        ws_bytes.restype = ctypes.c_int64
+        lane_bytes = ws_bytes(self.m_pad, self.N)
+        self.ws = torch.empty(self.K_pad * lane_bytes, dtype=torch.uint8,
+                              device=self.device) if lane_bytes else None
+        out = (ctypes.c_int64 * 4)()
+        _build.check(lib.lp_batch_plan(self.m_pad, self.N, self.K_pad, out),
+                     "lp_batch_plan")
+        self.plan = {"path": "warp" if out[0] else "cta",
+                     "lanes_per_cta": int(out[1]), "staged": bool(out[2]),
+                     "smem_bytes": int(out[3])}
 
     def _launch(self, cf, A, trip_limit: int) -> None:
         global launches
@@ -420,6 +504,10 @@ class LaneSolver:
                     or not t.is_contiguous()):
                 raise ValueError(f"lp_batch: {name} must be contiguous "
                                  f"float64 on {self.device}")
+        if self.plan["staged"] and (cf.data_ptr() | A.data_ptr()) % 16:
+            raise ValueError("lp_batch: cf and A must start on 16-byte "
+                             "boundaries (the kernel copies them into shared "
+                             "memory in bulk)")
         N, m = self.N, self.m_pad
         self.in_host.numpy()[...] = in_pack
         self.in_dev.copy_(self.in_host, non_blocking=True)

@@ -779,3 +779,305 @@ def test_lp_batch_threads_share_one_class(dev):
                 [(r.status, r.iters) for r in alone[s]]
             for r, a in zip(g, alone[s]):
                 assert r.obj == a.obj and np.array_equal(r.x, a.x)
+
+
+# the batched LP engine's two paths: one warp a lane for m_pad <= 32 and
+# N <= WARP_N_MAX, one CTA a lane for the rest
+
+
+def _lp_define(name):
+    """A compile-time constant of ``csrc/lp_batch.cu``."""
+    import re
+    src = Path(__file__).resolve().parents[1] / \
+        "src/repro_torch/csrc/lp_batch.cu"
+    return int(re.search(rf"#define {name} (\d+)", src.read_text())[1])
+
+
+def _warp_n_max():
+    return _lp_define("WARP_N_MAX")
+
+
+def _cta_lib():
+    """The kernel built with WARP_N_MAX 0: every flight on the CTA path."""
+    from repro_torch.kernels import _build, lp_batch
+    return _build.load_variant("lp_batch", lp_batch._SIG,
+                               ("-DWARP_N_MAX=0",))
+
+
+def _on_cta(solver, lib=None):
+    """A new LaneSolver of ``solver``'s class bound to the WARP_N_MAX 0
+    build (``lib``, else built here); ``solver`` itself may be the
+    engine's cached one, which must keep the source's kernel."""
+    from repro_torch.kernels import lp_batch
+    other = lp_batch.LaneSolver(solver.m_pad, solver.n_pad, solver.K_pad,
+                                solver.max_iters, solver.refactor_every,
+                                solver.device)
+    other._bind(_cta_lib() if lib is None else lib)
+    assert other.plan["path"] == "cta"
+    return other
+
+
+def _cold_flight(dev, seed, m, n, n_pad, m_pad, K, nan_cost=False):
+    """A cold in pack of K bound variants of one random (c, A), laid out as
+    ``core/lp_batch.py::_dispatch`` lays it out (any ``n_pad``, so any
+    N), with the LaneSolver of its class and (cf, A) on the card."""
+    from repro_torch.kernels import lp_batch
+    rng = np.random.default_rng(seed)
+    c, At = rng.normal(size=n), rng.normal(size=(m, n))
+    if nan_cost:
+        c[[1, n // 2]] = np.nan
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = At @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    N = n_pad + m_pad
+    cf = np.zeros(N)
+    cf[:n] = c
+    A = np.zeros((m_pad, N))
+    A[:m, :n] = -At
+    A[:, n_pad:] = np.eye(m_pad)
+    pack = np.zeros((K, lp_batch.in_width(N, m_pad)))
+    pack[:, :n] = 0.0
+    pack[:, N:N + n] = [ub * rng.uniform(0.5, 1.0, n) for _ in range(K)]
+    pack[:, n_pad:n_pad + m] = act - wid
+    pack[:, N + n_pad:N + n_pad + m] = act + wid
+    pack[:, 2 * N] = 1e-7
+    pack[:, 2 * N + 1:2 * N + 1 + m_pad] = np.arange(n_pad, N)
+    pack[:, 2 * N + 1 + m_pad:2 * N + 1 + m_pad + n] = c < 0
+    pack[:, 3 * N + 1 + m_pad] = 1.0
+    pack[0, 3 * N + 2 + m_pad] = K * 500
+    solver = lp_batch.LaneSolver(m_pad, n_pad, K, 500, 64, dev)
+    return (solver, torch.as_tensor(cf, device=dev),
+            torch.as_tensor(A, device=dev), pack)
+
+
+def _hold_to_plain(solver, cf, Ad, pack, got=None):
+    from repro_torch.kernels import lp_batch
+    got = solver(cf, Ad, pack) if got is None else got
+    want = _plain_pack(solver, cf, Ad, pack)
+    bad, _, _ = lp_batch.lane_mismatches(got, want, pack, solver.m_pad)
+    assert not bad, bad
+    col = 2 * solver.N + 2 * solver.m_pad + 5
+    assert got[0, col] == want[0, col]
+    return got
+
+
+def test_lp_batch_plan_picks_the_path(dev):
+    """The kernel's plan: m_pad <= 32 and N <= WARP_N_MAX on the warp path,
+    up to WARP_LANES_MAX lanes a CTA (as many as K and the shared budget
+    allow), (cf, A) staged when it fits beside them; wider or taller on
+    the CTA path."""
+    from repro_torch.kernels import lp_batch
+    wn, most = _warp_n_max(), _lp_define("WARP_LANES_MAX")
+    plan = lambda m, n, K: lp_batch.LaneSolver(    # noqa: E731
+        m, n, K, 100, 64, dev).plan
+    p = plan(4, 160, 128)
+    assert (p["path"], p["lanes_per_cta"], p["staged"]) == \
+        ("warp", most, True)
+    assert plan(4, 160, 1)["lanes_per_cta"] == 1
+    assert plan(32, wn - 32, 8)["path"] == "warp"
+    assert plan(32, wn - 31, 8)["path"] == "cta"
+    assert plan(64, 60, 8)["path"] == "cta"
+    assert plan(4, 100_000, 4)["path"] == "cta"
+    p = plan(32, wn - 32, 8)
+    assert not p["staged"] and p["lanes_per_cta"] < most
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_lp_batch_n_at_the_warp_limit(dev, extra):
+    """N = WARP_N_MAX (the warp path) and WARP_N_MAX + 1 (the CTA path):
+    each lane equals the plain version on the card."""
+    wn = _warp_n_max()
+    flight = _cold_flight(dev, 11, 6, wn - 40, wn - 8 + extra, 8, 6)
+    assert flight[0].plan["path"] == ("warp" if extra == 0 else "cta")
+    _hold_to_plain(*flight)
+
+
+@pytest.mark.parametrize("K", [1, 7, 9, 129])
+def test_lp_batch_lanes_not_a_multiple_of_the_cta(dev, K):
+    """Flights of 1, 7, 9 and 129 lanes: through ``solve_lp_batch`` (K_pad
+    4, 8, 12, 132: padded lanes) every lane equals the plain version and
+    ``solve_lp_np``; and as a LaneSolver of exactly K lanes (the last CTA
+    with warps past K_pad) the plain version."""
+    from repro_torch.core.lp_batch import solve_lp_batch
+    rng = np.random.default_rng(K)
+    n, m = 60, 5
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(K)]
+    solver, cf, Ad, pack, got = _one_flight(dev, c, A, act - wid, act + wid,
+                                            ubs)
+    most = _lp_define("WARP_LANES_MAX")
+    assert solver.plan["path"] == "warp"
+    assert solver.plan["lanes_per_cta"] == min(most, solver.K_pad)
+    _hold_to_plain(solver, cf, Ad, pack, got)
+    _lane_bar(solve_lp_batch(c, A, act - wid, act + wid, ubs,
+                             backend="device", device=dev),
+              solve_lp_batch(c, A, act - wid, act + wid, ubs, backend="np"))
+    exact = _cold_flight(dev, K, 5, 60, 64, 8, K)
+    assert exact[0].plan["lanes_per_cta"] == min(most, K)
+    _hold_to_plain(*exact)
+
+
+@pytest.mark.parametrize("m", [3, 7, 13, 20])
+def test_lp_batch_warp_path_every_m_pad(dev, m):
+    """m_pad 4, 8, 16 and 32 on the warp path, and the same flights on the
+    CTA path (the WARP_N_MAX 0 build): both equal the plain version."""
+    rng = np.random.default_rng(m)
+    n = max(40, 2 * m)
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(10)]
+    solver, cf, Ad, pack, got = _one_flight(dev, c, A, act - wid, act + wid,
+                                            ubs)
+    assert solver.plan["path"] == "warp"
+    _hold_to_plain(solver, cf, Ad, pack, got)
+    _hold_to_plain(_on_cta(solver), cf, Ad, pack)
+
+
+def test_lp_batch_warp_path_odd_n(dev):
+    """N = 165 (an odd count of columns, so cf is no multiple of 16
+    bytes, the bulk copy's unit): (cf, A) is not staged but read from
+    global memory; lanes = plain."""
+    flight = _cold_flight(dev, 8, 3, 150, 161, 4, 9)
+    assert flight[0].plan["path"] == "warp" and not flight[0].plan["staged"]
+    _hold_to_plain(*flight)
+
+
+def test_lp_batch_staged_cf_a_must_be_aligned(dev):
+    """A staged class given cf and A 8 bytes past a 16-byte boundary (the
+    bulk copy's alignment) raises a ValueError instead of launching."""
+    solver, cf, Ad, pack = _cold_flight(dev, 8, 3, 150, 160, 4, 9)
+    assert solver.plan["path"] == "warp" and solver.plan["staged"]
+    cf1 = torch.cat([cf.new_zeros(1), cf])[1:]
+    A1 = torch.cat([Ad.new_zeros(1), Ad.reshape(-1)])[1:].view(Ad.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        solver(cf1, A1, pack)
+
+
+def _integer_flight(seed, K=12):
+    """A flight of integer data (costs in [-3, 3], A in {-1, 0, 1}, integer
+    bounds) whose columns come in identical pairs: equal ratios (ties
+    broken by index) and running sums that reach |delta| exactly; every
+    fourth lane cannot reach row 0 (a select with no crossing)."""
+    rng = np.random.default_rng(seed)
+    h, m = 24, 3
+    c = rng.integers(-3, 4, size=h).astype(float)
+    A = rng.integers(-1, 2, size=(m, h)).astype(float)
+    c, A = np.concatenate([c, c]), np.hstack([A, A])
+    ub = rng.integers(1, 3, size=2 * h).astype(float)
+    act = A @ np.floor(ub / 2)
+    ubs = [np.minimum(ub, rng.integers(0, 3, size=2 * h)) for _ in range(K)]
+    wid = rng.integers(0, 3, size=m).astype(float)
+    for k in range(3, K, 4):
+        ubs[k] = np.minimum(ubs[k], (A[0] < 0) * ubs[k])
+    bl = act - wid
+    bl[0] = max(bl[0], 1.0)
+    return c, A, bl, act + wid, ubs
+
+
+@pytest.mark.parametrize("seed", [2, 4])
+def test_lp_batch_ties_and_exact_thresholds_on_both_paths(dev, seed):
+    """The selects the ordered merge must get right, on the card: tied
+    ratios, running sums equal to |delta|, and no crossing (infeasible
+    lanes).  A lane's trajectory is its q and flip set each trip, so its
+    basis, bound pattern, status and iterations, on the warp path and on
+    the CTA path, equal the plain version's."""
+    from repro_torch.core.lp import INFEASIBLE, OPTIMAL
+    args = _integer_flight(seed)
+    solver, cf, Ad, pack, got = _one_flight(dev, *args)
+    assert solver.plan["path"] == "warp"
+    _hold_to_plain(solver, cf, Ad, pack, got)
+    status = set(got[:, solver.N + 2 * solver.m_pad + 1].tolist())
+    assert {OPTIMAL, INFEASIBLE} <= status
+    _hold_to_plain(_on_cta(solver), cf, Ad, pack)
+
+
+def test_lp_batch_cf_a_not_staged(dev):
+    """m_pad 32 and N = WARP_N_MAX: (cf, A) does not fit beside the lanes,
+    so the warp path reads it from global memory; lanes = plain."""
+    wn = _warp_n_max()
+    flight = _cold_flight(dev, 5, 20, wn - 64, wn - 32, 32, 5)
+    assert flight[0].plan["path"] == "warp" and not flight[0].plan["staged"]
+    _hold_to_plain(*flight)
+
+
+def test_lp_batch_warp_path_nan_costs(dev):
+    """NaN costs on the warp path (NaN reduced costs, NaN ratios sorted
+    after +inf by the ordered merge): statuses, iterations, basis and
+    bound pattern equal the plain version's."""
+    solver, cf, Ad, pack = _cold_flight(dev, 4, 4, 40, 48, 4, 6,
+                                        nan_cost=True)
+    assert solver.plan["path"] == "warp"
+    got = solver(cf, Ad, pack)
+    want = _plain_pack(solver, cf, Ad, pack)
+    N, mp = solver.N, solver.m_pad
+    o = N + mp
+    for k in range(pack.shape[0]):
+        g, w = got[k], want[k]
+        assert np.array_equal(g[o + 1 + mp:o + 5 + mp],
+                              w[o + 1 + mp:o + 5 + mp]), k
+        assert np.array_equal(np.sort(g[o + 1:o + 1 + mp]),
+                              np.sort(w[o + 1:o + 1 + mp])), k
+        assert np.array_equal(g[o + 5 + mp:o + 5 + mp + N],
+                              w[o + 5 + mp:o + 5 + mp + N]), k
+
+
+def test_lp_batch_warp_path_budget_relaunch(dev):
+    """The shared pivot cap truncating mid-flight on the warp path: two
+    launches, and the out pack (spent included) equals the plain
+    lockstep loop's."""
+    from repro_torch.core.guard import SolveBudget
+    from repro_torch.core.lp_batch import solve_lp_batch
+    from repro_torch.kernels import lp_batch
+    rng = np.random.default_rng(3)
+    n, m = 60, 5
+    c, A = rng.normal(size=n), rng.normal(size=(m, n))
+    ub = rng.integers(1, 4, size=n).astype(float)
+    act = A @ (rng.uniform(0, 1, n) * ub)
+    wid = np.abs(rng.normal(size=m)) * 2 + 0.5
+    ubs = [ub * rng.uniform(0.5, 1.0, n) for _ in range(8)]
+    args = (c, A, act - wid, act + wid, ubs)
+    its = [r.iters for r in solve_lp_batch(*args, backend="device",
+                                           device="cpu")]
+    cap = int(np.minimum(its, int(np.median(its))).sum())
+    before = lp_batch.launches
+    solver, cf, Ad, pack, got = _one_flight(
+        dev, *args, budget=SolveBudget(max_pivots=cap))
+    assert lp_batch.launches == before + 2
+    assert solver.plan["path"] == "warp"
+    _hold_to_plain(solver, cf, Ad, pack, got)
+
+
+def test_lp_batch_both_paths_on_the_bnb_flights(dev):
+    """Every flight of B&B at W = 64 on the reference benchmark's instance,
+    on the warp path and on the CTA path: each lane equals the plain
+    version on the card."""
+    from repro_torch.core.ilp import solve_ilp
+    from repro_torch.kernels import lp_batch
+    c, A, bl, bu = _lp_instance(42, 150, 0.05)
+    kept = []
+    saved = lp_batch.LaneSolver.__call__
+
+    def keep(self, cf, Ad, in_pack):
+        kept.append((self, cf, Ad, in_pack.copy()))
+        return saved(self, cf, Ad, in_pack)
+
+    lp_batch.LaneSolver.__call__ = keep
+    try:
+        solve_ilp(c, A, bl, bu, np.ones(150), wave_width=64, device=dev,
+                  max_nodes=50_000, time_limit_s=600)
+    finally:
+        lp_batch.LaneSolver.__call__ = saved
+    assert len(kept) > 100
+    cta = _cta_lib()
+    for solver, cf, Ad, pack in kept:
+        assert solver.plan["path"] == "warp"
+        warp = _hold_to_plain(solver, cf, Ad, pack)
+        other = _on_cta(solver, cta)
+        bad, _, _ = lp_batch.lane_mismatches(other(cf, Ad, pack), warp,
+                                             pack, solver.m_pad)
+        assert not bad, bad

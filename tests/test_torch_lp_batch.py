@@ -12,6 +12,8 @@ status, iterations and notes must be equal (exact).
 """
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core import guard as ref_guard
 from repro.core import lp as ref_lp
@@ -365,3 +367,175 @@ def test_solve_lp_budget_and_mesh():
     assert (got.status, got.iters) == (ref.status, ref.iters)
     with pytest.raises(NotImplementedError, match="item 6"):
         port_lp.solve_lp(c, A, bl, bu, ubs[0], mesh=object(), device="cpu")
+
+
+# ---------------------------------------- the warp path's ordered-merge walk
+
+
+def _select_reference(ratio, cost, elig, delta):
+    """The reference's BFRT select (``repro/core/lp.py::_pivot_core``):
+    ``np.argsort(kind="stable")`` of the ratios (ineligible ones +inf),
+    ``np.cumsum`` of the flip costs in that order, the first eligible
+    position whose sum reaches |delta| - 1e-12 (the left ``searchsorted``
+    rule on a sum that only grows); every eligible breakpoint before it
+    flips.  Returns (q, flips, the sum there, has_cross); without a
+    crossing the sum over every eligible breakpoint, in order."""
+    N = len(ratio)
+    r = np.where(elig, ratio, np.inf)
+    c = np.where(elig, cost, 0.0)
+    order = np.argsort(r, kind="stable")
+    csum = np.cumsum(c[order])
+    thr = abs(delta) - 1e-12
+    crossed = (csum >= thr) & elig[order]
+    if not crossed.any():
+        e = order[elig[order]]
+        return -1, None, float(np.cumsum(cost[e])[-1]) if e.size else 0.0, \
+            False
+    pos = int(np.argmax(crossed))
+    q = int(order[pos])
+    if np.all(np.isfinite(c)) and np.all(c >= 0):   # the searchsorted rule
+        e = order[elig[order]]
+        ecs = np.cumsum(cost[e])
+        assert int(e[np.searchsorted(ecs, thr, side="left")]) == q
+    idx = np.arange(N)
+    flips = elig & ((r < r[q]) | ((r == r[q]) & (idx < q)))
+    return q, flips, float(csum[pos]), True
+
+
+def _same_bits(a: float, b: float) -> bool:
+    return (np.isnan(a) and np.isnan(b)) or \
+        np.float64(a).view(np.int64) == np.float64(b).view(np.int64)
+
+
+def _hold_merge_walk(ratio, cost, elig, delta, lanes=32):
+    """The merge walk against the reference: q and has_cross always; the
+    running sum bit for bit wherever the merge ran; the flip set where
+    it crossed.  Returns (q, walked)."""
+    from repro_torch.kernels.lp_batch import bfrt_merge_walk_plain
+    ratio, cost = np.asarray(ratio, float), np.asarray(cost, float)
+    elig = np.asarray(elig, bool)
+    q, flips, base, has, walked = bfrt_merge_walk_plain(ratio, cost, elig,
+                                                        delta, lanes)
+    wq, wflips, wbase, whas = _select_reference(ratio, cost, elig, delta)
+    assert (q, has) == (wq, whas)
+    if walked:
+        assert _same_bits(base, wbase), (base, wbase)
+    if has:
+        assert np.array_equal(flips, wflips)
+    return q, walked
+
+
+def _delta_for(s: float):
+    """A delta whose threshold |delta| - 1e-12 is exactly s, or None."""
+    d = s + 1e-12
+    for _ in range(8):
+        t = d - 1e-12
+        if t == s:
+            return d
+        d = np.nextafter(d, np.inf if t < s else -np.inf)
+    return None
+
+
+@pytest.mark.parametrize("case", ["ties", "nan_after_inf", "inf",
+                                  "zero_costs", "partial_sum", "no_crossing",
+                                  "nan_cost", "negative_zero", "n33", "n1",
+                                  "nan_crossing"])
+def test_merge_walk_cases(case):
+    """The merge walk's q, flip set and running sum, bit for bit, against
+    the reference's argsort + cumsum on hand-made selects."""
+    rng = np.random.default_rng(0)
+    N = {"n33": 33, "n1": 1}.get(case, 100)
+    ratio = rng.integers(0, 6, N).astype(float)          # ties everywhere
+    cost = rng.uniform(0.0, 1.0, N)
+    elig = rng.uniform(size=N) < 0.7
+    delta = 0.5 * float(cost[elig].sum()) if elig.any() else 1.0
+    if case == "nan_after_inf":
+        ratio[::7], ratio[3::11] = np.nan, np.inf
+        delta = float(cost[elig].sum()) * 0.97
+    elif case == "inf":
+        ratio[::2] = np.inf
+    elif case == "zero_costs":
+        cost[::3] = 0.0
+    elif case == "partial_sum":
+        e = np.argsort(np.where(elig, ratio, np.inf), kind="stable")
+        e = e[elig[e]]
+        for k in range(len(e)):                # every partial sum exactly
+            delta = _delta_for(float(np.cumsum(cost[e])[k]))
+            if delta is not None:
+                assert _hold_merge_walk(ratio, cost, elig, delta)[0] == e[k]
+        return
+    elif case == "no_crossing":
+        delta = float(cost.sum()) + 1.0
+    elif case == "nan_cost":
+        cost[np.flatnonzero(elig)[3]] = np.nan
+        delta = float(np.nansum(cost)) * 0.9
+    elif case == "negative_zero":
+        ratio[::4] = -0.0
+        ratio[1::4] = 0.0
+    elif case == "nan_crossing":
+        ratio[:] = np.nan
+        ratio[:5] = 1.0
+    q, walked = _hold_merge_walk(ratio, cost, elig, delta)
+    if case == "no_crossing":
+        assert q == -1 and not walked           # the shortcut
+    if case == "nan_crossing":
+        assert q >= 0 and np.isnan(ratio[q])
+
+
+_RATIOS = st.one_of(st.sampled_from([0.0, -0.0, 0.5, 1.0, 1.0, 2.5,
+                                     np.inf, np.nan]),
+                    st.floats(0.0, 10.0))
+_COSTS = st.one_of(st.sampled_from([0.0, 0.125, 1.0, 3.0]),
+                   st.floats(0.0, 5.0))
+
+
+@st.composite
+def _selects(draw):
+    N = draw(st.integers(1, 150))
+    ratio = np.array(draw(st.lists(_RATIOS, min_size=N, max_size=N)))
+    cost = np.array(draw(st.lists(_COSTS, min_size=N, max_size=N)))
+    elig = np.array(draw(st.lists(st.booleans(), min_size=N,
+                                  max_size=N)))
+    kind = draw(st.sampled_from(["any", "partial"]))
+    delta = draw(st.floats(-20.0, 20.0))
+    if kind == "partial" and elig.any():
+        e = np.argsort(np.where(elig, ratio, np.inf), kind="stable")
+        e = e[elig[e]]
+        k = draw(st.integers(0, len(e) - 1))
+        d = _delta_for(float(np.cumsum(cost[e])[k]))
+        delta = delta if d is None else d
+    lanes = draw(st.sampled_from([32, 32, 4, 1]))
+    return ratio, cost, elig, delta, lanes
+
+
+@settings(max_examples=300, deadline=None)
+@given(_selects())
+def test_merge_walk_is_the_sequential_select(case):
+    """Random selects (ties, NaN and +inf ratios, -0, zero costs,
+    thresholds on a partial sum, any N; runs over 32, 4 or 1
+    threads): the merge walk reports the reference's q, flip set and
+    running sum, bit for bit."""
+    ratio, cost, elig, delta, lanes = case
+    _hold_merge_walk(ratio, cost, elig, delta, lanes)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 120), st.integers(-8, 8), st.integers(0, 2 ** 32 - 1),
+       st.sampled_from([32, 4]))
+def test_merge_walk_shortcut_is_sound(N, ulps, seed, lanes):
+    """Thresholds within a few ulps of the walk's last running sum (the
+    sum of every eligible cost in (ratio, index) order): the no-crossing
+    shortcut fires only where the walk finds no crossing, and the merge
+    otherwise finds the reference's q."""
+    rng = np.random.default_rng(seed)
+    ratio = rng.integers(0, 4, N).astype(float)
+    cost = rng.uniform(0.0, 1.0, N) * 10.0 ** rng.integers(-3, 4, N)
+    elig = rng.uniform(size=N) < 0.8
+    e = np.argsort(np.where(elig, ratio, np.inf), kind="stable")
+    e = e[elig[e]]
+    last = float(np.cumsum(cost[e])[-1]) if e.size else 0.0
+    thr = last + ulps * np.spacing(last)
+    delta = _delta_for(thr)
+    if delta is None:
+        delta = thr + 1e-12
+    _hold_merge_walk(ratio, cost, elig, delta, lanes)
