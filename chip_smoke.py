@@ -67,6 +67,28 @@ package.  Phases, one line each (or one per kernel):
    solves at W=8 against W=1 (same package and objective, flights held),
    and four rungs of its h=3 Dual Reducer LP (its candidate set, warm
    from its lp1);
+5c. kernel split_tree_descent: the descent kernel (``csrc/split_tree.cu``,
+   one thread a row) on the full cell's 10M layer-0 rows down layer 1's
+   tree (equal to ``part.gid``), on layer 2's tree over its reps, on a
+   KD-tree and a bucketing partition of a 1M-row slice, on the bound-less
+   merged single-bucket tree, on a single leaf and on 100,000 probes
+   outside every box plus NaN rows; each exactly equal to the plain
+   version on the card and the host descent, with ms, plain ms, bound and
+   the host descent's seconds ("kernel split_tree_descent[...]");
+5d. cache: the reference benchmark's flight (``benchmarks/cache_bench.py``)
+   on the full cell through the device LP: Q2_TPCH h=2 cold, then
+   repeated (a ``cached=package`` hit), tightened to h=3 (``cached=
+   contained`` or a gap-rejected fallback), widened to h=1 and Q4_TPCH
+   h=2 (misses), and an artifact-only ``QCache(reuse_packages=False)``
+   repeat (``cached=exact``); each answer equal to an uncached session's
+   with the same seed ("cache <name>" lines: kind, walls, pruned LPs);
+   the cache's counters and bytes ("cache stats"); then
+   ``Hierarchy.append`` of the h=2 package's first 7 rows and 100,000
+   fresh rows (one descent launch, gids equal to the host descent's, the
+   removed groups equal to the touched ancestry layer by layer; "cache
+   append": the append state's seconds, the append wall, the descent's
+   ms, touched, flagged and invalidated counts), a stale miss equal to
+   the uncached answer and a ``cached=package`` hit again;
 
 The streamed (out-of-core) path:
 
@@ -161,7 +183,9 @@ SOURCES = {"pricing": ("src/repro_torch/csrc/pricing.cu",
            "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
                                "src/repro/kernels/attention.py:32"),
            "lp_batch": ("src/repro_torch/csrc/lp_batch.cu",
-                        "src/repro/core/lp_batch.py:121")}
+                        "src/repro/core/lp_batch.py:121"),
+           "split_tree_descent": ("src/repro_torch/csrc/split_tree.cu",
+                                  "src/repro/core/partitioner.py:122")}
 TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "bfrt_histogram": "select: q, flip mask, has_cross exact vs "
                                "the sequential rule, a second run "
@@ -181,7 +205,11 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
                          "pattern exact, x within 1e-9, objective within "
                          "1e-9 x max(1, |obj|) (the reference's 1e-9; "
                          "relative above 1, where an ulp exceeds it); "
-                         "spent pivots exact"}
+                         "spent pivots exact",
+             "split_tree_descent": "leaf ids exact: equal to "
+                                   "descend_batch_plain on the card, the "
+                                   "host descent and, for member rows, "
+                                   "the rows' own group ids"}
 # the flash kernel against its plain version, by dtype: an elementwise
 # limit (see flash_agreement) and a bar on the relative norm of the error
 FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
@@ -1743,6 +1771,308 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
             "main": main, "fixed": fixed}
 
 
+# --------------------------------- the split-tree descent and the cache
+
+# Q2_TPCH's flight over the full cell (the reference benchmark's,
+# benchmarks/cache_bench.py): the cached query and its tightened,
+# widened and disjoint variants, by hardness
+CACHE_FLIGHT = dict(prime=2.0, tight=3.0, wide=1.0)
+APPEND_FRESH = 100_000    # fresh rows appended (make_table seed 2)
+
+
+def descent_compares(tree, Td) -> int:
+    """The float64 comparisons the descent of the rows ``Td`` makes on
+    ``tree``: each live bisection step of each level (the plain version's
+    loop, counting)."""
+    import torch
+    attr, off, bounds, children = tree.device_arrays(Td.device)
+    cur = torch.full((Td.shape[0],), int(tree.root), dtype=torch.int64,
+                     device=Td.device)
+    total = 0
+    if attr.numel() == 0:
+        return 0
+    act = torch.nonzero(cur >= 0).flatten()
+    while act.numel():
+        nodes = cur[act]
+        vals = Td[act, attr[nodes].long()]
+        lo, hi = off[nodes].clone(), off[nodes + 1].clone()
+        live = lo < hi
+        while bool(live.any()):
+            total += int(live.sum())
+            mid = (lo + hi) >> 1
+            take = live & (bounds[mid.clamp(max=bounds.numel() - 1)] <= vals)
+            lo = torch.where(take, mid + 1, lo)
+            hi = torch.where(live & ~take, mid, hi)
+            live = lo < hi
+        cur[act] = children[nodes + lo]
+        act = act[cur[act] >= 0]
+    return total
+
+
+def descent_check(tag: str, tree, T, dev, want=None, reps: int = 10):
+    """The descent kernel on the rows ``T`` (numpy, (m, k)) against its
+    plain version on the card and the host descent, and against ``want``
+    (the rows' own group ids) where given; exact.  Prints a line "kernel
+    split_tree_descent[tag]"; returns (mismatches, numbers)."""
+    import torch
+    from repro_torch.kernels import split_tree
+    arrays = tree.device_arrays(dev)
+    root = int(tree.root)
+    Td = torch.as_tensor(np.ascontiguousarray(T, np.float64), device=dev)
+    before = split_tree.launches
+    got = split_tree.descend_batch(Td, *arrays, root)
+    torch.cuda.synchronize()
+    check(split_tree.launches == before + 1,
+          f"split_tree_descent[{tag}]: {split_tree.launches - before} "
+          "launches for one call")
+    plain = split_tree.descend_batch_plain(Td, *arrays, root)
+    t0 = time.perf_counter()
+    host = tree.descend_batch(T)
+    host_s = time.perf_counter() - t0
+    got_np = got.cpu().numpy()
+    bad = int((got != plain).sum()) + int((got_np != host).sum())
+    if want is not None:
+        bad += int((got_np != want).sum())
+    check(bad == 0, f"split_tree_descent[{tag}]: {bad} leaves differ from "
+          "the plain version, the host descent or the rows' own groups")
+    ms = timed_ms(lambda: split_tree.descend_batch(Td, *arrays, root), reps)
+    plain_ms = timed_ms(lambda: split_tree.descend_batch_plain(
+        Td, *arrays, root), 1, warm=0)
+    m, k = Td.shape
+    nums = _numbers(f"{m}x{k}", m * k * 8 + m * 8,
+                    descent_compares(tree, Td), ms, plain_ms,
+                    nodes=tree.num_nodes, bounds=len(tree.bounds),
+                    host_descend_s=host_s)
+    say(f"kernel split_tree_descent[{tag}]", mismatches=bad,
+        vs_gid=want is not None, **nums)
+    return bad, nums
+
+
+def kernel_split_tree(eng, dev):
+    """The descent kernel at fixed cases: the full cell's 10M layer-0 rows
+    down layer 1's tree (equal to ``part.gid``), layer 2's tree over its
+    reps, a KD-tree and a bucketing partition of a 1M-row slice, the
+    bound-less merged single-bucket tree, a single leaf, and 100,000
+    probes outside every box plus NaN rows.  Returns (max mismatches,
+    numbers of the 10M case)."""
+    from repro_torch.core import partitioner
+    hier = eng.hierarchy
+    X0 = hier.layers[0].X
+    part1 = hier.layers[1].part
+    bad, big = descent_check("full layer 1, 10M", part1.tree, X0, dev,
+                             want=part1.gid)
+    errs = [bad]
+    for l in range(2, hier.L + 1):
+        part = hier.layers[l].part
+        errs.append(descent_check(f"full layer {l}", part.tree,
+                                  hier.layers[l - 1].X, dev,
+                                  want=part.gid)[0])
+    X1 = X0[:1_000_000]
+    t0 = time.perf_counter()
+    kd = partitioner.fit(X1, backend="kdtree", d_f=100, device=dev)
+    kd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bk = partitioner.fit(X1, backend="bucketing", d_f=100,
+                         memory_rows=250_000, device=dev)
+    bk_s = time.perf_counter() - t0
+    say("split_tree_descent 1M fits", kdtree_s=kd_s, kdtree_groups=
+        kd.num_groups, bucketing_s=bk_s, bucketing_groups=bk.num_groups)
+    errs.append(descent_check("kdtree 1M", kd.tree, X1, dev,
+                              want=kd.gid)[0])
+    errs.append(descent_check("bucketing 1M", bk.tree, X1, dev,
+                              want=bk.gid)[0])
+    flat = np.full((3000, 2), 5.0)
+    merged = partitioner.fit(flat, backend="bucketing", device=dev)
+    check(bool(np.any(np.diff(merged.tree.bound_off) == 0)),
+          "split_tree_descent: the merged single-bucket tree has no "
+          "bound-less node")
+    errs.append(descent_check("merged single bucket", merged.tree, flat,
+                              dev, want=merged.gid)[0])
+    errs.append(descent_check("single leaf", partitioner.SplitTree
+                              .single_leaf(), X1[:100_000], dev,
+                              want=np.zeros(100_000, np.int64))[0])
+    rng = np.random.default_rng(5)
+    span = X0.max(0) - X0.min(0) + 1.0
+    k = X0.shape[1]
+    probes = np.concatenate([
+        X0.min(0) - span * rng.uniform(1, 10, (50_000, k)),
+        X0.max(0) + span * rng.uniform(1, 10, (50_000, k))])
+    nan = X0[rng.choice(len(X0), 10_000)].copy()
+    nan[np.arange(10_000), rng.integers(0, k, 10_000)] = np.nan
+    nan[:100] = np.nan
+    errs.append(descent_check("outside every box + NaN", part1.tree,
+                              np.concatenate([probes, nan]), dev)[0])
+    return float(max(errs)), big
+
+
+def phase_cache(eng, table, device):
+    """The cross-query cache on the full cell (the reference benchmark's
+    flight, benchmarks/cache_bench.py) through the device LP, every answer
+    equal to an uncached session's with the same seed (an accepted
+    contained prune's to a CPU session's on the same entries); then an
+    append of the h=2 package's first 7 rows and 100,000 fresh rows
+    through the descent kernel, its ancestry invalidation, the stale miss
+    and the re-populated hit.  Returns (launches of the append, mismatches,
+    numbers of the append's descent, launches on the flight's solves)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.hardness import (Q2_TPCH, Q4_TPCH, column_stats,
+                                           instantiate)
+    from repro_torch.core.qcache import QCache
+    from repro_torch.data.synth_tables import make_table
+    from repro_torch.kernels import split_tree
+    stats = column_stats(table, ATTRS)
+    q = {name: instantiate(Q2_TPCH, stats, h)
+         for name, h in CACHE_FLIGHT.items()}
+    q["disjoint"] = instantiate(Q4_TPCH, stats, 2.0)
+    check(q["tight"].signature().contained_in(q["prime"].signature())
+          and not q["wide"].signature().contained_in(q["prime"].signature()),
+          "cache: the flight's signatures do not nest as the reference's")
+    hier = eng.hierarchy
+    uncached = {}
+
+    def cold(name):
+        """An uncached session's answer to ``name`` (seed 0), once."""
+        if name not in uncached:
+            uncached[name] = solve(eng.session(0), q[name])
+        return uncached[name]
+
+    def cached(cache, name, want):
+        """A session with ``cache`` (seed 0) solves ``name``: its kind must
+        be in ``want`` and its answer the uncached session's.  An accepted
+        contained prune may answer otherwise (the cache's contract keeps
+        the answer's class, not its package): it must then be a valid
+        package within ``gap_accept`` of its own bound, no better a bound
+        than the cached query's, and the answer of the same hit served by
+        a CPU session from the same entries."""
+        s = eng.session(0)
+        s.cache = cache
+        res, sec = solve(s, q[name])
+        ref, ref_s = cold(name)
+        kind = res.ps_stats.cache or ("fallback" if "cache_fallback"
+                                      in res.report.fallbacks else "miss")
+        same = res.feasible == ref.feasible and same_package(res, ref) \
+            and res.obj == ref.obj
+        extra = {}
+        if kind == "contained" and not same:
+            twin = QCache(gap_accept=cache.gap_accept)
+            twin._entries.update(cache._entries)
+            s = eng.session(0)
+            s.cache, s.device = twin, torch.device("cpu")
+            cpu = solve(s, q[name])[0]
+            prime_bound = cold("prime")[0].lp_obj
+            extra = dict(cpu_kind=cpu.ps_stats.cache, cpu_obj=cpu.obj,
+                         same_as_cpu=same_package(cpu, res),
+                         prime_lp_obj=prime_bound, lp_obj=res.lp_obj)
+            check(cpu.ps_stats.cache == "contained"
+                  and same_package(cpu, res)
+                  and abs(cpu.obj - res.obj) <= 1e-12 * max(1.0, abs(
+                      res.obj)),
+                  f"cache {name}: the contained answer differs from a CPU "
+                  "session's on the same entries")
+            check(q[name].check_package(table, res.idx, res.mult),
+                  f"cache {name}: the contained package fails "
+                  "check_package")
+            check(res.lp_obj <= prime_bound + 1e-6 * max(1.0, abs(
+                prime_bound)), f"cache {name}: the contained bound beats "
+                  "the cached query's")
+        say(f"cache {name}", kind=kind, wall_s=sec, uncached_s=ref_s,
+            feasible=res.feasible, obj=res.obj, uncached_obj=ref.obj,
+            same_as_uncached=same, **extra,
+            cache_hits=res.report.cache_hits,
+            cache_misses=res.report.cache_misses,
+            cache_pruned_lps=res.report.cache_pruned_lps,
+            fallbacks=json.dumps(res.report.fallbacks),
+            status=json.dumps(res.status))
+        check(kind in want, f"cache {name}: {kind}, expected one of {want}")
+        check(same or kind == "contained", f"cache {name}: the answer "
+              "differs from an uncached session's")
+        return res, sec
+
+    kernels.reset_launches()
+    cache = QCache()
+    cached(cache, "prime", ("miss",))
+    cached(cache, "prime", ("package",))
+    cached(cache, "tight", ("contained", "fallback"))
+    cached(cache, "wide", ("miss",))
+    cached(cache, "disjoint", ("miss",))
+    art = QCache(reuse_packages=False)
+    cached(art, "prime", ("miss",))
+    cached(art, "prime", ("exact",))
+    flight_launches = kernels.launch_counts()["split_tree_descent"]
+    say("cache stats", **cache.stats_snapshot().as_dict(),
+        hit_rate=cache.stats.hit_rate(), entries=len(cache),
+        artifact_only=json.dumps(art.stats_snapshot().as_dict()),
+        descent_launches_on_the_flight=flight_launches)
+
+    # ---- the append: the h=2 package's first 7 rows and fresh rows
+    prime = cold("prime")[0]
+    fresh = make_table("tpch", APPEND_FRESH, seed=2)
+    rows = {a: np.concatenate([np.asarray(table[a][prime.idx[:7]],
+                                          np.float64),
+                               np.asarray(fresh[a], np.float64)])
+            for a in ATTRS}
+    R = np.stack([rows[a] for a in ATTRS], axis=1)
+    entries = [e for fp, _, e in cache.entries() if fp == hier.fingerprint]
+    before = [{l: set(e.group_ids(l)) for l in range(1, hier.L + 1)}
+              for e in entries]
+    t0 = time.perf_counter()
+    if hier._append_state is None:
+        hier._append_state = hier._init_append_state()
+    init_s = time.perf_counter() - t0
+    stats0 = cache.stats_snapshot()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = hier.append(rows)
+    append_s = time.perf_counter() - t0
+    launched = kernels.launch_counts()["split_tree_descent"]
+    check(launched == 1, f"cache append: {launched} descent launches")
+    host = hier.layers[1].part.tree.descend_batch(R)
+    bad = int((rep.gids != host).sum())
+    check(bad == 0, f"cache append: {bad} gids differ from the host descent")
+    touched = np.unique(rep.gids)
+    anc = hier.leaf_ancestors(touched)
+    check(np.array_equal(anc[1], touched),
+          "cache append: leaf_ancestors(touched)[1] != touched")
+    removed_total = 0
+    for e, b in zip(entries, before):
+        for l in range(1, hier.L + 1):
+            removed = b[l] - set(e.group_ids(l))
+            check(removed == b[l] & set(int(g) for g in anc[l]),
+                  f"cache append: layer {l}: the removed groups are not "
+                  "the touched ancestry")
+            removed_total += len(removed)
+    invalidated = cache.stats.invalidated_groups - stats0.invalidated_groups
+    check(invalidated == removed_total > 0,
+          f"cache append: {invalidated} groups invalidated, "
+          f"{removed_total} removed")
+    # the append's descent alone, timed on its rows
+    tree = hier.layers[1].part.tree
+    arrays = tree.device_arrays(device)
+    Rd = torch.as_tensor(R, device=device)
+    ms = timed_ms(lambda: split_tree.descend_batch(Rd, *arrays,
+                                                   int(tree.root)), 10)
+    plain_ms = timed_ms(lambda: split_tree.descend_batch_plain(
+        Rd, *arrays, int(tree.root)), 3)
+    m, k = R.shape
+    nums = _numbers(f"{m}x{k}", m * k * 8 + m * 8,
+                    descent_compares(tree, Rd), ms, plain_ms,
+                    nodes=tree.num_nodes, bounds=len(tree.bounds))
+    say("cache append", rows=m, init_append_state_s=init_s,
+        append_s=append_s, descent_launches=launched, touched=len(touched),
+        flagged=len(rep.flagged), tv_bar=rep.tv_bar,
+        invalidated_groups=invalidated,
+        entries_invalidated=sum(not e.complete for e in entries),
+        ancestors=json.dumps({l: len(a) for l, a in anc.items()}), **nums)
+    stale0 = cache.stats.stale_misses
+    cached(cache, "prime", ("miss",))
+    check(cache.stats.stale_misses == stale0 + 1,
+          "cache after append: the next solve is not a stale miss")
+    cached(cache, "prime", ("package",))
+    say("cache stats after append", **cache.stats_snapshot().as_dict())
+    return launched, bad, nums, flight_launches
+
+
 # ------------------------------------------- the streamed (out-of-core) path
 
 # "streamed": a TPC-H stand-in on disk, partitioned through the bucketing
@@ -2552,7 +2882,7 @@ def main() -> None:
         card=json.dumps(card))
     print(card, flush=True)
     ptxas_report(_build)
-    for name in ("dlv_scan", "bfrt", "segstats"):
+    for name in ("dlv_scan", "bfrt", "segstats", "split_tree"):
         say(f"ptxas {name}", report=json.dumps(
             [ln.strip() for ln in _build.build_log(name).splitlines()
              if re.search(r"entry function|registers|spill", ln)]))
@@ -2581,7 +2911,12 @@ def main() -> None:
     main_nums = phase("main-path inputs", phase_main_inputs, counts,
                       *inputs)
     lp = phase("lp batch", phase_lp_batch, eng, *inputs)
+    fixed["split_tree_descent"] = phase("kernel split_tree_descent",
+                                        kernel_split_tree, eng, dev)
+    append_n, append_err, append_nums, flight_n = phase(
+        "cache", phase_cache, eng, inputs[0], dev)
     del inputs, eng
+    torch.cuda.empty_cache()
     # the streamed phases' data and spill scratch live in STREAMED_DIR
     STREAMED_DIR.mkdir(parents=True, exist_ok=True)
     saved_tmp, tempfile.tempdir = tempfile.tempdir, str(STREAMED_DIR)
@@ -2615,6 +2950,14 @@ def main() -> None:
     counts["lp_batch"] = lp["launches"]
     lp_paths = {**lp["paths"], "parity W=8": parity_lp[0],
                 "lm serve": serve_lp[0]}
+    # the descent's main path is the append; the build and the solves
+    # (phase "full", the cache flight) never descend
+    main_nums["split_tree_descent"] = (float(append_err), append_nums)
+    descent_paths = {"append": append_n,
+                     "full": counts["split_tree_descent"],
+                     "cache flight": flight_n,
+                     "streamed": streamed_counts["split_tree_descent"]}
+    counts["split_tree_descent"] = append_n
 
     entries = []
     for name, (source, replaces) in SOURCES.items():
@@ -2622,6 +2965,7 @@ def main() -> None:
         err_m, nums_m = main_nums[name]
         paths = {"full": counts[name], "streamed": streamed_counts[name]} \
             if name in PQ_KERNELS else lp_paths if name == "lp_batch" \
+            else descent_paths if name == "split_tree_descent" \
             else {"lm prefill": counts[name]}
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],

@@ -23,13 +23,19 @@ engine, ``core.lp_batch``: B&B waves with ``ilp_kwargs={"wave_width":
 W}``); the engine raises at construction when CUDA is asked for and
 absent.  The layer LPs run on the host numpy twin unless ``lp_solver=``
 names the device twin (``repro_torch.core.lp_kernel.solve_lp_kernel``),
-which then runs on the engine's device.  The cross-query cache and mesh
-distribution are later work: the reference's knobs for them
-(``cache=``, ``session``, ``mesh=``) raise ``NotImplementedError``
-naming their ROADMAP queue-1 item.
+which then runs on the engine's device.
+
+``cache=`` attaches the cross-query artifact cache (``core.qcache``):
+``True`` makes a private ``QCache``, an instance is shared (across
+engines and sessions: the serving shape), ``None`` or ``False`` means
+none.  ``session(seed)`` gives a per-session engine over the same table,
+hierarchy, cache and device with a private rng.  Mesh distribution is
+later work: ``mesh=`` raises ``NotImplementedError`` naming its ROADMAP
+queue-1 item.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import time
 from typing import Optional, Sequence
@@ -43,6 +49,7 @@ from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.lp import OPTIMAL, solve_lp_np
 from repro_torch.core.lp_kernel import solve_lp_kernel
 from repro_torch.core.paql import PackageQuery
+from repro_torch.core.qcache import QCache
 from repro_torch.core.relation import Relation, as_relation, io_retry_count
 from repro_torch.core.shading import progressive_shading
 from repro_torch.core.sketchrefine import sketch_refine
@@ -63,12 +70,9 @@ class PackageQueryEngine:
                  chunk_rows: Optional[int] = None,
                  memory_rows: Optional[int] = None, mesh=None,
                  cache=None, device="cuda"):
-        for name, value, item in (
-                ("mesh=", mesh, "6: distributed pricing"),
-                ("cache=", None if cache is False else cache,
-                 "3: cross-query cache")):
-            if value is not None:
-                raise _unported(f"PackageQueryEngine({name})", item)
+        if mesh is not None:
+            raise _unported("PackageQueryEngine(mesh=)",
+                            "6: distributed pricing")
         self.table: Relation = as_relation(table, columns=list(attrs))
         self.attrs = list(attrs)
         self.d_f = d_f
@@ -81,13 +85,30 @@ class PackageQueryEngine:
         self.rng = np.random.default_rng(seed)
         self.hierarchy: Optional[Hierarchy] = None
         self.partition_time_s: float = 0.0
+        # cross-query artifact cache: True -> a private QCache; or a QCache
+        # instance shared across engines (the serving shape)
+        if cache is True:
+            cache = QCache()
+        # identity test, not truthiness: an empty QCache has len() == 0
+        self.cache = None if cache is None or cache is False else cache
 
     @property
     def n(self) -> int:
         return self.table.num_rows
 
     def session(self, seed: int = 0) -> "PackageQueryEngine":
-        raise _unported("PackageQueryEngine.session", "3: cross-query cache")
+        """A per-session engine sharing this engine's table, hierarchy,
+        cross-query cache and device, with a PRIVATE rng.
+
+        The serving shape: one resident engine (partitioned once) serves
+        many concurrent sessions.  ``engine.rng`` is the only unshareable
+        state (a numpy Generator is not thread-safe and its draw order must
+        stay per-session deterministic); the Relation, Hierarchy and QCache
+        are read-only after partition or thread-safe.
+        """
+        s = copy.copy(self)
+        s.rng = np.random.default_rng(seed)
+        return s
 
     def partition(self) -> "PackageQueryEngine":
         t0 = time.time()
@@ -116,9 +137,15 @@ class PackageQueryEngine:
         never raises; ``budget=`` bounds the whole cascade end to end.
         ``guarded=False`` disables the degradation ladder and re-raises.
         ``lp_solver=solve_lp_kernel`` runs on the engine's ``device``, as
-        do the batched LP flights (B&B waves, Dual Reducer rungs)."""
+        do the batched LP flights (B&B waves, Dual Reducer rungs).
+
+        With a ``cache``, solves consult the cross-query cache before
+        descending and populate it after clean solves; hit/miss/prune
+        counters land on ``res.report``."""
         if self.hierarchy is None:
             self.partition()
+        if self.cache is not None:
+            self.cache.register(self.hierarchy)
         if ps_kwargs.get("lp_solver") is solve_lp_kernel:
             ps_kwargs["lp_solver"] = functools.partial(solve_lp_kernel,
                                                        device=self.device)
@@ -132,8 +159,8 @@ class PackageQueryEngine:
                                       alpha=self.alpha, dr_q=dr_q,
                                       rng=self.rng, ilp_kwargs=ilp_kwargs,
                                       budget=report.budget, report=report,
-                                      ladder=guarded, device=self.device,
-                                      **ps_kwargs)
+                                      ladder=guarded, qcache=self.cache,
+                                      device=self.device, **ps_kwargs)
         # guard contract: a guarded solve never raises -- contain, report
         # and return an empty (infeasible) result
         except Exception as e:

@@ -24,14 +24,22 @@ routes layer-0 group stats through the chunked accumulation, and
 memmap build's partition bit for bit.
 
 :meth:`Hierarchy.from_arrays` loads a hierarchy built elsewhere (for
-example by the reference package) from plain arrays.  Appends and the
-mesh-sharded passes are later work.
+example by the reference package) from plain arrays.  The mesh-sharded
+passes are later work.
+
+Appends (the Stochastic SketchRefine re-partitioning story): see
+:meth:`Hierarchy.append` -- new tuples descend to their layer-0 leaf
+through the split tree on the hierarchy's ``device`` (the descent kernel
+on CUDA, its plain version on the CPU), leaf counts and moments grow on
+the host, leaves whose total variance crosses the build-time bar are
+reported for a local re-split (the re-split itself is later work), and
+the invalidation hooks (``core.qcache``) hear which leaves were touched.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -78,6 +86,14 @@ class Layer:
         return self.table.num_rows
 
 
+@dataclasses.dataclass
+class AppendReport:
+    """Result of one :meth:`Hierarchy.append` call."""
+    gids: np.ndarray          # layer-0 leaf (group) id per appended tuple
+    flagged: np.ndarray       # leaves whose total variance crossed the bar
+    tv_bar: float             # the bar the leaves were compared against
+
+
 class Hierarchy:
     def __init__(self, table, attrs: Sequence[str],
                  d_f: int = 100, alpha: int = 100_000,
@@ -94,6 +110,8 @@ class Hierarchy:
         self.backend = backend
         self.device = resolve_device(device)
         self._fingerprint: Optional[str] = None
+        self._append_state: Optional[dict] = None
+        self._invalidation_hooks: List[Callable] = []
         rng = rng or np.random.default_rng(0)
         rel = as_relation(table, columns=self.attrs)
         self.relation = rel
@@ -165,6 +183,8 @@ class Hierarchy:
         self.backend = self.layer0_backend = "dlv"
         self.device = resolve_device(device)
         self._fingerprint = None
+        self._append_state = None
+        self._invalidation_hooks = []
         rel = as_relation(table, columns=self.attrs)
         self.relation = rel
         X0 = np.stack([np.asarray(rel[a], np.float64) for a in self.attrs],
@@ -207,6 +227,27 @@ class Hierarchy:
             self._fingerprint = h.hexdigest()
         return self._fingerprint
 
+    # ----------------------------------------------------- invalidation
+    def add_invalidation_hook(self, cb: Callable) -> None:
+        """Register ``cb(hier, touched_leaf_gids)`` to fire on every
+        :meth:`append` with the layer-0 leaves the new rows landed in
+        (``core.qcache`` subscribes here)."""
+        if cb not in self._invalidation_hooks:
+            self._invalidation_hooks.append(cb)
+
+    def leaf_ancestors(self, leaves) -> Dict[int, np.ndarray]:
+        """Map layer -> group ids on the ancestor paths of the given
+        layer-0 leaves: ``{1: leaves, 2: their layer-2 groups, ...}`` --
+        the cached per-group artifacts an append to those leaves
+        invalidates."""
+        ids = np.unique(np.asarray(leaves, np.int64))
+        out: Dict[int, np.ndarray] = {1: ids}
+        for l in range(2, self.L + 1):
+            ids = np.unique(np.asarray(self.layers[l].part.gid[ids],
+                                       np.int64))
+            out[l] = ids
+        return out
+
     def get_tuples(self, l_minus_1: int, g: int) -> np.ndarray:
         """Member indices (at layer l-1) of group g (a layer-l tuple)."""
         return self.layers[l_minus_1 + 1].part.members(g)
@@ -219,9 +260,91 @@ class Hierarchy:
         return self.layers[l].part.get_group(t)
 
     def get_group_batch(self, l: int, T: np.ndarray, **kw) -> np.ndarray:
-        """Vectorized split-tree descent for a whole batch of tuples."""
+        """Vectorized split-tree descent for a whole batch of tuples
+        (``jit=True``: on the hierarchy's device unless ``device=``)."""
+        if kw.get("jit"):
+            kw.setdefault("device", self.device)
         return self.layers[l].part.get_group_batch(T, **kw)
 
     def group_box(self, l: int, g: int):
         part = self.layers[l].part
         return part.boxes_lo[g], part.boxes_hi[g]
+
+    # --------------------------------------------------------- appends
+    def _init_append_state(self) -> dict:
+        """Per-leaf (count, sum, sumsq) of the layer-0 partition, computed
+        once with the reference's chunked host bincount pass over the
+        relation (the same additions, so ``tv_bar`` and the flagged leaves
+        are the reference's bit for bit); the total-variance bar is the
+        worst build-time leaf."""
+        part = self.layers[1].part
+        G = part.num_groups
+        k = len(self.attrs)
+        cnt = part.counts.astype(np.float64).copy()
+        s1 = np.zeros((G, k))
+        s2 = np.zeros((G, k))
+        a = 0
+        for block in self.relation.chunks(tuple(self.attrs)):
+            ids = part.gid[a:a + len(block)]
+            for j in range(k):
+                s1[:, j] += np.bincount(ids, weights=block[:, j],
+                                        minlength=G)
+                s2[:, j] += np.bincount(ids, weights=block[:, j] ** 2,
+                                        minlength=G)
+            a += len(block)
+        nz = np.maximum(cnt, 1.0)[:, None]
+        var = np.maximum(s2 / nz - (s1 / nz) ** 2, 0.0)
+        tv = cnt * var.max(axis=1)
+        return {"cnt": cnt, "s1": s1, "s2": s2,
+                "tv_bar": float(tv.max()) if G else 0.0}
+
+    def append(self, rows, *, tv_bar: Optional[float] = None
+               ) -> AppendReport:
+        """Fast-path append toward Stochastic SketchRefine re-partitioning.
+
+        ``rows`` (a dict of columns or an (r, k) array in ``attrs`` order)
+        descend the layer-0 split tree in ONE batch descent on the
+        hierarchy's device; each leaf's count / per-attribute moments grow
+        incrementally, and the report lists every leaf whose total
+        variance (|P| * max_j var_j) now exceeds ``tv_bar`` (default: the
+        worst leaf at build time).  The base relation and split tree are
+        NOT rewritten here; the invalidation hooks fire with the touched
+        leaves.
+        """
+        if self.L < 1:
+            raise ValueError("hierarchy has no partition layer to append "
+                             "into")
+        if isinstance(rows, dict):
+            R = np.stack([np.asarray(rows[a], np.float64)
+                          for a in self.attrs], axis=1)
+        else:
+            R = np.atleast_2d(np.asarray(rows, np.float64))
+        if R.shape[1] != len(self.attrs):
+            raise ValueError(f"appended rows have {R.shape[1]} attrs, "
+                             f"hierarchy has {len(self.attrs)}")
+        if self._append_state is None:
+            self._append_state = self._init_append_state()
+        st = self._append_state
+        gids = self.get_group_batch(1, R, jit=True)
+        G = len(st["cnt"])
+        st["cnt"] += np.bincount(gids, minlength=G)
+        for j in range(R.shape[1]):
+            st["s1"][:, j] += np.bincount(gids, weights=R[:, j],
+                                          minlength=G)
+            st["s2"][:, j] += np.bincount(gids, weights=R[:, j] ** 2,
+                                          minlength=G)
+        bar = st["tv_bar"] if tv_bar is None else float(tv_bar)
+        nz = np.maximum(st["cnt"], 1.0)[:, None]
+        var = np.maximum(st["s2"] / nz - (st["s1"] / nz) ** 2, 0.0)
+        tv = st["cnt"] * var.max(axis=1)
+        touched = np.unique(gids)
+        for cb in self._invalidation_hooks:
+            cb(self, touched)
+        return AppendReport(gids, np.flatnonzero(tv > bar), bar)
+
+    @property
+    def leaf_counts(self) -> np.ndarray:
+        """Layer-0 leaf sizes including appended tuples."""
+        if self._append_state is not None:
+            return self._append_state["cnt"].astype(np.int64)
+        return self.layers[1].part.counts

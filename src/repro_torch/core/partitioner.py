@@ -4,13 +4,17 @@ Every backend produces the same :class:`Partition`: group ids, a
 permutation making groups contiguous slices, per-group representatives /
 bounding boxes, and a flat array split tree answering GetGroup for one
 tuple (scalar descent) or a whole batch (vectorized descent).  The tree
-and the descents are host numpy, as in the reference.
+and the host descents are numpy, as in the reference; the batch descent
+also runs on a device (``get_group_batch(T, jit=True, device=...)``: the
+kernel ``kernels/split_tree.py`` on CUDA, its plain torch version on the
+CPU), the counterpart of the reference's jitted descent.
 
 Select a backend by name::
 
     from repro_torch.core import partitioner
     part = partitioner.fit(X, backend="dlv", d_f=100, device="cuda")
-    part.get_group_batch(X[:1000])
+    part.get_group_batch(X[:1000])             # host numpy
+    part.get_group_batch(X[:1000], jit=True)   # the descent on the card
 
 The port registers the reference's three backends: ``dlv`` (the
 batched-frontier build, on the device), ``kdtree`` (the SketchRefine
@@ -24,9 +28,18 @@ on the device).  :func:`group_stats` is the reference's host pass: one
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import split_tree as split_tree_kernel
+
+# guards every SplitTree's cache of device copies: sessions share trees
+# across threads
+_DEVICE_COPIES_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------- split tree
@@ -50,6 +63,9 @@ class SplitTree:
     bounds: np.ndarray        # (B,) float64
     children: np.ndarray      # (B+N,) int64
     root: int
+    # device -> (attr, bound_off, bounds, children) uploaded once
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def num_nodes(self) -> int:
@@ -99,6 +115,32 @@ class SplitTree:
             act = act[cur[act] >= 0]
         return ~cur
 
+    def device_arrays(self, device) -> tuple:
+        """(attr, bound_off, bounds, children) as tensors on ``device``,
+        uploaded on the first call for that device and kept on the tree."""
+        dev = resolve_device(device)
+        with _DEVICE_COPIES_LOCK:
+            arrays = self._on_device.get(dev)
+            if arrays is None:
+                arrays = self._on_device[dev] = tuple(
+                    torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+                    for a, dt in ((self.attr, np.int32),
+                                  (self.bound_off, np.int64),
+                                  (self.bounds, np.float64),
+                                  (self.children, np.int64)))
+            return arrays
+
+    def descend_batch_device(self, T, device="cuda") -> torch.Tensor:
+        """Batch GetGroup on ``device``: the counterpart of the reference's
+        jitted ``descend_batch_jax``.  ``T`` (m, k) is an array or a tensor;
+        returns an (m,) int64 tensor on ``device``, equal to
+        :meth:`descend_batch`'s leaves.  On CUDA it is one launch of
+        ``csrc/split_tree.cu``."""
+        dev = resolve_device(device)
+        T = torch.as_tensor(T, dtype=torch.float64, device=dev).contiguous()
+        return split_tree_kernel.descend_batch(T, *self.device_arrays(dev),
+                                               int(self.root))
+
 
 # ----------------------------------------------------------------- Partition
 
@@ -140,12 +182,13 @@ class Partition:
     def get_group(self, t: np.ndarray) -> int:
         return self.tree.descend(np.asarray(t))
 
-    def get_group_batch(self, T: np.ndarray, *, jit: bool = False):
+    def get_group_batch(self, T: np.ndarray, *, jit: bool = False,
+                        device="cuda") -> np.ndarray:
+        """Group ids of the rows of ``T``: the host descent, or with
+        ``jit=True`` the descent on ``device`` (numpy int64 either way;
+        the reference's jitted form returns a ``jax.Array``)."""
         if jit:
-            raise NotImplementedError(
-                "the device split-tree descent (get_group_batch(jit=True)) "
-                "is not ported yet (ROADMAP queue 1, item 9: "
-                "Hierarchy.append)")
+            return self.tree.descend_batch_device(T, device).cpu().numpy()
         return self.tree.descend_batch(T)
 
 

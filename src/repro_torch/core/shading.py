@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -300,6 +300,7 @@ class PSStats:
     # came back None, plus engine-side basis validations that rejected
     # ("warm_start_rejected" LP notes)
     warm_rejected: int = 0
+    cache: str = ""          # "" | "package" | "exact" | "contained"
 
 
 def _count_warm_rejects(lp_res, stats: PSStats, report) -> None:
@@ -309,6 +310,68 @@ def _count_warm_rejects(lp_res, stats: PSStats, report) -> None:
             stats.warm_rejected += 1
             if report is not None:
                 report.warm_rejected += 1
+
+
+def _solve_from_cache(hier, query, table, hit, qcache, *, dr_q,
+                      ilp_kwargs, dr_aux, budget, report,
+                      stats: PSStats, device) -> Optional[PackageResult]:
+    """Serve a cache hit, or return None to fall back to the cold descent.
+
+    Exact hits with a stored package take the validated fast path:
+    ``check_package`` against the relation plus an objective re-compute.
+    Every other hit shortcuts to Dual Reducer over the cached layer-0
+    candidate set (the pre-prune), warm-started from the cached lp1
+    basis, its flights on ``device``; the resulting LP bound must
+    reproduce the cached bound (exact hits) or respect containment
+    monotonicity (contained hits), else the hit is abandoned.  A private
+    rng keeps the engine rng untouched so an abandoned hit leaves the
+    cold descent bit-identical to an uncached solve.
+    """
+    entry = hit.entry
+    tol = 1e-6 * max(1.0, abs(entry.lp_bound))
+    if hit.exact and qcache.reuse_packages and entry.package_idx is not None:
+        idx, mult = entry.package_idx, entry.package_mult
+        if query.check_package(table, idx, mult):
+            obj = query.objective_value(table, idx, mult)
+            if abs(obj - entry.package_obj) <= \
+                    1e-6 * max(1.0, abs(entry.package_obj)):
+                if report is not None:
+                    report.cache_pruned_lps += hier.L + 1
+                stats.cache = "package"
+                return PackageResult(True, idx.copy(), mult.copy(), obj,
+                                     entry.lp_bound,
+                                     status="ok cached=package")
+        return None
+    S0 = entry.candidates(1)
+    if S0 is None or len(S0) == 0:
+        return None
+    warm = hit.warm_for_layer0(hier, query, S0)
+    res = dual_reducer(query, table, S0, q=dr_q,
+                       rng=np.random.default_rng(0),
+                       ilp_kwargs=ilp_kwargs, aux=dr_aux, warm_start=warm,
+                       budget=budget, report=report, ladder=False,
+                       device=device)
+    if not res.feasible or res.status != "ok":
+        return None
+    if hit.exact:
+        ok = abs(res.lp_obj - entry.lp_bound) <= tol
+    else:
+        # containment monotonicity: the tightened query's bound cannot
+        # beat the cached (looser) query's bound
+        ok = res.lp_obj <= entry.lp_bound + tol if query.maximize \
+            else res.lp_obj >= entry.lp_bound - tol
+        # quality gate: a pruned solve far off its own LP bound means
+        # the cached candidate set lost support this query needed
+        gap = (res.lp_obj - res.obj) if query.maximize \
+            else (res.obj - res.lp_obj)
+        ok &= gap <= qcache.gap_accept * max(1.0, abs(res.lp_obj))
+    if not ok:
+        return None
+    if report is not None:
+        report.cache_pruned_lps += hier.L
+    stats.cache = hit.kind
+    res.status = f"ok cached={hit.kind}"
+    return res
 
 
 def progressive_shading(hier: Hierarchy, query: PackageQuery,
@@ -324,6 +387,7 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
                         lp_solver=None,
                         budget=None, report=None,
                         ladder: bool = True,
+                        qcache=None,
                         device="cuda") -> PackageResult:
     """Algorithm 1: iterate Shading from layer L to 0, then Dual Reducer.
 
@@ -340,70 +404,152 @@ def progressive_shading(hier: Hierarchy, query: PackageQuery,
     candidate set is rebuilt at double α from the layer-1 support and
     Dual Reducer retried (``dr_alpha_escalation``).  ``device`` (default
     ``"cuda"``) is where batched LP flights run (the Dual Reducer's rungs,
-    B&B waves).  The reference's cross-query cache is not ported yet.
+    B&B waves).
+
+    Cross-query cache (``qcache``: a :class:`repro_torch.core.qcache.
+    QCache`): consult-before-descend -- a hit serves a validated cached
+    package (exact) or shortcuts to Dual Reducer over the cached layer-0
+    candidate set (exact/contained); a hit that fails validation records
+    a ``cache_fallback`` rung and descends cold, consulting cached
+    per-layer bases where the candidate sets still match exactly.
+    Populate-after-solve -- a clean, non-degraded cold solve stores its
+    per-layer candidate sets, LP bases and final package.
     """
     t0 = time.time()
     alpha = alpha or hier.alpha
     stats = PSStats()
-    S = np.arange(hier.layers[hier.L].size)
-    sizes = [len(S)]
-    warm = None
-    support = None      # previous layer's surviving support (widening)
-    for l in range(hier.L, 0, -1):
-        skip = budget is not None and budget.start().exhausted()
-        if skip and report is not None:
-            report.rung("budget_descend", degrades=True,
-                        detail=f"layer {l}: LP skipped")
-        widen = None
-        if l < hier.L and support is not None and len(support):
-            widen = (lambda f, _s=support, _l=l + 1:
-                     neighbor_sampling(hier, _l, f * alpha, _s,
-                                       query.objective_attr,
-                                       query.maximize))
-        S_next, lp_res, S_used, support = shading(
-            hier, l, alpha, S, query, layer_solver=layer_solver,
-            sampler=sampler, rng=rng, warm_start=warm,
-            return_state=True, lp_solver=lp_solver, budget=budget,
-            report=report, widen=widen, ladder=ladder, skip_lp=skip,
-            device=device)
-        if lp_res is not None:
-            stats.lp_iters += int(lp_res.iters)
-            _count_warm_rejects(lp_res, stats, report)
-        warm = map_warm_basis(hier, l, S_used, lp_res, S_next,
-                              obj_attr=query.objective_attr) \
-            if warm_starts else None
-        if warm_starts and lp_res is not None \
-                and lp_res.status == OPTIMAL and warm is None:
-            stats.warm_rejected += 1
+    fp = sig = hit = None
+    owner = False
+    if qcache is not None:
+        fp = qcache.register(hier)
+        sig = query.signature()
+        # Consult loop (at most two probes): a miss claims the populate
+        # for this key; if another session already owns the same cold
+        # solve, wait for it and re-probe -- the waiter then usually
+        # takes the freshly stored entry as a hit instead of running a
+        # duplicate descent.  Single-threaded this is exactly one probe
+        # and an immediate claim.
+        for _attempt in (0, 1):
+            hit = qcache.lookup(fp, sig)
             if report is not None:
-                report.warm_rejected += 1
-                report.note(f"warm_map_rejected: layer {l}")
-        S = S_next
-        sizes.append(len(S))
-    res = dual_reducer(query, table, S, q=dr_q, rng=rng,
-                       ilp_kwargs=ilp_kwargs, aux=dr_aux,
-                       warm_start=warm, budget=budget, report=report,
-                       ladder=ladder, device=device)
-    if not res.feasible and ladder and support is not None \
-            and len(support) and not (budget is not None
-                                      and budget.exhausted()):
-        # α escalation at layer 0: rebuild the candidate set at double
-        # width from the layer-1 support and retry Dual Reducer cold
-        S_wide = neighbor_sampling(hier, 1, 2 * alpha, support,
-                                   query.objective_attr, query.maximize)
-        if len(S_wide) > len(S):
-            if report is not None:
-                report.rung("dr_alpha_escalation",
-                            detail=f"|S| {len(S)} -> {len(S_wide)}")
-            res2 = dual_reducer(query, table, S_wide, q=dr_q, rng=rng,
-                                ilp_kwargs=ilp_kwargs, aux=dr_aux,
-                                budget=budget, report=report,
-                                ladder=ladder, device=device)
-            if res2.feasible:
-                res = res2
-                sizes[-1] = len(S_wide)
-    res.status += f" layers={sizes}"
-    stats.layer_sizes = sizes
-    stats.time_s = time.time() - t0
-    res.ps_stats = stats
-    return res
+                if hit is not None:
+                    report.cache_hits += 1
+                else:
+                    report.cache_misses += 1
+            if hit is not None:
+                res = _solve_from_cache(hier, query, table, hit, qcache,
+                                        dr_q=dr_q, ilp_kwargs=ilp_kwargs,
+                                        dr_aux=dr_aux, budget=budget,
+                                        report=report, stats=stats,
+                                        device=device)
+                if res is not None:
+                    stats.time_s = time.time() - t0
+                    res.ps_stats = stats
+                    return res
+                qcache.note_fallback()
+                if report is not None:
+                    report.rung("cache_fallback",
+                                detail=f"{hit.kind} hit abandoned")
+                break
+            if qcache.begin_populate(fp, sig):
+                owner = True
+                break
+            qcache.wait_populate(fp, sig)
+    try:
+        entry = hit.entry if hit is not None else None
+        S = np.arange(hier.layers[hier.L].size)
+        sizes = [len(S)]
+        warm = None
+        support = None      # previous layer's surviving support (widening)
+        art_cands: Dict[int, np.ndarray] = {}
+        art_layers: Dict[int, tuple] = {}
+        for l in range(hier.L, 0, -1):
+            skip = budget is not None and budget.start().exhausted()
+            if skip and report is not None:
+                report.rung("budget_descend", degrades=True,
+                            detail=f"layer {l}: LP skipped")
+            widen = None
+            if l < hier.L and support is not None and len(support):
+                widen = (lambda f, _s=support, _l=l + 1:
+                         neighbor_sampling(hier, _l, f * alpha, _s,
+                                           query.objective_attr,
+                                           query.maximize))
+            if warm is None and warm_starts and entry is not None:
+                # consult-before-descend: the abandoned hit's same-layer
+                # basis still warm-starts this LP when the candidate
+                # columns match exactly (warm starts never change answers)
+                state = entry.layer_warms.get(l)
+                if state is not None and np.array_equal(
+                        np.asarray(state[0]), np.asarray(S)):
+                    warm = WarmStart(state[1].copy(), state[2].copy())
+            S_next, lp_res, S_used, support = shading(
+                hier, l, alpha, S, query, layer_solver=layer_solver,
+                sampler=sampler, rng=rng, warm_start=warm,
+                return_state=True, lp_solver=lp_solver, budget=budget,
+                report=report, widen=widen, ladder=ladder, skip_lp=skip,
+                device=device)
+            if lp_res is not None:
+                stats.lp_iters += int(lp_res.iters)
+                _count_warm_rejects(lp_res, stats, report)
+                if lp_res.status == OPTIMAL:
+                    art_layers[l] = (S_used, lp_res.basis, lp_res.at_upper,
+                                     lp_res.obj)
+            art_cands[l] = S_next
+            warm = map_warm_basis(hier, l, S_used, lp_res, S_next,
+                                  obj_attr=query.objective_attr) \
+                if warm_starts else None
+            if warm_starts and lp_res is not None \
+                    and lp_res.status == OPTIMAL and warm is None:
+                stats.warm_rejected += 1
+                if report is not None:
+                    report.warm_rejected += 1
+                    report.note(f"warm_map_rejected: layer {l}")
+            S = S_next
+            sizes.append(len(S))
+        if warm is None and warm_starts and entry is not None \
+                and entry.dr_warm is not None:
+            S0c = entry.candidates(1)
+            if S0c is not None and np.array_equal(S0c, np.asarray(S)):
+                warm = entry.dr_warm_start()
+        res = dual_reducer(query, table, S, q=dr_q, rng=rng,
+                           ilp_kwargs=ilp_kwargs, aux=dr_aux,
+                           warm_start=warm, budget=budget, report=report,
+                           ladder=ladder, device=device)
+        if not res.feasible and ladder and support is not None \
+                and len(support) and not (budget is not None
+                                          and budget.exhausted()):
+            # α escalation at layer 0: rebuild the candidate set at double
+            # width from the layer-1 support and retry Dual Reducer cold
+            S_wide = neighbor_sampling(hier, 1, 2 * alpha, support,
+                                       query.objective_attr, query.maximize)
+            if len(S_wide) > len(S):
+                if report is not None:
+                    report.rung("dr_alpha_escalation",
+                                detail=f"|S| {len(S)} -> {len(S_wide)}")
+                res2 = dual_reducer(query, table, S_wide, q=dr_q, rng=rng,
+                                    ilp_kwargs=ilp_kwargs, aux=dr_aux,
+                                    budget=budget, report=report,
+                                    ladder=ladder, device=device)
+                if res2.feasible:
+                    res = res2
+                    sizes[-1] = len(S_wide)
+                    art_cands[1] = S_wide
+        if qcache is not None and res.feasible and res.status == "ok" \
+                and (report is None or not report.degraded):
+            # populate-after-solve: only clean, full-quality solves seed
+            # the cache (degraded/truncated artifacts would poison reuse)
+            qcache.store(fp, sig, hier=hier, cands=art_cands,
+                         layer_warms=art_layers, dr_warm=res.lp_warm,
+                         lp_bound=res.lp_obj,
+                         package=(res.idx, res.mult, res.obj))
+        res.status += f" layers={sizes}"
+        stats.layer_sizes = sizes
+        stats.time_s = time.time() - t0
+        res.ps_stats = stats
+        return res
+    finally:
+        # release the populate claim whether or not the solve stored
+        # (waiters re-probe; a failed solve hands the key to the next
+        # session)
+        if owner:
+            qcache.end_populate(fp, sig)

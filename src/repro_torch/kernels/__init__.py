@@ -8,11 +8,12 @@ kernel launch.  Importing builds nothing: ``nvcc`` runs on first use.
 from __future__ import annotations
 
 from repro_torch.kernels import (attention, bfrt, dlv_scan, lp_batch,
-                                 pricing, segstats)
+                                 pricing, segstats, split_tree)
 
 KERNELS = {"pricing": pricing, "bfrt_histogram": bfrt,
            "segment_stats": segstats, "dlv_scan": dlv_scan,
-           "flash_attention": attention, "lp_batch": lp_batch}
+           "flash_attention": attention, "lp_batch": lp_batch,
+           "split_tree_descent": split_tree}
 
 
 def reset_launches() -> None:

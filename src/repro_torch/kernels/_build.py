@@ -33,16 +33,18 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # or their rounding (and therefore a cut placed near beta) moves, nor
 # segment stats, or its torch mirror could not match it bit for bit, nor
 # the batched LP engine, whose BFRT running sum rounds as numpy's does;
-# flash, the scan, segment stats and the BFRT select keep ptxas's report
-# of registers, shared memory and spills (build_log)
+# flash, the scan, segment stats, the BFRT select and the split-tree
+# descent keep ptxas's report of registers, shared memory and spills
+# (build_log)
 EXTRA_FLAGS = {"pricing": ("-fmad=false",),
                "lp_batch": ("-fmad=false", "-Xptxas", "-v"),
                "bfrt": ("-Xptxas", "-v"),
                "segstats": ("-fmad=false", "-Xptxas", "-v"),
                "dlv_scan": ("-fmad=false", "-Xptxas", "-v"),
-               "flash_attn": ("-Xptxas", "-v")}
+               "flash_attn": ("-Xptxas", "-v"),
+               "split_tree": ("-Xptxas", "-v")}
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn",
-           "lp_batch")
+           "lp_batch", "split_tree")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

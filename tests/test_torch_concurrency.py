@@ -1,15 +1,21 @@
-"""The port's race harness (``repro_torch.runtime.racecheck``) and its
-``BoundedStepCache`` (``repro_torch.core.distributed``), held to the
-reference's cases (``tests/test_concurrency.py``) with the same seeds and
-schedules: a pinned known-bad schedule reproduces the duplicate-build
-race on an unlocked cache double, the serial schedule does not, every
-seed replays exactly; the step cache builds each key once under a
-preemptive hammer and under every seeded schedule; the instrumented lock
-counts and the controller detects a self-deadlock.  Where the reference's
-harness gives a trace for the same seed, the port's gives the same one.
+"""The port's race harness (``repro_torch.runtime.racecheck``), its
+``BoundedStepCache`` (``repro_torch.core.distributed``) and its
+``QCache`` (``repro_torch.core.qcache``), held to the reference's cases
+(``tests/test_concurrency.py``) with the same seeds and schedules: a
+pinned known-bad schedule reproduces the duplicate-build race on an
+unlocked cache double, the serial schedule does not, every seed replays
+exactly; the step cache builds each key once under a preemptive hammer
+and under every seeded schedule; the query cache's claim protocol runs
+one cold solve per key under every seeded schedule; the instrumented
+lock counts and the controller detects a self-deadlock; concurrent
+engine sessions over one shared cache return the packages of sequential
+solves.  Where the reference's harness gives a trace for the same seed,
+the port's gives the same one.
 """
 import threading
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 from repro.runtime import racecheck as ref_racecheck
@@ -328,3 +334,180 @@ def test_lane_solver_call_is_atomic_under_schedules(monkeypatch):
             (lambda i=i: solver(*kept[i][1:4])) for i in range(2)])
         overlapped.append(inside["most"])
     assert max(overlapped) == 2
+
+
+# --------------------------------------------------------- the QCache
+
+
+class _FakeHier:
+    """Just enough hierarchy for QCache.store: a fingerprint, layer-1
+    group ids, and a no-op invalidation hook."""
+
+    def __init__(self, fingerprint="fp0"):
+        self.fingerprint = fingerprint
+        self.layers = {1: SimpleNamespace(
+            part=SimpleNamespace(gid=np.zeros(64, np.int64)))}
+
+    def add_invalidation_hook(self, fn):
+        pass
+
+
+class _Sig:
+    def __init__(self, tag):
+        self.tag = tag
+
+    def __hash__(self):
+        return hash(self.tag)
+
+    def __eq__(self, other):
+        return isinstance(other, _Sig) and self.tag == other.tag
+
+    def contained_in(self, other):
+        return self == other
+
+
+def _qcache_case(QCache, n_threads=3):
+    qc = QCache()
+    hier = _FakeHier()
+    sig = _Sig("q")
+    solves = []
+
+    def body():
+        def solve():
+            solves.append(1)
+            qc.store("fp0", sig, hier=hier, cands={1: np.arange(8)},
+                     layer_warms={}, dr_warm=None, lp_bound=1.0)
+            return "cold"
+
+        kind, _val = qc.get_or_populate("fp0", sig, solve)
+        return kind
+
+    return qc, solves, [body] * n_threads
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_qcache_get_or_populate_atomic_under_schedule(seed):
+    """The claim protocol: every seeded interleaving runs exactly ONE cold
+    solve and every other session takes the hit; the interleaving and
+    the counters are the reference's for the same seed."""
+    from repro.core.qcache import QCache as RefQCache
+    from repro_torch.core.qcache import QCache
+    qc, solves, fns = _qcache_case(QCache)
+    ctl = ScheduleController(seed=seed)
+    kinds = ctl.run(fns, timeout_s=30)
+    assert sum(solves) == 1, f"seed {seed}: duplicate cold solve"
+    assert sorted(kinds) == ["hit", "hit", "solved"]
+    assert len(qc) == 1
+    st = qc.stats_snapshot()
+    assert st.stores == 1 and st.hits >= 2
+    ref_qc, ref_solves, ref_fns = _qcache_case(RefQCache)
+    ref_ctl = ref_racecheck.ScheduleController(seed=seed)
+    assert ref_ctl.run(ref_fns, timeout_s=30) == kinds
+    assert ref_ctl.trace == ctl.trace
+    assert ref_qc.stats_snapshot().as_dict() == st.as_dict()
+
+
+def test_qcache_populate_protocol_single_thread():
+    from repro_torch.core.qcache import QCache
+    qc = QCache()
+    sig = _Sig("a")
+    assert qc.begin_populate("fp", sig) is True
+    assert qc.begin_populate("fp", sig) is False      # already claimed
+    assert qc.wait_populate("fp", sig, timeout=0.01) is False
+    qc.end_populate("fp", sig)
+    assert qc.wait_populate("fp", sig, timeout=0.01) is True
+    assert qc.begin_populate("fp", sig) is True       # claim reusable
+    qc.end_populate("fp", sig)
+
+
+def test_qcache_failed_solve_releases_claim():
+    from repro_torch.core.qcache import QCache
+    qc, _solves, _fns = _qcache_case(QCache)
+    sig = _Sig("q")
+
+    def boom():
+        raise RuntimeError("cold solve died")
+
+    with pytest.raises(RuntimeError):
+        qc.get_or_populate("fp0", sig, boom)
+    # the claim is released: the next caller becomes the owner
+    assert qc.begin_populate("fp0", sig) is True
+    qc.end_populate("fp0", sig)
+
+
+def test_qcache_lock_stats_counters():
+    from repro_torch.core.qcache import QCache
+    qc, _solves, fns = _qcache_case(QCache)
+    ScheduleController(seed=3).run(fns)
+    ls = qc.lock_stats()
+    assert ls["name"] == "qcache"
+    assert ls["acquisitions"] > 0
+    assert ls["wait_s"] >= 0.0 and ls["hold_s"] >= 0.0
+
+
+# ------------------------------------------- sessions over one shared cache
+
+
+def _pkg(res):
+    order = np.argsort(res.idx, kind="stable")
+    return np.asarray(res.idx)[order], np.asarray(res.mult)[order]
+
+
+def test_engine_concurrent_sessions_match_sequential():
+    """Concurrent sessions over ONE shared engine + QCache return the same
+    packages as sequential solves of the same queries, which are the
+    reference's."""
+    from repro.core.engine import PackageQueryEngine as RefEngine
+    from repro.core import hardness as ref_hardness
+    from repro.core.qcache import QCache as RefQCache
+    from repro_torch.core import hardness
+    from repro_torch.core.engine import PackageQueryEngine
+    from repro_torch.core.qcache import QCache
+    from repro_torch.data.synth_tables import make_table
+    attrs = ["price", "quantity", "discount", "tax"]
+    ilp_kw = dict(max_nodes=200, time_limit_s=15)
+    table = make_table("tpch", 4_000, seed=1)
+
+    def queries(hd):
+        stats = hd.column_stats(table, attrs)
+        return [hd.instantiate(hd.Q2_TPCH, stats, 2.0),
+                hd.instantiate(hd.Q4_TPCH, stats, 2.0)]
+
+    def build():
+        return PackageQueryEngine(table, attrs, d_f=20, alpha=600, seed=0,
+                                  cache=QCache(), device="cpu").partition()
+
+    qs = queries(hardness)
+    seq = build()
+    baseline = [seq.session(seed=100 + i).solve(q, ilp_kwargs=ilp_kw)
+                for i, q in enumerate(qs)]
+    assert all(r.feasible for r in baseline)
+    ref = RefEngine(table, attrs, d_f=20, alpha=600, seed=0,
+                    cache=RefQCache()).partition()
+    for i, q in enumerate(queries(ref_hardness)):
+        want = ref.session(seed=100 + i).solve(q, ilp_kwargs=ilp_kw)
+        for got, w in zip(_pkg(baseline[i]), _pkg(want)):
+            assert np.array_equal(got, w)
+
+    conc = build()
+
+    def body(i):
+        def run():
+            # two sessions per query, same seeds as the baseline pass
+            return conc.session(seed=100 + (i % 2)).solve(
+                qs[i % 2], ilp_kwargs=ilp_kw)
+
+        return run
+
+    results = run_threads([body(i) for i in range(4)], timeout_s=300)
+    for i, res in enumerate(results):
+        assert res.feasible, f"thread {i} infeasible: {res.status}"
+        want_idx, want_mult = _pkg(baseline[i % 2])
+        got_idx, got_mult = _pkg(res)
+        assert np.array_equal(got_idx, want_idx)
+        assert np.array_equal(got_mult, want_mult)
+        # same package, so obj may differ only by summation order
+        assert np.isclose(res.obj, baseline[i % 2].obj, rtol=1e-12)
+    st = conc.cache.stats_snapshot()
+    assert st.stores >= 1
+    assert st.hits + st.misses >= len(results)

@@ -1081,3 +1081,101 @@ def test_lp_batch_both_paths_on_the_bnb_flights(dev):
         bad, _, _ = lp_batch.lane_mismatches(other(cf, Ad, pack), warp,
                                              pack, solver.m_pad)
         assert not bad, bad
+
+
+# ------------------------------------------------------ split-tree descent
+
+
+def _tree_cases():
+    """(name, partition, data) for every backend's tree, the bound-less
+    merged tree and a single leaf (built on the CPU: the trees are host
+    numpy)."""
+    from repro_torch.core import partitioner
+    rng = np.random.default_rng(7)
+    X = np.concatenate([rng.normal(0, 1, (20_000, 3)),
+                        rng.normal(7, 2, (20_000, 3))]) * [1.0, 4.0, 0.3]
+    merged = np.full((3000, 2), 5.0)
+    return [("dlv", partitioner.fit(X, backend="dlv", d_f=60,
+                                    device="cpu"), X),
+            ("kdtree", partitioner.fit(X, backend="kdtree", d_f=60,
+                                       device="cpu"), X),
+            ("bucketing", partitioner.fit(X, backend="bucketing", d_f=60,
+                                          memory_rows=8000, device="cpu"),
+             X),
+            ("merged", partitioner.fit(merged, backend="bucketing",
+                                       device="cpu"), merged),
+            ("single", partitioner.fit(X[:50], backend="kdtree", tau=10**6,
+                                       device="cpu"), X[:50])]
+
+
+def test_split_tree_kernel_is_its_plain_version(dev):
+    """Member rows, ties on the bounds, probes outside every box and NaN
+    rows: the kernel's leaves equal the plain version's on the card and
+    the host descent's, one launch a call."""
+    from repro_torch.kernels import split_tree
+    rng = np.random.default_rng(1)
+    for name, part, data in _tree_cases():
+        n, k = data.shape
+        probes = [data, data[rng.choice(n, 5000)]]
+        if len(part.tree.bounds):
+            ties = data[rng.choice(n, 2000)].copy()
+            for j in range(k):
+                ties[:, j] = rng.choice(part.tree.bounds, len(ties))
+            probes.append(ties)
+        span = data.max(0) - data.min(0) + 1.0
+        probes.append(data.max(0) + span * rng.uniform(1, 9, (1000, k)))
+        probes.append(data.min(0) - span * rng.uniform(1, 9, (1000, k)))
+        nan = data[rng.choice(n, 1000)].copy()
+        nan[np.arange(1000), rng.integers(0, k, 1000)] = np.nan
+        probes.append(nan)
+        arrays = part.tree.device_arrays(dev)
+        for T in probes:
+            Td = torch.as_tensor(T, device=dev)
+            before = split_tree.launches
+            got = split_tree.descend_batch(Td, *arrays, int(part.tree.root))
+            torch.cuda.synchronize()
+            assert split_tree.launches == before + 1, name
+            want = split_tree.descend_batch_plain(Td, *arrays,
+                                                  int(part.tree.root))
+            assert torch.equal(got, want), name
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          part.tree.descend_batch(T),
+                                          err_msg=name)
+        np.testing.assert_array_equal(
+            part.get_group_batch(data, jit=True, device=dev), part.gid,
+            err_msg=name)
+
+
+def test_split_tree_kernel_rejects_bad_inputs(dev):
+    from repro_torch.kernels import split_tree
+    _, part, data = _tree_cases()[1]
+    attr, off, bounds, children = part.tree.device_arrays(dev)
+    T = torch.as_tensor(data[:100], device=dev)
+    root = int(part.tree.root)
+    for bad in ((T.float(), attr, off, bounds, children),
+                (T.t(), attr, off, bounds, children),
+                (T, attr.long(), off, bounds, children),
+                (T, attr, off[:-1], bounds, children),
+                (T, attr, off, bounds.float(), children),
+                (T, attr, off, bounds, children[:-1]),
+                (T, attr.cpu(), off, bounds, children)):
+        with pytest.raises(ValueError):
+            split_tree.descend_batch(*bad, root)
+    got = split_tree.descend_batch(T[:0], attr, off, bounds, children, root)
+    assert got.shape == (0,) and got.dtype == torch.int64
+
+
+def test_append_descends_through_the_kernel_once(dev):
+    """``Hierarchy.append`` on a card: one launch of the descent, the
+    host descent's gids."""
+    from repro_torch.core.hierarchy import Hierarchy
+    from repro_torch.kernels import split_tree
+    rng = np.random.default_rng(0)
+    table = {"a": rng.normal(size=20_000), "b": rng.uniform(0, 5, 20_000)}
+    h = Hierarchy(table, ["a", "b"], d_f=20, alpha=500, device=dev)
+    rows = np.stack([rng.normal(size=300), rng.uniform(0, 5, 300)], 1)
+    before = split_tree.launches
+    rep = h.append(rows)
+    assert split_tree.launches == before + 1
+    np.testing.assert_array_equal(rep.gids,
+                                  h.layers[1].part.tree.descend_batch(rows))

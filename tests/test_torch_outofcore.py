@@ -230,3 +230,77 @@ def test_streamed_entry_points_raise_without_cuda(entry, npy, table):
                                                    alpha=1500)}
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
+
+
+# ------------------------------------------------------------- appends
+
+
+def _hierarchies(source, npy, table):
+    """(reference, port) hierarchies over a dict or a memmap."""
+    if source == "dict":
+        return (RefHierarchy(table, ATTRS, d_f=20, alpha=1500),
+                Hierarchy(table, ATTRS, d_f=20, alpha=1500, device="cpu"))
+    kw = dict(d_f=20, alpha=1500, memory_rows=6000, chunk_rows=3000)
+    return (RefHierarchy(ref_relation.MemmapRelation.from_npy(
+                npy, ATTRS, chunk_rows=4000), ATTRS, **kw),
+            Hierarchy(relation.MemmapRelation.from_npy(
+                npy, ATTRS, chunk_rows=4000), ATTRS, device="cpu", **kw))
+
+
+def _same_report(got, want):
+    np.testing.assert_array_equal(got.gids, want.gids)
+    np.testing.assert_array_equal(got.flagged, want.flagged)
+    assert got.tv_bar == want.tv_bar
+
+
+@pytest.mark.parametrize("source", ["dict", "memmap"])
+def test_append_lands_in_rebuild_groups(source, npy, table):
+    """Appended copies of existing tuples land in exactly the group a full
+    (deterministic) rebuild assigns them, with the reference's report and
+    leaf counts; the moments' pass streams the memmap."""
+    ref, port = _hierarchies(source, npy, table)
+    X = np.stack([table[a] for a in ATTRS], axis=1)
+    idx = np.random.default_rng(3).choice(N, 300, replace=False)
+    want, got = ref.append(X[idx]), port.append(X[idx])
+    _same_report(got, want)
+    np.testing.assert_array_equal(got.gids, port.layers[1].part.gid[idx])
+    assert port.leaf_counts.sum() == N + 300
+    np.testing.assert_array_equal(port.leaf_counts, ref.leaf_counts)
+    grown = port.leaf_counts - port.layers[1].part.counts
+    np.testing.assert_array_equal(
+        grown, np.bincount(got.gids, minlength=len(grown)))
+    for key in ("cnt", "s1", "s2"):
+        np.testing.assert_array_equal(port._append_state[key],
+                                      ref._append_state[key])
+
+
+@pytest.mark.parametrize("source", ["dict", "memmap"])
+def test_append_flags_variance_crossing_leaves(source, npy, table):
+    ref, port = _hierarchies(source, npy, table)
+    X = np.stack([table[a] for a in ATTRS], axis=1)
+    # a wide blob centred on one tuple blows up its leaf's variance
+    blob = X[100] + np.random.default_rng(4).normal(0, 8.0, (4000, 2))
+    want, got = ref.append(blob), port.append(blob)
+    _same_report(got, want)
+    assert len(got.flagged) > 0 and got.tv_bar > 0
+    st = port._append_state
+    nz = np.maximum(st["cnt"], 1.0)[:, None]
+    var = np.maximum(st["s2"] / nz - (st["s1"] / nz) ** 2, 0.0)
+    tv = st["cnt"] * var.max(axis=1)
+    assert np.all(tv[got.flagged] > got.tv_bar)
+
+
+def test_append_over_streamed_relation(npy):
+    """The reference's streamed case: rows gathered from the memmap land
+    in their own leaves."""
+    kw = dict(d_f=20, alpha=1500, memory_rows=6000, chunk_rows=3000)
+    rel = relation.MemmapRelation.from_npy(npy, ATTRS, chunk_rows=4000)
+    hier = Hierarchy(rel, ATTRS, device="cpu", **kw)
+    rows = rel.gather_matrix(np.arange(50), ATTRS)
+    rep = hier.append(rows)             # moments init streams the relation
+    np.testing.assert_array_equal(rep.gids, hier.layers[1].part.gid[:50])
+    assert hier.leaf_counts.sum() == N + 50
+    ref = RefHierarchy(ref_relation.MemmapRelation.from_npy(
+        npy, ATTRS, chunk_rows=4000), ATTRS, **kw)
+    _same_report(rep, ref.append(ref.relation.gather_matrix(np.arange(50),
+                                                            ATTRS)))
