@@ -68,13 +68,19 @@ package.  Phases, one line each (or one per kernel):
    and four rungs of its h=3 Dual Reducer LP (its candidate set, warm
    from its lp1);
 5c. kernel split_tree_descent: the descent kernel (``csrc/split_tree.cu``,
-   one thread a row) on the full cell's 10M layer-0 rows down layer 1's
-   tree (equal to ``part.gid``), on layer 2's tree over its reps, on a
-   KD-tree and a bucketing partition of a 1M-row slice, on the bound-less
-   merged single-bucket tree, on a single leaf and on 100,000 probes
-   outside every box plus NaN rows; each exactly equal to the plain
-   version on the card and the host descent, with ms, plain ms, bound and
-   the host descent's seconds ("kernel split_tree_descent[...]");
+   one thread a row over the packed layout of
+   ``kernels/split_tree.py::pack_tree``) on the full cell's 10M layer-0
+   rows down layer 1's tree (equal to ``part.gid``), on 100,000 rows whose
+   values are that tree's bounds (ties), on layer 2's tree over its reps,
+   on a KD-tree and a bucketing partition of a 1M-row slice, on the
+   bound-less merged single-bucket tree, on a single leaf and on 100,000
+   probes outside every box plus NaN rows; each exactly equal to the plain
+   version and the packed mirror on the card and the host descent, with
+   ms (CUDA events), the kernel's device ms over 21 calls (median, min,
+   max), plain ms, bound, the staging the wrapper chose, the host
+   descent's seconds, and the same times of the kernel it replaced
+   (``csrc/split_tree_bisect.cu``, built and timed in this run on the
+   same rows: ``bisection_*``) ("kernel split_tree_descent[...]");
 5d. cache: the reference benchmark's flight (``benchmarks/cache_bench.py``)
    on the full cell through the device LP: Q2_TPCH h=2 cold, then
    repeated (a ``cached=package`` hit), tightened to h=3 (``cached=
@@ -87,7 +93,8 @@ package.  Phases, one line each (or one per kernel):
    fresh rows (one descent launch, gids equal to the host descent's, the
    removed groups equal to the touched ancestry layer by layer; "cache
    append": the append state's seconds, the append wall, the descent's
-   ms, touched, flagged and invalidated counts), a stale miss equal to
+   ms beside the replaced kernel's on the same rows, touched, flagged and
+   invalidated counts), a stale miss equal to
    the uncached answer and a ``cached=package`` hit again;
 
 The streamed (out-of-core) path:
@@ -1779,6 +1786,9 @@ def phase_lp_batch(eng, table, q3, q5, alpha, device):
 CACHE_FLIGHT = dict(prime=2.0, tight=3.0, wide=1.0)
 APPEND_FRESH = 100_000    # fresh rows appended (make_table seed 2)
 
+DESCENT_CALLS = 21        # calls timed: back to back by events, each by
+                          # the profiler (a median and its spread)
+
 
 def descent_compares(tree, Td) -> int:
     """The float64 comparisons the descent of the rows ``Td`` makes on
@@ -1809,52 +1819,142 @@ def descent_compares(tree, Td) -> int:
     return total
 
 
-def descent_check(tag: str, tree, T, dev, want=None, reps: int = 10):
-    """The descent kernel on the rows ``T`` (numpy, (m, k)) against its
-    plain version on the card and the host descent, and against ``want``
-    (the rows' own group ids) where given; exact.  Prints a line "kernel
-    split_tree_descent[tag]"; returns (mismatches, numbers)."""
+def descent_times(call, kernel: str) -> dict:
+    """``call()`` timed: ms per call by CUDA events over DESCENT_CALLS
+    back-to-back calls (host launch gaps included), and the device ms per
+    call of the kernel named ``kernel`` from the profiler over as many
+    calls: median, min and max ("not measured" where the profiler records
+    no such kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ms = timed_ms(call, DESCENT_CALLS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DESCENT_CALLS):
+            call()
+        torch.cuda.synchronize()
+    us = []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and \
+                ev.name.split("(")[0].split("<")[0].replace(
+                    "void ", "") == kernel:
+            us.append(getattr(ev, "self_device_time_total", 0.0)
+                      or ev.time_range.elapsed_us())
+    if not us:
+        return {"ms": ms, "device_ms": "not measured"}
+    us = np.sort(np.asarray(us, np.float64)) / 1e3
+    return {"ms": ms, "device_ms": float(np.median(us)),
+            "device_ms_min": float(us[0]), "device_ms_max": float(us[-1]),
+            "device_calls": len(us)}
+
+
+def descent_vs_bisection(Td, packed, want) -> dict:
+    """The descent kernel and the kernel it replaced (one thread a row
+    bisecting the tree's own arrays, ``descend_batch_bisect``) timed on
+    the rows ``Td`` in this run, one after the other; the replaced
+    kernel's leaves must equal ``want`` too.  Its numbers carry the prefix
+    ``bisection_``."""
     import torch
     from repro_torch.kernels import split_tree
-    arrays = tree.device_arrays(dev)
-    root = int(tree.root)
+    check(torch.equal(split_tree.descend_batch_bisect(Td, packed), want),
+          "split_tree_bisect: the replaced kernel's leaves differ from the "
+          "plain version's")
+    new = descent_times(lambda: split_tree.descend_batch(Td, packed),
+                        "split_tree_descend")
+    old = descent_times(lambda: split_tree.descend_batch_bisect(Td, packed),
+                        "split_tree_bisect")
+    return {**new, **{f"bisection_{k}": v for k, v in old.items()}}
+
+
+def descent_check(tag: str, tree, T, dev, want=None):
+    """The descent kernel on the rows ``T`` (numpy, (m, k)) against its
+    plain version and its packed mirror on the card and the host descent,
+    and against ``want`` (the rows' own group ids) where given; exact.
+    Prints a line "kernel split_tree_descent[tag]" with the staging the
+    wrapper chose and the replaced kernel's time; returns (mismatches,
+    numbers)."""
+    import torch
+    from repro_torch.kernels import split_tree
+    packed = tree.device_packed(dev)
     Td = torch.as_tensor(np.ascontiguousarray(T, np.float64), device=dev)
     before = split_tree.launches
-    got = split_tree.descend_batch(Td, *arrays, root)
+    got = split_tree.descend_batch(Td, packed)
     torch.cuda.synchronize()
     check(split_tree.launches == before + 1,
           f"split_tree_descent[{tag}]: {split_tree.launches - before} "
           "launches for one call")
-    plain = split_tree.descend_batch_plain(Td, *arrays, root)
+    plain = split_tree.descend_batch_plain(Td, *packed.arrays, packed.root)
+    mirror = split_tree.descend_batch_packed_plain(Td, packed)
     t0 = time.perf_counter()
     host = tree.descend_batch(T)
     host_s = time.perf_counter() - t0
     got_np = got.cpu().numpy()
-    bad = int((got != plain).sum()) + int((got_np != host).sum())
+    bad = int((got != plain).sum()) + int((got != mirror).sum()) \
+        + int((got_np != host).sum())
     if want is not None:
         bad += int((got_np != want).sum())
     check(bad == 0, f"split_tree_descent[{tag}]: {bad} leaves differ from "
-          "the plain version, the host descent or the rows' own groups")
-    ms = timed_ms(lambda: split_tree.descend_batch(Td, *arrays, root), reps)
+          "the plain version, the packed mirror, the host descent or the "
+          "rows' own groups")
+    times = descent_vs_bisection(Td, packed, plain)
     plain_ms = timed_ms(lambda: split_tree.descend_batch_plain(
-        Td, *arrays, root), 1, warm=0)
+        Td, *packed.arrays, packed.root), 1, warm=0)
     m, k = Td.shape
+    p = packed.staged
     nums = _numbers(f"{m}x{k}", m * k * 8 + m * 8,
-                    descent_compares(tree, Td), ms, plain_ms,
-                    nodes=tree.num_nodes, bounds=len(tree.bounds),
+                    descent_compares(tree, Td), times.pop("ms"), plain_ms,
+                    **times, staging=p.staging, staged_bytes=p.smem,
+                    nodes=tree.num_nodes,
+                    bounds=len(tree.bounds), fences=packed.fences.numel(),
+                    lines=packed.lines.shape[0], depth=packed.depth,
                     host_descend_s=host_s)
     say(f"kernel split_tree_descent[{tag}]", mismatches=bad,
         vs_gid=want is not None, **nums)
     return bad, nums
 
 
+def tie_probes(tree, X, n: int, rng):
+    """``n`` rows whose value at a node is one of the node's bounds: each
+    row picks a bound at random, takes the route to its node (at each
+    ancestor the bound below the child it enters: a tie there too, unless
+    a deeper node on the route splits the same attribute) and then holds
+    that bound in the node's attribute; other attributes from rows of
+    ``X``."""
+    N = tree.num_nodes
+    off = tree.bound_off
+    starts = off[:-1] + np.arange(N)                # each node's first child
+    at = np.flatnonzero(tree.children >= 0)
+    kid = tree.children[at]
+    parent = np.full(N, -1)
+    pos = np.zeros(N, np.int64)
+    parent[kid] = np.searchsorted(starts, at, side="right") - 1
+    pos[kid] = at - starts[parent[kid]]
+    pick = rng.integers(0, len(tree.bounds), n)
+    node = np.searchsorted(off, pick, side="right") - 1
+    rows = X[rng.integers(0, len(X), n)].copy()
+    route, cur = [], node
+    while (parent[cur] >= 0).any():
+        up = parent[cur] >= 0
+        route.append((np.where(up, parent[cur], 0), pos[cur], up))
+        cur = np.where(up, parent[cur], cur)
+    for par, p, up in reversed(route):
+        has = up & (off[par + 1] > off[par])
+        b = tree.bounds[np.where(has, off[par] + np.maximum(p - 1, 0), 0)]
+        v = np.where(p > 0, b, b - 1.0)
+        rows[np.flatnonzero(has), tree.attr[par][has]] = v[has]
+    rows[np.arange(n), tree.attr[node]] = tree.bounds[pick]
+    return rows
+
+
 def kernel_split_tree(eng, dev):
     """The descent kernel at fixed cases: the full cell's 10M layer-0 rows
-    down layer 1's tree (equal to ``part.gid``), layer 2's tree over its
-    reps, a KD-tree and a bucketing partition of a 1M-row slice, the
-    bound-less merged single-bucket tree, a single leaf, and 100,000
-    probes outside every box plus NaN rows.  Returns (max mismatches,
-    numbers of the 10M case)."""
+    down layer 1's tree (equal to ``part.gid``), 100,000 rows whose values
+    are the layer-1 tree's bounds (ties), layer 2's tree over its reps, a
+    KD-tree and a bucketing partition of a 1M-row slice, the bound-less
+    merged single-bucket tree, a single leaf, and 100,000 probes outside
+    every box plus NaN rows.  Returns (max mismatches, numbers of the 10M
+    case)."""
     from repro_torch.core import partitioner
     hier = eng.hierarchy
     X0 = hier.layers[0].X
@@ -1862,6 +1962,10 @@ def kernel_split_tree(eng, dev):
     bad, big = descent_check("full layer 1, 10M", part1.tree, X0, dev,
                              want=part1.gid)
     errs = [bad]
+    rng = np.random.default_rng(5)
+    errs.append(descent_check("ties on layer 1's bounds", part1.tree,
+                              tie_probes(part1.tree, X0, 100_000, rng),
+                              dev)[0])
     for l in range(2, hier.L + 1):
         part = hier.layers[l].part
         errs.append(descent_check(f"full layer {l}", part.tree,
@@ -1891,7 +1995,6 @@ def kernel_split_tree(eng, dev):
     errs.append(descent_check("single leaf", partitioner.SplitTree
                               .single_leaf(), X1[:100_000], dev,
                               want=np.zeros(100_000, np.int64))[0])
-    rng = np.random.default_rng(5)
     span = X0.max(0) - X0.min(0) + 1.0
     k = X0.shape[1]
     probes = np.concatenate([
@@ -2048,16 +2151,19 @@ def phase_cache(eng, table, device):
           f"{removed_total} removed")
     # the append's descent alone, timed on its rows
     tree = hier.layers[1].part.tree
-    arrays = tree.device_arrays(device)
+    packed = tree.device_packed(device)
     Rd = torch.as_tensor(R, device=device)
-    ms = timed_ms(lambda: split_tree.descend_batch(Rd, *arrays,
-                                                   int(tree.root)), 10)
+    times = descent_vs_bisection(Rd, packed, torch.as_tensor(
+        rep.gids, device=device))
     plain_ms = timed_ms(lambda: split_tree.descend_batch_plain(
-        Rd, *arrays, int(tree.root)), 3)
+        Rd, *packed.arrays, packed.root), 3)
     m, k = R.shape
+    p = packed.staged
     nums = _numbers(f"{m}x{k}", m * k * 8 + m * 8,
-                    descent_compares(tree, Rd), ms, plain_ms,
-                    nodes=tree.num_nodes, bounds=len(tree.bounds))
+                    descent_compares(tree, Rd), times.pop("ms"), plain_ms,
+                    **times, staging=p.staging, staged_bytes=p.smem,
+                    nodes=tree.num_nodes,
+                    bounds=len(tree.bounds))
     say("cache append", rows=m, init_append_state_s=init_s,
         append_s=append_s, descent_launches=launched, touched=len(touched),
         flagged=len(rep.flagged), tv_bar=rep.tv_bar,

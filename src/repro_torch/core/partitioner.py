@@ -63,7 +63,8 @@ class SplitTree:
     bounds: np.ndarray        # (B,) float64
     children: np.ndarray      # (B+N,) int64
     root: int
-    # device -> (attr, bound_off, bounds, children) uploaded once
+    # device -> kernels.split_tree.PackedTree (the arrays and the packed
+    # layout), made once
     _on_device: dict = dataclasses.field(default_factory=dict, init=False,
                                          repr=False, compare=False)
 
@@ -117,18 +118,24 @@ class SplitTree:
 
     def device_arrays(self, device) -> tuple:
         """(attr, bound_off, bounds, children) as tensors on ``device``,
-        uploaded on the first call for that device and kept on the tree."""
+        uploaded on the first call for that device and kept on the tree,
+        with the descent kernel's packed layout of them
+        (:meth:`device_packed`).  Raises ``ValueError`` on a node whose
+        bounds hold a NaN or descend."""
+        return self.device_packed(device).arrays
+
+    def device_packed(self, device) -> "split_tree_kernel.PackedTree":
+        """The tree on ``device`` as ``kernels.split_tree.pack_tree`` lays
+        it out for the descent kernel (its arrays too), built once per
+        tree and device."""
         dev = resolve_device(device)
         with _DEVICE_COPIES_LOCK:
-            arrays = self._on_device.get(dev)
-            if arrays is None:
-                arrays = self._on_device[dev] = tuple(
-                    torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
-                    for a, dt in ((self.attr, np.int32),
-                                  (self.bound_off, np.int64),
-                                  (self.bounds, np.float64),
-                                  (self.children, np.int64)))
-            return arrays
+            packed = self._on_device.get(dev)
+            if packed is None:
+                packed = self._on_device[dev] = split_tree_kernel.pack_tree(
+                    self.attr, self.bound_off, self.bounds, self.children,
+                    int(self.root), dev)
+            return packed
 
     def descend_batch_device(self, T, device="cuda") -> torch.Tensor:
         """Batch GetGroup on ``device``: the counterpart of the reference's
@@ -138,8 +145,7 @@ class SplitTree:
         ``csrc/split_tree.cu``."""
         dev = resolve_device(device)
         T = torch.as_tensor(T, dtype=torch.float64, device=dev).contiguous()
-        return split_tree_kernel.descend_batch(T, *self.device_arrays(dev),
-                                               int(self.root))
+        return split_tree_kernel.descend_batch(T, self.device_packed(dev))
 
 
 # ----------------------------------------------------------------- Partition

@@ -43,8 +43,10 @@ EXTRA_FLAGS = {"pricing": ("-fmad=false",),
                "dlv_scan": ("-fmad=false", "-Xptxas", "-v"),
                "flash_attn": ("-Xptxas", "-v"),
                "split_tree": ("-Xptxas", "-v")}
+# split_tree_bisect: the descent kernel that split_tree replaced, built
+# only as the baseline it is timed against
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn",
-           "lp_batch", "split_tree")
+           "lp_batch", "split_tree", "split_tree_bisect")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

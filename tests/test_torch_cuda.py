@@ -1110,8 +1110,9 @@ def _tree_cases():
 
 def test_split_tree_kernel_is_its_plain_version(dev):
     """Member rows, ties on the bounds, probes outside every box and NaN
-    rows: the kernel's leaves equal the plain version's on the card and
-    the host descent's, one launch a call."""
+    rows: the kernel's leaves equal the plain version's on the card, the
+    packed mirror's, the replaced bisection kernel's and the host
+    descent's, one launch a call (none for the bisection)."""
     from repro_torch.kernels import split_tree
     rng = np.random.default_rng(1)
     for name, part, data in _tree_cases():
@@ -1128,16 +1129,22 @@ def test_split_tree_kernel_is_its_plain_version(dev):
         nan = data[rng.choice(n, 1000)].copy()
         nan[np.arange(1000), rng.integers(0, k, 1000)] = np.nan
         probes.append(nan)
-        arrays = part.tree.device_arrays(dev)
+        packed = part.tree.device_packed(dev)
         for T in probes:
             Td = torch.as_tensor(T, device=dev)
             before = split_tree.launches
-            got = split_tree.descend_batch(Td, *arrays, int(part.tree.root))
+            got = split_tree.descend_batch(Td, packed)
             torch.cuda.synchronize()
             assert split_tree.launches == before + 1, name
-            want = split_tree.descend_batch_plain(Td, *arrays,
-                                                  int(part.tree.root))
+            want = split_tree.descend_batch_plain(Td, *packed.arrays,
+                                                  packed.root)
             assert torch.equal(got, want), name
+            assert torch.equal(
+                split_tree.descend_batch_packed_plain(Td, packed), want), name
+            before = split_tree.launches
+            assert torch.equal(split_tree.descend_batch_bisect(Td, packed),
+                               want), name
+            assert split_tree.launches == before, name
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           part.tree.descend_batch(T),
                                           err_msg=name)
@@ -1146,23 +1153,50 @@ def test_split_tree_kernel_is_its_plain_version(dev):
             err_msg=name)
 
 
+@pytest.mark.parametrize("budget", [0, 40, 1000, 20_000, None])
+def test_split_tree_kernel_at_every_staging(dev, budget):
+    """Whatever prefix of the packed layout a block stages (none, a few
+    records, all records and some fences or lines, the wrapper's own
+    plan), the leaves are the plain version's: rows as wide as the data, 4
+    and 9 (the path that loads the value), ties on the bounds, and rows
+    off a 16-byte boundary (no vector loads)."""
+    from repro_torch.kernels import split_tree
+    rng = np.random.default_rng(3)
+    for name, part, data in _tree_cases():
+        packed = part.tree.device_packed(dev)
+        b = split_tree.STAGE_BYTES if budget is None else budget
+        d = data.shape[1]
+        for k in sorted({d, 4, 9}):
+            T = rng.normal(size=(3001, k))
+            T[:, :d] = data[rng.choice(len(data), 3001)]
+            if len(part.tree.bounds):
+                T[::2, :d] = rng.choice(part.tree.bounds, (1501, d))
+            Td = torch.as_tensor(T, device=dev)
+            off = torch.empty(T.size + 1, dtype=torch.float64,
+                              device=dev)[1:].view(T.shape)
+            off.copy_(Td)
+            want = split_tree.descend_batch_plain(Td, *packed.arrays,
+                                                  packed.root)
+            p = split_tree.plan(packed, b)
+            for rows in (Td, off):
+                assert torch.equal(split_tree._launch(rows, packed, p),
+                                   want), (name, k, p)
+
+
 def test_split_tree_kernel_rejects_bad_inputs(dev):
     from repro_torch.kernels import split_tree
     _, part, data = _tree_cases()[1]
-    attr, off, bounds, children = part.tree.device_arrays(dev)
+    packed = part.tree.device_packed(dev)
     T = torch.as_tensor(data[:100], device=dev)
-    root = int(part.tree.root)
-    for bad in ((T.float(), attr, off, bounds, children),
-                (T.t(), attr, off, bounds, children),
-                (T, attr.long(), off, bounds, children),
-                (T, attr, off[:-1], bounds, children),
-                (T, attr, off, bounds.float(), children),
-                (T, attr, off, bounds, children[:-1]),
-                (T, attr.cpu(), off, bounds, children)):
+    for bad in ((T.float(), packed), (T.t(), packed), (T[:, 0], packed),
+                (T, part.tree.device_packed("cpu"))):
         with pytest.raises(ValueError):
-            split_tree.descend_batch(*bad, root)
-    got = split_tree.descend_batch(T[:0], attr, off, bounds, children, root)
+            split_tree.descend_batch(*bad)
+    got = split_tree.descend_batch(T[:0], packed)
     assert got.shape == (0,) and got.dtype == torch.int64
+    big = split_tree.Plan(0, 0, split_tree.STAGE_MAX // 8 + 1, "over")
+    with pytest.raises(ValueError, match="staged"):
+        split_tree._launch(T, packed, big)
 
 
 def test_append_descends_through_the_kernel_once(dev):
