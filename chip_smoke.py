@@ -96,6 +96,35 @@ package.  Phases, one line each (or one per kernel):
    ms beside the replaced kernel's on the same rows, touched, flagged and
    invalidated counts), a stale miss equal to
    the uncached answer and a ``cached=package`` hit again;
+5e. heap: ``dlv(X, 100, method="heap")`` (the one-pop-per-iteration build,
+   each pop's scan on the card) on the 4 tpch attributes of 1,000,000
+   rows (``benchmarks/partitioning.py``'s full profile), launches reset
+   just before and read just after: wall, pops, splits, groups, scan
+   launches; every scan call held to ``dlv_scan_plain`` (bit-equal; the
+   largest also to the row-step scan; "main-path heap dlv_scan" lines);
+   the descent on the card equal to gid on 100,000 rows; the build again
+   under the profiler (device busy, idle share); ``dlv_rounds`` at the
+   same size and seed ("heap rounds": wall, idle share, groups, ratio
+   scores) held to the heap build's quality bar (group counts within
+   max(10, G/3), each attribute's weighted ratio score within 1.25 x the
+   heap build's + 5e-3);
+5f. heap seed: the same build with ``scan="seed"`` (the seed's scan,
+   ``dlv_scan_seed_kernel``, one thread a span), every seed-scan launch
+   held to ``dlv_scan_seed_plain`` (bit-equal), and "kernel
+   dlv_scan_seed[...]" lines for the first (largest) span and a fixed
+   1M-row span: ms (CUDA events), device ms (profiler), plain ms, bound,
+   launches;
+5g. faults: the 10M-row tpch table written to ``build/streamed`` and
+   opened as a ``MemmapRelation`` (the bucketing build within 2.5M
+   resident rows), Q2_TPCH h=3 clean and then under each arm of the
+   reference's ``test_engine_never_raises_under_faults`` (``CHUNK_READ``
+   twice, with the build under the arm too; ``GATHER_READ`` with
+   probability 0.3; ``BINV`` three times after one; ``SHARD`` once),
+   "faults <site>" lines with the report status, ``fault_retries``, the
+   fires per site and the walls: each status defined, a feasible
+   package valid, the read faults' packages equal to the clean one,
+   ``SHARD`` never fired (its site comes with the distributed pivot
+   loop);
 
 The streamed (out-of-core) path:
 
@@ -121,8 +150,8 @@ The streamed (out-of-core) path:
    partition on the card) and Progressive Shading on a 1M-row table,
    Q2_TPCH at h=3: statuses, objectives, walls, refine steps.
 
-The data and the spill scratch (``build/streamed``) are removed at the
-end of phase 8, also when a check fails.
+The data and the spill scratch (``build/streamed``, phase 5g's table
+too) are removed at the end of phase 8, also when a check fails.
 
 The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
 ``torch.Generator``):
@@ -162,6 +191,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -192,7 +222,9 @@ SOURCES = {"pricing": ("src/repro_torch/csrc/pricing.cu",
            "lp_batch": ("src/repro_torch/csrc/lp_batch.cu",
                         "src/repro/core/lp_batch.py:121"),
            "split_tree_descent": ("src/repro_torch/csrc/split_tree.cu",
-                                  "src/repro/core/partitioner.py:122")}
+                                  "src/repro/core/partitioner.py:122"),
+           "dlv_scan_seed": ("src/repro_torch/csrc/dlv_scan.cu",
+                             "src/repro/core/dlv.py:329")}
 TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "bfrt_histogram": "select: q, flip mask, has_cross exact vs "
                                "the sequential rule, a second run "
@@ -216,7 +248,9 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
              "split_tree_descent": "leaf ids exact: equal to "
                                    "descend_batch_plain on the card, the "
                                    "host descent and, for member rows, "
-                                   "the rows' own group ids"}
+                                   "the rows' own group ids",
+             "dlv_scan_seed": "cuts bit-equal to dlv_scan_seed_plain on "
+                              "every call of the heap-seed build"}
 # the flash kernel against its plain version, by dtype: an elementwise
 # limit (see flash_agreement) and a bar on the relative norm of the error
 FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
@@ -318,15 +352,17 @@ def pricing_check(args, tol=REL_TOL) -> float:
     return worst
 
 
-def per_call_device(call, calls: int, module, prefix: str) -> dict:
+def per_call_device(call, calls: int, module, prefix: str,
+                    counter: str = "launches") -> dict:
     """``call()`` ``calls`` times under the profiler: the device ms per call
     of this repo's kernels named ``prefix...``, the launches per call (the
-    wrapper's own count, exact) and how many of them the profiler
-    recorded.  Where it recorded fewer, the device ms is their mean scaled
-    to every launch; where it recorded none, None (not measured)."""
-    before = module.launches
+    wrapper's own count ``module.<counter>``, exact) and how many of them
+    the profiler recorded.  Where it recorded fewer, the device ms is their
+    mean scaled to every launch; where it recorded none, None (not
+    measured)."""
+    before = getattr(module, counter)
     ours = device_profile(lambda: [call() for _ in range(calls)])[3]
-    launched = module.launches - before
+    launched = getattr(module, counter) - before
     mine = [(ms, n) for k, (ms, n) in ours.items() if k.startswith(prefix)]
     seen = sum(n for _, n in mine)
     device = sum(ms for ms, _ in mine) / seen * launched / calls \
@@ -1040,6 +1076,7 @@ CALL_SITES = {"pricing": ("repro_torch.kernels.pricing", "Pricer.__call__"),
                                  "Selector.__call__"),
               "segment_stats": ("repro_torch.core.dlv", "segment_stats"),
               "dlv_scan": ("repro_torch.core.dlv", "dlv_scan"),
+              "dlv_scan_seed": ("repro_torch.core.dlv", "dlv_scan_seed"),
               "flash_attention": ("repro_torch.models.attention",
                                   "flash_attention_op")}
 
@@ -1083,11 +1120,12 @@ def capturing(names=PQ_KERNELS):
 def hold_calls(calls, tag: str = "", row_step=None,
                plain_host=False) -> dict:
     """Each kernel against its plain version on every kept call of
-    ``calls`` ({kernel: [(args, kwargs), ...]}, from ``capturing``), lines
-    "main-path {tag}{kernel}"; returns {kernel: (max abs err, numbers at
-    its largest call)}.  ``row_step`` (a set of call indices, or None for
-    all) picks the scan calls also held to the row-step scan;
-    ``plain_host`` runs the scan's plain version on host copies."""
+    ``calls`` ({kernel: [(args, kwargs), ...]}, from ``capturing``; the
+    package-query kernels it holds), lines "main-path {tag}{kernel}";
+    returns {kernel: (max abs err, numbers at its largest call)}.
+    ``row_step`` (a set of call indices, or None for all) picks the scan
+    calls also held to the row-step scan; ``plain_host`` runs the scan's
+    plain version on host copies."""
     import torch
 
     def compare(name, each, size):
@@ -1107,34 +1145,39 @@ def hold_calls(calls, tag: str = "", row_step=None,
         return p.A, rho, d, state, p.lo, p.hi, s
 
     out = {}
-    res, (a, _), _ = compare("pricing",
-                             lambda i, *a: pricing_check(price_args(*a)),
-                             lambda p, *_: p.A.shape[1])
-    out["pricing"] = (max(res), pricing_times(price_args(*a)))
-    res, (a, kw), _ = compare(
-        "bfrt_histogram", lambda i, sel, *a, **kw: bfrt_check(*a, **kw),
-        lambda sel, r, *_: r.shape[0])
-    out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
-    res, (a, _), _ = compare("segment_stats",
-                             lambda i, *a: segstats_check(*a),
-                             lambda v, *_: v.shape[0])
-    out["segment_stats"] = (max(res), segstats_times(*a))
-    res, (a, kw), big = compare(
-        "dlv_scan", lambda i, *a, **kw: dlv_check(
-            *a, row_step=row_step is None or i in row_step,
-            plain_host=plain_host, **kw)[1:],
-        lambda v, *_: len(v))
-    # the largest call's plain time was taken while checking it
-    out["dlv_scan"] = (0.0, dlv_times(*a, res[big][0], **kw))
-    windows = sum(r[1] for r in res)
-    stats = [r[2] for r in res]
-    say(f"main-path {tag}dlv_scan long path", calls_with_long_segments=sum(
-        st["segments"] > 0 for st in stats),
-        largest_call_long=stats[big]["segments"] > 0,
-        largest_call=json.dumps(stats[big]),
-        **{f"all_{k}": sum(st[k] for st in stats)
-           for k in ("segments", "passes", "spec_cuts", "windows",
-                     "repairs")})
+    if "pricing" in calls:
+        res, (a, _), _ = compare(
+            "pricing", lambda i, *a: pricing_check(price_args(*a)),
+            lambda p, *_: p.A.shape[1])
+        out["pricing"] = (max(res), pricing_times(price_args(*a)))
+    if "bfrt_histogram" in calls:
+        res, (a, kw), _ = compare(
+            "bfrt_histogram", lambda i, sel, *a, **kw: bfrt_check(*a, **kw),
+            lambda sel, r, *_: r.shape[0])
+        out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
+    if "segment_stats" in calls:
+        res, (a, _), _ = compare("segment_stats",
+                                 lambda i, *a: segstats_check(*a),
+                                 lambda v, *_: v.shape[0])
+        out["segment_stats"] = (max(res), segstats_times(*a))
+    if "dlv_scan" in calls:
+        res, (a, kw), big = compare(
+            "dlv_scan", lambda i, *a, **kw: dlv_check(
+                *a, row_step=row_step is None or i in row_step,
+                plain_host=plain_host, **kw)[1:],
+            lambda v, *_: len(v))
+        # the largest call's plain time was taken while checking it
+        out["dlv_scan"] = (0.0, dlv_times(*a, res[big][0], **kw))
+        windows = sum(r[1] for r in res)
+        stats = [r[2] for r in res]
+        say(f"main-path {tag}dlv_scan long path",
+            calls_with_long_segments=sum(st["segments"] > 0
+                                         for st in stats),
+            largest_call_long=stats[big]["segments"] > 0,
+            largest_call=json.dumps(stats[big]),
+            **{f"all_{k}": sum(st[k] for st in stats)
+               for k in ("segments", "passes", "spec_cuts", "windows",
+                         "repairs")})
     for name, (err, nums) in out.items():
         extra = {"row_step_windows": windows,
                  "row_step_calls": len(calls[name]) if row_step is None
@@ -2179,6 +2222,265 @@ def phase_cache(eng, table, device):
     return launched, bad, nums, flight_launches
 
 
+# --------------------------------- the heap build and the seed scan
+
+# "heap": benchmarks/partitioning.py's full profile (n = 1,000,000, d_f =
+# 100) on the 4 tpch attributes, built by dlv(method="heap") with each
+# pop's scan on the card; "heap seed": the same build through the seed's
+# scan (dlv_heap(scan="seed")), the benchmark's baseline
+HEAP = dict(rows=1_000_000, d_f=100, seed=0)
+HEAP_SAMPLE = 100_000        # rows descended on the card against gid
+SEED_FIXED_ROWS = 1_000_000  # "kernel dlv_scan_seed": the fixed span
+
+
+def heap_table(rows: int) -> np.ndarray:
+    from repro_torch.data.synth_tables import make_table
+    t = make_table("tpch", rows, seed=HEAP["seed"])
+    return np.stack([np.asarray(t[a], np.float64) for a in ATTRS], axis=1)
+
+
+@contextlib.contextmanager
+def counting_pops():
+    """Count the heap pops of ``dlv_heap`` made inside the block
+    ({"pops": n})."""
+    import heapq
+    from repro_torch.core import dlv
+    n = {"pops": 0}
+
+    def heappop(h):
+        n["pops"] += 1
+        return heapq.heappop(h)
+
+    saved = dlv.heapq
+    dlv.heapq = types.SimpleNamespace(heappush=heapq.heappush,
+                                      heappop=heappop)
+    try:
+        yield n
+    finally:
+        dlv.heapq = saved
+
+
+def heap_build(X, device, names, **kw):
+    """``dlv(X, d_f, method="heap")`` once, its launches counted (reset just
+    before, read just after), its pops counted and the arguments of every
+    call of the kernels ``names`` kept: (partition, wall s, pops, launch
+    counts, kept calls)."""
+    from repro_torch import kernels
+    from repro_torch.core.dlv import dlv
+    kernels.reset_launches()
+    with capturing(names) as calls, counting_pops() as pops:
+        t0 = time.perf_counter()
+        part = dlv(X, HEAP["d_f"], method="heap", device=device, **kw)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    return part, wall, pops["pops"], kernels.launch_counts(), calls
+
+
+def ratio_scores(X, gid) -> list:
+    from repro_torch.core.dlv import ratio_score
+    return [ratio_score(X[:, j], gid, weighted=True)
+            for j in range(X.shape[1])]
+
+
+def phase_heap(X, device="cuda"):
+    """The heap-built DLV on the card: the build with its launches, pops
+    and scan calls; every scan call held to ``dlv_scan_plain`` (bit-equal;
+    the largest also to the row-step scan); the descent on the card
+    against gid; a second build under the profiler (device busy time,
+    idle share); ``dlv_rounds`` at the same size and seed against the
+    heap build's quality bar (``tests/test_partitioner.py``'s
+    ``test_rounds_match_heap_quality``).  Returns (the scan's launches,
+    its numbers at the largest call)."""
+    import torch
+    from repro_torch.core.dlv import dlv, dlv_rounds
+    n, d_f = len(X), HEAP["d_f"]
+    part, wall, pops, counts, calls = heap_build(X, device, ("dlv_scan",))
+    check(counts["dlv_scan"] > 0, "heap: the DLV scan was never launched")
+    G = part.num_groups
+    sizes = [len(a[0]) for a, _ in calls["dlv_scan"]]
+    big = int(np.argmax(sizes))
+    held = hold_calls(calls, "heap ", row_step={big}, plain_host=True)
+    sample = np.random.default_rng(0).choice(n, min(HEAP_SAMPLE, n),
+                                             replace=False)
+    got = part.get_group_batch(X[sample], jit=True, device=device)
+    check(np.array_equal(got, part.gid[sample]),
+          f"heap: the descent on the card disagrees with gid on "
+          f"{int((got != part.gid[sample]).sum())} of {len(sample)} rows")
+    busy_ms = device_profile(
+        lambda: dlv(X, d_f, method="heap", device=device))[0]
+    t0 = time.perf_counter()
+    rounds = dlv_rounds(X, d_f, device=device)
+    _sync(device)
+    rounds_s = time.perf_counter() - t0
+    rounds_busy_ms = device_profile(
+        lambda: dlv_rounds(X, d_f, device=device))[0]
+    z_h, z_r = ratio_scores(X, part.gid), ratio_scores(X, rounds.gid)
+    say("heap", rows=n, d_f=d_f, wall_s=wall, pops=pops,
+        splits=part.tree.num_nodes, groups=G,
+        scan_launches=counts["dlv_scan"],
+        descent_rows_checked=len(sample), device_busy_s=busy_ms / 1e3,
+        idle_share=1.0 - busy_ms / 1e3 / wall, ratio_scores=json.dumps(z_h))
+    say("heap rounds", rows=n, wall_s=rounds_s, groups=rounds.num_groups,
+        device_busy_s=rounds_busy_ms / 1e3,
+        idle_share=1.0 - rounds_busy_ms / 1e3 / rounds_s,
+        ratio_scores=json.dumps(z_r),
+        heap_over_rounds_wall=wall / rounds_s)
+    check(abs(rounds.num_groups - G) <= max(10, G // 3),
+          f"heap: dlv_rounds gives {rounds.num_groups} groups, the heap "
+          f"build {G}")
+    for j, (zh, zr) in enumerate(zip(z_h, z_r)):
+        check(zr <= zh * 1.25 + 5e-3,
+              f"heap: dlv_rounds' ratio score {zr} on {ATTRS[j]} above "
+              f"1.25 x the heap build's {zh} + 5e-3")
+    del calls
+    torch.cuda.empty_cache()
+    return counts["dlv_scan"], held["dlv_scan"]
+
+
+def seed_numbers(vals, beta, plain_ms: float) -> dict:
+    """The seed scan on one span: CUDA events over 3 calls, the profiler's
+    device ms a call, the plain version's ms, the bound (8 B read and 1 B
+    written a row, over the card's memory rate)."""
+    from repro_torch.kernels import dlv_scan as kdlv
+    n = len(vals)
+    return _numbers(f"{n} rows", 9 * n, 8 * n,
+                    timed_ms(lambda: kdlv.dlv_scan_seed(vals, beta), 3),
+                    plain_ms, **per_call_device(
+                        lambda: kdlv.dlv_scan_seed(vals, beta), 3, kdlv,
+                        "dlv_scan_seed", counter="seed_launches"))
+
+
+def seed_hold(vals, beta) -> float:
+    """The seed kernel against ``dlv_scan_seed_plain`` (on a host copy) on
+    one span: bit-equal cuts, or the run fails; returns the plain ms."""
+    import torch
+    from repro_torch.kernels import dlv_scan as kdlv
+    got = kdlv.dlv_scan_seed(vals, beta).cpu()
+    t0 = time.perf_counter()
+    want = kdlv.dlv_scan_seed_plain(vals.cpu(), beta)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want),
+          f"dlv_scan_seed cuts differ from dlv_scan_seed_plain in "
+          f"{int((got != want).sum())} of {len(vals)} rows")
+    return plain_ms
+
+
+def phase_heap_seed(X, device="cuda"):
+    """The heap build through the seed's scan on the card: every seed-scan
+    launch held to its plain version (bit-equal), then the kernel timed
+    on the first (largest) span and on a fixed 1M-row span.  Returns (its
+    launches, its main-path numbers, its fixed-span numbers)."""
+    import torch
+    part, wall, pops, counts, calls = heap_build(
+        X, device, ("dlv_scan_seed",), scan="seed")
+    kept = calls["dlv_scan_seed"]
+    launched = counts["dlv_scan_seed"]
+    check(launched > 0 and launched == len(kept),
+          f"heap seed: {launched} seed-scan launches for {len(kept)} calls")
+    t0 = time.perf_counter()
+    plain = [seed_hold(*a) for a, _ in kept]
+    rows = sum(len(a[0]) for a, _ in kept)
+    say("heap seed", rows=len(X), d_f=HEAP["d_f"], wall_s=wall, pops=pops,
+        splits=part.tree.num_nodes, groups=part.num_groups,
+        seed_scan_launches=launched, dlv_scan_launches=counts["dlv_scan"],
+        held=f"all {len(kept)} launches ({rows} rows), bit-equal",
+        check_s=time.perf_counter() - t0,
+        ratio_scores=json.dumps(ratio_scores(X, part.gid)))
+    (v0, b0), _ = kept[0]
+    main = seed_numbers(v0, b0, plain[0])
+    rng = np.random.default_rng(5)
+    v = np.sort(rng.normal(0.0, 2.0, SEED_FIXED_ROWS))
+    v = v - v.mean()
+    vals = torch.as_tensor(v, device=device)
+    beta = 13.5 * float(v.var()) / HEAP["d_f"] ** 2
+    fixed = seed_numbers(vals, beta, seed_hold(vals, beta))
+    for tag, nums in (("first span", main), ("1M fixed", fixed)):
+        say(f"kernel dlv_scan_seed[{tag}]", max_abs_err=0.0,
+            cuts_bit_equal=True, launches=launched, **nums)
+    del calls, kept
+    torch.cuda.empty_cache()
+    return launched, main, fixed
+
+
+# "faults": the 10M-row tpch table on disk as a MemmapRelation (the
+# streamed engine's build, bucketing within memory_rows), Q2_TPCH h=3
+# clean and under each arm of tests/test_resilience.py's
+# test_engine_never_raises_under_faults (injector seed 3)
+FAULTS = dict(rows=10_000_000, memory_rows=2_500_000, chunk_rows=1_048_576,
+              d_f=100, alpha=100_000, seed=0)
+FAULT_ARMS = (("CHUNK_READ", dict(times=2)),
+              ("GATHER_READ", dict(times=None, prob=0.3)),
+              ("BINV", dict(times=3, after=1, scale=1e-3)),
+              ("SHARD", dict(times=1)))
+
+
+def phase_faults(device="cuda"):
+    """Faults injected into the streamed engine on the card: each arm's
+    report status, fault retries, fires per site and walls; the status
+    defined, a feasible package valid, the read faults' packages equal to
+    the clean solve's (under ``CHUNK_READ`` the build runs under the arm
+    too, since the solve reads no chunk), ``SHARD`` never fired."""
+    from repro_torch.core import guard, relation
+    from repro_torch.core.relation import MemmapRelation
+    from repro_torch.runtime import faults
+    cfg = FAULTS
+    STREAMED_DIR.mkdir(parents=True, exist_ok=True)
+    path = STREAMED_DIR / "faults.npy"
+    gen_s = write_streamed(path, cfg["rows"], cfg["chunk_rows"], cfg["seed"])
+    rel = MemmapRelation.from_npy(str(path), ATTRS,
+                                  chunk_rows=cfg["chunk_rows"])
+    q3, _ = streamed_queries(rel, cfg["chunk_rows"])
+    sites = {name: getattr(faults, name) for name, _ in FAULT_ARMS}
+
+    def build():
+        eng = streamed_engine(rel, device, cfg)
+        t0 = time.perf_counter()
+        eng.partition()
+        _sync(device)
+        return eng, time.perf_counter() - t0
+
+    eng, part_s = build()
+    clean, clean_s = solve(eng, q3)
+    check(bool(clean.feasible and q3.check_package(rel, clean.idx,
+                                                   clean.mult)),
+          "faults: the clean h=3 solve is not a feasible, valid package")
+    say("faults clean", rows=cfg["rows"], table_gen_s=gen_s,
+        partition_s=part_s, solve_s=clean_s, status=clean.report.status,
+        obj=clean.obj, package_size=int(clean.mult.sum()))
+    for name, arm in FAULT_ARMS:
+        site = sites[name]
+        io0 = relation.io_retry_count()
+        with faults.injected(seed=3, arms={site: arm}) as inj:
+            e, build_s = build() if site == faults.CHUNK_READ \
+                else (eng, None)
+            r, s = solve(e, q3)
+        fired = {k: inj.fire_count(v) for k, v in sites.items()}
+        same = bool(r.feasible == clean.feasible
+                    and np.array_equal(r.idx, clean.idx)
+                    and np.array_equal(r.mult, clean.mult))
+        say(f"faults {name}", arm=json.dumps(arm), status=r.report.status,
+            fault_retries=r.report.fault_retries,
+            io_retries=relation.io_retry_count() - io0,
+            fire_count=json.dumps(fired), partition_s=build_s, solve_s=s,
+            feasible=r.feasible, obj=r.obj,
+            obj_rel_diff=abs(r.obj - clean.obj) / max(1.0, abs(clean.obj)),
+            same_package_as_clean=same)
+        check(r.report.status in guard.STATUSES,
+              f"faults {name}: status {r.report.status} is not defined")
+        if r.feasible:
+            check(q3.check_package(rel, r.idx, r.mult),
+                  f"faults {name}: the package fails check_package")
+        if site in (faults.CHUNK_READ, faults.GATHER_READ):
+            check(fired[name] > 0, f"faults {name}: the arm never fired")
+            check(same, f"faults {name}: a retried read changed the "
+                        "package")
+        if site == faults.SHARD:
+            check(fired[name] == 0, "faults SHARD fired: no site polls it "
+                                    "until ROADMAP queue 1, item 6")
+    del eng, rel
+    path.unlink()
+
+
 # ------------------------------------------- the streamed (out-of-core) path
 
 # "streamed": a TPC-H stand-in on disk, partitioned through the bucketing
@@ -3023,10 +3325,16 @@ def main() -> None:
         "cache", phase_cache, eng, inputs[0], dev)
     del inputs, eng
     torch.cuda.empty_cache()
+    X_heap = heap_table(HEAP["rows"])
+    heap_n, (heap_err, heap_nums) = phase("heap", phase_heap, X_heap, dev)
+    seed_n, seed_main, seed_fixed = phase("heap seed", phase_heap_seed,
+                                          X_heap, dev)
+    del X_heap
     # the streamed phases' data and spill scratch live in STREAMED_DIR
     STREAMED_DIR.mkdir(parents=True, exist_ok=True)
     saved_tmp, tempfile.tempdir = tempfile.tempdir, str(STREAMED_DIR)
     try:
+        phase("faults", phase_faults)
         streamed_counts, calls, first = phase("streamed", phase_streamed)
         streamed_errs = phase("streamed main-path inputs",
                               phase_streamed_inputs, calls, first)
@@ -3064,6 +3372,13 @@ def main() -> None:
                      "cache flight": flight_n,
                      "streamed": streamed_counts["split_tree_descent"]}
     counts["split_tree_descent"] = append_n
+    # the seed scan's main path is phase "heap seed"'s build, the only one
+    # that scans through it
+    fixed["dlv_scan_seed"] = (0.0, seed_fixed)
+    main_nums["dlv_scan_seed"] = (0.0, seed_main)
+    seed_paths = {"heap seed": seed_n, "full": counts["dlv_scan_seed"],
+                  "streamed": streamed_counts["dlv_scan_seed"]}
+    counts["dlv_scan_seed"] = seed_n
 
     entries = []
     for name, (source, replaces) in SOURCES.items():
@@ -3072,14 +3387,20 @@ def main() -> None:
         paths = {"full": counts[name], "streamed": streamed_counts[name]} \
             if name in PQ_KERNELS else lp_paths if name == "lp_batch" \
             else descent_paths if name == "split_tree_descent" \
+            else seed_paths if name == "dlv_scan_seed" \
             else {"lm prefill": counts[name]}
+        extra = {}
+        if name == "dlv_scan":
+            paths["heap"] = heap_n
+            err_m = max(err_m, heap_err)
+            extra["heap_largest_call"] = heap_nums
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "launches_by_path": paths,
                         "max_abs_err": max(err_f, err_m,
                                            streamed_errs.get(name, 0.0)),
                         "tolerance": TOLERANCE[name], **nums_m,
-                        "fixed_shape": nums_f})
+                        "fixed_shape": nums_f, **extra})
     say("done", seconds=time.perf_counter() - t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -90,14 +90,19 @@ class MemmapSource(ArraySource):
     """On-disk relation (np.memmap) -- rows stream through a fixed budget.
 
     Chunk reads touch disk, so they run through the transient-read retry
-    of ``core.relation`` (capped exponential backoff)."""
+    of ``core.relation`` (capped exponential backoff) and poll the
+    ``CHUNK_READ`` fault-injection site."""
 
     def chunks(self, chunk_rows: int) -> Iterator[np.ndarray]:
         from repro_torch.core.relation import _retry_io  # late: a cycle
+        from repro_torch.runtime import faults
         for i in range(0, len(self.X), chunk_rows):
-            yield _retry_io(
-                lambda i=i: np.asarray(self.X[i:i + chunk_rows], np.float64),
-                f"memmap chunk [{i}:{i + chunk_rows})")
+
+            def _read(i=i):
+                faults.maybe_raise(faults.CHUNK_READ)
+                return np.asarray(self.X[i:i + chunk_rows], np.float64)
+
+            yield _retry_io(_read, f"memmap chunk [{i}:{i + chunk_rows})")
 
     def __init__(self, path: str, shape=None, dtype=None):
         self.X = np.lib.format.open_memmap(path, mode="r")

@@ -1,12 +1,15 @@
 """Dynamic Low Variance partitioning — paper §3 (Algorithms 5, 6, 7).
 
-Port of ``repro.core.dlv``'s batched-frontier build (``dlv_rounds``).
-Every round selects all splittable partitions above the total-variance
-bar (host numpy over the frontier, as in the reference), then runs on the
-device: ONE gather of the selected spans, ONE segmented stable sort, ONE
-Algorithm-5 cut scan over all spans (``kernels.dlv_scan``: the CUDA kernel
-on the GPU, the reference's float64 host scans as the plain version on
-the CPU), and ONE segment-stats pass for the children's count / sum /
+Port of ``repro.core.dlv``: the batched-frontier build (``dlv_rounds``,
+the default) and the heap build (``dlv_heap``).
+
+Every round of ``dlv_rounds`` selects all splittable partitions above
+the total-variance bar (host numpy over the frontier, as in the
+reference), then runs on the device: ONE gather of the selected spans,
+ONE segmented stable sort, ONE Algorithm-5 cut scan over all spans
+(``kernels.dlv_scan``: the CUDA kernel on the GPU, the reference's
+float64 host scans as the plain version on the CPU), and ONE
+segment-stats pass for the children's count / sum /
 sum of squares (``kernels.segment_stats``).  ``X``, ``order``, the
 gathers, the sort and the cuts stay on the device; each round copies its
 cut values to the host once for the split tree.  ``finalize`` (exact
@@ -14,11 +17,19 @@ group reps and boxes) and the split-tree assembly stay host numpy.
 
 ``dlv_1d`` / ``dlv_1d_partition`` run the same scan on one sorted column
 (on ``device``); ``ratio_score`` (Definition 2) is the reference's host
-numpy metric.  The one-pop-per-iteration reference build (``dlv_heap``)
-and the seed's per-span scan (``dlv_1d_seed``) are not ported.
+numpy metric.
+
+``dlv(method="heap")`` is ``dlv_heap``, the original one-pop-per-iteration
+build (the quality and benchmark baseline): the heap, each span's stable
+argsort, the children's variances and the tree stay host numpy, line for
+line the reference's, and each pop's scan runs on ``device`` through
+``dlv_1d`` -- or, with ``scan="seed"``, through ``dlv_1d_seed``, the
+seed's uncompensated scan (``kernels.dlv_scan.dlv_scan_seed``, one launch
+for any span length).
 """
 from __future__ import annotations
 
+import heapq
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,7 +38,7 @@ import torch
 from repro_torch.core.partitioner import (Partition, SplitTree, finalize,
                                           no_mesh, register_backend)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.dlv_scan import dlv_scan
+from repro_torch.kernels.dlv_scan import dlv_scan, dlv_scan_seed
 from repro_torch.kernels.segstats import segment_stats
 
 # ------------------------------------------------------------- 1-D DLV
@@ -94,6 +105,23 @@ def dlv_1d(values: np.ndarray, beta: float, device="cuda") -> np.ndarray:
     vals = torch.as_tensor(v - shift, dtype=torch.float64, device=dev)
     return _seg_cuts(vals, np.array([n]),
                      np.array([float(beta)])).cpu().numpy()
+
+
+def dlv_1d_seed(values: np.ndarray, beta: float,
+                device="cuda") -> np.ndarray:
+    """The seed build's per-span scan: cut flags (n,) (host numpy) of the
+    uncompensated running-variance scan of sorted ``values``, shifted by
+    their mean, run on ``device``; no cut at row 0 and no snapping to
+    equal-value run starts, as in the seed."""
+    dev = resolve_device(device)
+    v = np.asarray(values, np.float64)
+    if not len(v):
+        return np.zeros(0, bool)
+    shift = v.mean()
+    vals = torch.as_tensor(v - shift, dtype=torch.float64, device=dev)
+    cuts = dlv_scan_seed(vals, float(beta)).cpu().numpy()
+    cuts[0] = False
+    return cuts
 
 
 def dlv_1d_partition(values: np.ndarray, beta: float, device="cuda"):
@@ -208,10 +236,121 @@ def _tree_from_nodes(nodes: List[SplitNode], root: int) -> SplitTree:
                      children, root)
 
 
-# ----------------------------------------------- batched frontier rounds
+# -------------------------------------------------------- heap-based build
 
 
 _PID_TAG = 1 << 40   # children >= _PID_TAG are unresolved leaf pids
+
+
+def dlv_heap(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
+             min_groups: Optional[int] = None,
+             rng: Optional[np.random.Generator] = None,
+             scan: str = "fast", mesh=None,
+             chunk_rows: Optional[int] = None,
+             time_budget_s: Optional[float] = None,
+             device="cuda") -> Partition:
+    """Algorithm 6, one heap pop (= one split) per iteration.
+
+    The reference build the batched ``dlv_rounds`` is validated against;
+    O(G) python iterations, each with its own span argsort (host) and
+    scan (on ``device``).  ``scan="seed"`` runs the seed's scan
+    (``dlv_1d_seed``) in place of ``dlv_1d``; ``time_budget_s`` raises
+    TimeoutError mid-build when exceeded."""
+    import time as _time
+    t0 = _time.time()
+    no_mesh("dlv_heap", mesh)
+    dev = resolve_device(device)
+    scan_1d = dlv_1d_seed if scan == "seed" else dlv_1d
+    X = np.asarray(X, np.float64)
+    n, k = X.shape
+    target = min_groups if min_groups is not None else max(1, n // d_f)
+    if c is None:
+        c = get_scale_factors(X, d_f, rng=rng, device=dev)
+
+    order = np.arange(n)
+    spans: Dict[int, Tuple[int, int]] = {0: (0, n)}
+    var_cache: Dict[int, np.ndarray] = {0: np.var(X, axis=0)}
+    next_pid = 1
+    heap: List[Tuple[float, int]] = []
+
+    def push(pid):
+        s, e = spans[pid]
+        tv = (e - s) * float(var_cache[pid].max())
+        if e - s >= 2 and tv > 0:
+            heapq.heappush(heap, (-tv, pid))
+
+    push(0)
+    nodes: List[SplitNode] = []
+    child_slot: Dict[int, Tuple[int, int]] = {}   # pid -> (node_id, slot)
+    root = -1
+
+    while len(spans) < target and heap:
+        if time_budget_s is not None and _time.time() - t0 > time_budget_s:
+            raise TimeoutError(f"dlv_heap(scan={scan!r}) exceeded "
+                               f"{time_budget_s}s at {len(spans)} groups")
+        _, pid = heapq.heappop(heap)
+        if pid not in spans:
+            continue
+        s, e = spans[pid]
+        v = var_cache[pid]
+        j = int(np.argmax(v))
+        sigma2 = float(v[j])
+        if sigma2 <= 0:
+            continue
+        beta = c[j] * sigma2 / (d_f * d_f)
+        idx = order[s:e]
+        vals = X[idx, j]
+        perm = np.argsort(vals, kind="stable")
+        idx = idx[perm]
+        vals = vals[perm]
+        cuts = scan_1d(vals, beta, device=dev)
+        p = int(cuts.sum()) + 1
+        tries = 0
+        while p == 1 and tries < 30:
+            beta *= 0.25
+            cuts = scan_1d(vals, beta, device=dev)
+            p = int(cuts.sum()) + 1
+            tries += 1
+        if p == 1:
+            continue  # unsplittable (all-equal values)
+        order[s:e] = idx
+        bpos = np.flatnonzero(cuts)
+        starts = np.concatenate([[0], bpos, [e - s]])
+        node_id = len(nodes)
+        node = SplitNode(j, vals[bpos], [])
+        nodes.append(node)
+        if pid in child_slot:
+            pn, slot = child_slot[pid]
+            nodes[pn].children[slot] = node_id
+        elif root == -1:
+            root = node_id
+        del spans[pid]
+        del var_cache[pid]
+        for i in range(len(starts) - 1):
+            cs, ce = s + int(starts[i]), s + int(starts[i + 1])
+            cp = next_pid
+            next_pid += 1
+            spans[cp] = (cs, ce)
+            var_cache[cp] = np.var(X[order[cs:ce]], axis=0) if ce - cs > 1 \
+                else np.zeros(k)
+            node.children.append(_PID_TAG + cp)
+            child_slot[cp] = (node_id, i)
+            push(cp)
+
+    # compact group ids in slice order; resolve tagged leaf pids to ~gid
+    pids = sorted(spans, key=lambda p: spans[p][0])
+    offsets = np.fromiter((spans[p][0] for p in pids), np.int64, len(pids))
+    offsets = np.concatenate([offsets, [n]])
+    pid_to_gid = {p: g for g, p in enumerate(pids)}
+    for node in nodes:
+        node.children = [
+            ~pid_to_gid[ch - _PID_TAG] if ch >= _PID_TAG else ch
+            for ch in node.children]
+    return finalize(X, order, offsets, _tree_from_nodes(nodes, root),
+                    mesh=mesh, chunk_rows=chunk_rows)
+
+
+# ----------------------------------------------- batched frontier rounds
 
 
 def dlv_rounds(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
@@ -436,7 +575,8 @@ def dlv(X: np.ndarray, d_f: int = 100, *, c: Optional[np.ndarray] = None,
         return dlv_rounds(X, d_f, c=c, min_groups=min_groups, rng=rng,
                           device=device, **kwargs)
     if method == "heap":
-        raise NotImplementedError("dlv(method='heap') is not ported yet "
-                                  "(ROADMAP queue 1, item 8: the rest of "
-                                  "core/dlv.py)")
+        # forward everything: unknown options raise instead of silently
+        # configuring nothing
+        return dlv_heap(X, d_f, c=c, min_groups=min_groups, rng=rng,
+                        device=device, **kwargs)
     raise ValueError(f"unknown dlv method {method!r}")

@@ -67,6 +67,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.core.guard import NumericalMonitor, SolveBudget, THETA_EPS
+from repro_torch.runtime import faults
 
 OPTIMAL, ITER_LIMIT, INFEASIBLE, BUDGET = 0, 1, 2, 3
 _TOL = 1e-9
@@ -316,6 +317,7 @@ def solve_lp_np(c, A_t, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
             break
         if since >= refactor_every:
             refresh()
+        Binv = faults.perturb(faults.BINV, Binv)
         if iters % mon.drift_check_every == 0:
             resid = float(np.abs(Binv @ A[:, basis] - np.eye(m)).max())
             if mon.record_resid(resid):

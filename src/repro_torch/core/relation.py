@@ -21,8 +21,10 @@ materialisation (chunk, gather, bucket) calls :func:`note_resident`, and
 :func:`peak_resident_rows` is the largest one since the last
 :func:`reset_peak_resident`: the bar that an out-of-core solve held only
 O(alpha + memory_rows) rows.  :class:`CountingSource` counts full
-streaming passes.  The reference's fault-injection hooks in the reads are
-not ported yet.  All of this is host numpy, as in the reference.
+streaming passes.  Chunk reads and gathers poll the ``CHUNK_READ`` and
+``GATHER_READ`` fault sites (``runtime.faults``) inside the read that is
+retried, so an injected fault is retried like a real one.  All of this
+is host numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.bucketing import ArraySource, ChunkSource, MemmapSource
+from repro_torch.runtime import faults
 
 DEFAULT_CHUNK_ROWS = 1 << 18
 
@@ -372,9 +375,12 @@ class MemmapRelation(Relation):
         full = self._all_columns(cj)
         for a in range(0, self.num_rows, step):
             b = min(a + step, self.num_rows)
-            block = _retry_io(
-                lambda a=a, b=b: np.asarray(self.X[a:b], np.float64),
-                f"chunk read [{a}:{b})")
+
+            def _read(a=a, b=b):
+                faults.maybe_raise(faults.CHUNK_READ)
+                return np.asarray(self.X[a:b], np.float64)
+
+            block = _retry_io(_read, f"chunk read [{a}:{b})")
             note_resident(b - a)
             yield block if full else block[:, cj]
 
@@ -385,8 +391,12 @@ class MemmapRelation(Relation):
         idx = _normalize_idx(idx, self.num_rows)
         order = np.argsort(idx, kind="stable")
         rows = np.empty((len(idx), len(self.columns)), np.float64)
-        rows[order] = _retry_io(lambda: self.X[idx[order]],
-                                f"gather of {len(idx)} rows")
+
+        def _read():
+            faults.maybe_raise(faults.GATHER_READ)
+            return self.X[idx[order]]
+
+        rows[order] = _retry_io(_read, f"gather of {len(idx)} rows")
         note_resident(len(idx))
         return {nm: rows[:, cj[j]] for j, nm in enumerate(names)}
 
@@ -439,6 +449,7 @@ class SourceRelation(Relation):
             skip = delivered
             try:
                 for block in gen:
+                    faults.maybe_raise(faults.CHUNK_READ)
                     nb = len(block)
                     if skip >= nb:
                         skip -= nb

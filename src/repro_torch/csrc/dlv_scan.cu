@@ -55,6 +55,10 @@
 //   compensated chain (about four dependent f64 adds per row).  1,024
 //   threads would leave 64 registers a thread, which the verify batch
 //   exceeds, so a CTA is 512 threads x 16 rows.
+//
+// The end of the file holds a third kernel, dlv_scan_seed_kernel: the
+// seed's uncompensated scan of one span (dlv_1d_seed, dlv_heap's
+// scan="seed"), replacing repro/core/dlv.py::_dlv_scan_seed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -631,5 +635,62 @@ extern "C" int dlv_scan_long_f64(const void* vals, const void* starts,
       (const double*)vals, (const int64_t*)starts, (const int64_t*)lens,
       (const double*)beta, (uint8_t*)cuts, (const int32_t*)init_spec,
       (int)init_n, (unsigned long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ seed scan
+//
+// Replaces the seed's jitted lax.scan repro/core/dlv.py::_dlv_scan_seed,
+// the per-span scan behind dlv_1d_seed and dlv_heap(scan="seed"): one
+// span, uncompensated running count / sum / sum of squares, a cut where
+// var = s2/k - (s1/k)^2 including x exceeds beta (no guard at the first
+// row, whose var is 0; the caller clears cut 0), and a restart at
+// (1, x, x*x).  The chain is serial, so one thread walks the span; it
+// loads PF rows into registers ahead of the steps that use them.  What
+// bounds it is that chain (a row's two divisions and FMA wait on the
+// previous row's restart decision), not its 9 bytes a row.
+//
+// The rounding is the reference's as XLA compiles it for the CPU, where
+// it was measured: s2 + x*x is a multiply and an add, each rounded, but
+// s2/k - m*m is one fused multiply-add (at betas one ulp from a running
+// variance the unfused form cuts elsewhere than the reference on about
+// one span in nine; the fused one on none).  So the code spells out every
+// operation as a round-to-nearest intrinsic (__dadd_rn, __dmul_rn,
+// __ddiv_rn, and the one __fma_rn), which nvcc never contracts or splits
+// whatever the flags (the file is also built with -fmad=false).
+__global__ void dlv_scan_seed_kernel(const double* __restrict__ vals,
+                                     int64_t n, double beta,
+                                     uint8_t* __restrict__ cuts) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  double k = 0.0, s1 = 0.0, s2 = 0.0;
+  for (int64_t i0 = 0; i0 < n; i0 += PF) {
+    const int64_t cnt = n - i0 < PF ? n - i0 : PF;
+    double xs[PF];
+#pragma unroll
+    for (int u = 0; u < PF; ++u) xs[u] = u < cnt ? vals[i0 + u] : 0.0;
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      if (u >= cnt) break;
+      const double x = xs[u];
+      const double k1 = __dadd_rn(k, 1.0);
+      const double s1n = __dadd_rn(s1, x);
+      const double x2 = __dmul_rn(x, x);
+      const double s2n = __dadd_rn(s2, x2);
+      const double m = __ddiv_rn(s1n, k1);
+      const double var = __fma_rn(-m, m, __ddiv_rn(s2n, k1));
+      const bool cut = var > beta;
+      cuts[i0 + u] = cut ? 1 : 0;
+      k = cut ? 1.0 : k1;
+      s1 = cut ? x : s1n;
+      s2 = cut ? x2 : s2n;
+    }
+  }
+}
+
+extern "C" int dlv_scan_seed_f64(const void* vals, int64_t n, double beta,
+                                 void* cuts, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  dlv_scan_seed_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (const double*)vals, n, beta, (uint8_t*)cuts);
   return (int)cudaGetLastError();
 }

@@ -33,8 +33,22 @@ the same cuts unless a running variance lies within rounding of ``beta``;
 on such data a CPU build and a CUDA build can cut differently.
 :func:`scan_cols_plain` is the kernel's arithmetic step for step, and is
 what tells a kernel fault from a rounding-order difference.
+
+:func:`dlv_scan_seed` is the seed's scan, for one span: the
+uncompensated running-variance recurrence of the jitted ``lax.scan``
+``repro/core/dlv.py::_dlv_scan_seed`` (no run snapping, no ``k > 0``
+guard).  On a CUDA tensor it launches ``dlv_scan_seed_kernel`` (one
+thread walks the span); on a CPU tensor it runs
+:func:`dlv_scan_seed_plain`, the same recurrence in Python floats.  The
+reference's compiled scan (XLA on the CPU) computes var = s2/k - m*m as
+one fused multiply-add and rounds every other operation on its own; the
+kernel and the plain version round exactly so, and their cuts equal the
+reference's bit for bit, at near-ties too.
 """
 from __future__ import annotations
+
+import math
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -42,6 +56,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+seed_launches = 0            # dlv_scan_seed's kernel
 
 _BATCH_MIN_COLS = 16         # below this, per-segment jump scan wins
 _MAX_COLS = 1024             # row-step width cap
@@ -61,7 +76,9 @@ STAT_NAMES = ("segments", "passes", "spec_cuts", "windows", "repairs",
 
 _SIG = {"dlv_scan_f64": (_build.P,) * 4 + (_build.I64, _build.P, _build.P),
         "dlv_scan_long_f64": (_build.P,) * 4 + (_build.I64,) + (_build.P,) * 2
-        + (_build.I64, _build.P, _build.P)}
+        + (_build.I64, _build.P, _build.P),
+        "dlv_scan_seed_f64": (_build.P, _build.I64, _build.F64, _build.P,
+                              _build.P)}
 
 
 def _starts(Ls: np.ndarray) -> np.ndarray:
@@ -424,3 +441,63 @@ def verify_speculation(v, beta: float, spec):
     _build.check(err, "dlv_scan")
     launches += 1
     return cuts, st
+
+
+# ------------------------------------------------------------ the seed scan
+
+
+def _var_gt(q: float, m: float, b: float) -> bool:
+    """Whether q - m*m, rounded once (the FMA of the seed scan's var),
+    exceeds ``b``.  Twice rounded, q - m*m lies within 2 ulps of the
+    once-rounded value, so outside 4 ulps of ``b`` it decides; nearer, the
+    exact rational difference, rounded once, does."""
+    p = m * m
+    d = q - p
+    if not math.isfinite(d) or abs(d - b) > 4.0 * math.ulp(max(abs(q), p)):
+        return d > b
+    return float(Fraction(q) - Fraction(m) * Fraction(m)) > b
+
+
+def dlv_scan_seed_plain(vals, beta: float):
+    """The seed's scan of ONE span in Python floats (IEEE float64): k1 =
+    k + 1, s1 += x, s2 += x*x (each rounded), m = s1/k1, var = s2/k1 - m*m
+    with the product and difference rounded once (the FMA that the
+    reference's compiled scan computes), and on var > beta a cut that
+    restarts the stats at (1, x, x*x).  Cut flags (bool) on ``vals``'s
+    device."""
+    b = float(beta)
+    k = s1 = s2 = 0.0
+    out = []
+    for x in vals.tolist():
+        k1 = k + 1.0
+        s1n = s1 + x
+        s2n = s2 + x * x
+        cut = _var_gt(s2n / k1, s1n / k1, b)
+        out.append(cut)
+        if cut:
+            k, s1, s2 = 1.0, x, x * x
+        else:
+            k, s1, s2 = k1, s1n, s2n
+    return torch.tensor(out, dtype=torch.bool, device=vals.device)
+
+
+def dlv_scan_seed(vals, beta: float):
+    """Cut flags (bool, like ``vals``) of the seed's scan over the one span
+    ``vals`` (contiguous float64, already shifted by its mean) with bar
+    ``beta``.  A CUDA tensor launches ``dlv_scan_seed_kernel`` (one launch
+    for any length, counted in ``seed_launches``); a CPU tensor runs
+    :func:`dlv_scan_seed_plain`."""
+    global seed_launches
+    if vals.device.type != "cuda":
+        return dlv_scan_seed_plain(vals, beta)
+    _check_vals(vals)
+    n = len(vals)
+    cuts = torch.empty(n, dtype=torch.bool, device=vals.device)
+    if n:
+        lib = _build.load("dlv_scan", _SIG)
+        err = lib.dlv_scan_seed_f64(vals.data_ptr(), n, float(beta),
+                                    cuts.data_ptr(),
+                                    _build.stream_ptr(vals.device))
+        _build.check(err, "dlv_scan_seed")
+        seed_launches += 1
+    return cuts

@@ -473,6 +473,91 @@ def test_dlv_verify_entry_repairs_a_wrong_guess(dev):
             assert int(st[dlv_scan.STAT_NAMES.index("repairs")]) >= 1
 
 
+def _seed_running_vars(v, beta):
+    """The seed scan's running variance at every row, with its restarts,
+    rounded as the reference's compiled scan rounds (one fused
+    multiply-add in the variance; exact rationals here)."""
+    from fractions import Fraction
+    k = s1 = s2 = 0.0
+    out = []
+    for x in v:
+        k1 = k + 1.0
+        s1n, s2n = s1 + x, s2 + x * x
+        m = s1n / k1
+        var = float(Fraction(s2n / k1) - Fraction(m) * Fraction(m))
+        out.append(var)
+        k, s1, s2 = (1.0, x, x * x) if var > beta else (k1, s1n, s2n)
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 2, 15, 16, 17, 1000, 100_000])
+def test_dlv_scan_seed_kernel(dev, L):
+    """The seed scan's kernel: cuts bit-equal to ``dlv_scan_seed_plain``
+    at span lengths across its 16-row register batches, one launch a
+    call, and a bool tensor on the card."""
+    rng = np.random.default_rng(L)
+    v = np.sort(rng.normal(rng.uniform(-1e3, 1e3), 2.0, L))
+    v = v - v.mean()
+    beta = 13.5 * v.var() / 30 ** 2 if L > 1 else 0.0
+    vals = _t(v, dev)
+    kernels.reset_launches()
+    got = dlv_scan.dlv_scan_seed(vals, beta)
+    assert kernels.launch_counts()["dlv_scan_seed"] == 1
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    want = dlv_scan.dlv_scan_seed_plain(vals.cpu(), beta)
+    assert torch.equal(got.cpu(), want)
+    if L >= 1000:
+        assert int(want.sum()) > 10
+
+
+def test_dlv_scan_seed_kernel_near_ties(dev):
+    """beta at a running variance of the seed scan and one ulp to each
+    side: the kernel rounds as the plain version does (the variance's one
+    FMA, every other operation on its own), so the cuts are equal."""
+    rng = np.random.default_rng(9)
+    v = np.sort(rng.lognormal(0.0, 0.55, 5_000))
+    v = v - v.mean()
+    vals = _t(v, dev)
+    b0 = 13.5 * v.var() / 40 ** 2
+    var = _seed_running_vars(v, b0)
+    for r in (3, 40, 700, 2_500, 4_999):
+        for beta in (var[r], np.nextafter(var[r], np.inf),
+                     np.nextafter(var[r], -np.inf)):
+            got = dlv_scan.dlv_scan_seed(vals, beta)
+            want = dlv_scan.dlv_scan_seed_plain(vals.cpu(), beta)
+            assert torch.equal(got.cpu(), want), (r, beta)
+
+
+def test_dlv_scan_seed_rejects_bad_inputs(dev):
+    v = _t(np.arange(10.0), dev)
+    for bad in (v.float(), v[::2], v.reshape(2, 5)):
+        with pytest.raises(ValueError):
+            dlv_scan.dlv_scan_seed(bad, 1.0)
+    assert dlv_scan.dlv_scan_seed(v[:0], 1.0).shape == (0,)
+
+
+def test_heap_build_on_the_card_equals_the_cpu(dev):
+    """``dlv_heap`` with each pop's scan on the card (``scan="fast"``: the
+    DLV scan kernel; ``"seed"``: the seed kernel) gives the CPU build's
+    partition, and the descent agrees with gid."""
+    from repro_torch.core.dlv import dlv_heap
+    rng = np.random.default_rng(7)
+    X = np.concatenate([rng.normal(0, 1, (3000, 3)),
+                        rng.normal(7, 2, (3000, 3))]) * [1.0, 4.0, 0.3]
+    for scan in ("fast", "seed"):
+        kernels.reset_launches()
+        got = dlv_heap(X, 40, scan=scan, device=dev)
+        counts = kernels.launch_counts()
+        want = dlv_heap(X, 40, scan=scan, device="cpu")
+        if scan == "seed":
+            assert counts["dlv_scan_seed"] >= got.tree.num_nodes
+        for f in ("order", "offsets", "gid"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        np.testing.assert_array_equal(got.tree.bounds, want.tree.bounds)
+        np.testing.assert_array_equal(
+            got.get_group_batch(X, jit=True, device=dev), got.gid)
+
+
 @pytest.mark.parametrize("S", [1, 64, 65, 127, 128, 129, 200])
 @pytest.mark.parametrize("H,KV", [(6, 2), (12, 2)])
 @pytest.mark.parametrize("d", [64, 120, 128])

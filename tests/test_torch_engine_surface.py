@@ -4,9 +4,9 @@ Each call written against ``repro.core`` that the port cannot serve yet
 raises ``NotImplementedError`` naming its ROADMAP queue-1 item, instead
 of a bare ``TypeError``, ``AttributeError`` or "unknown backend".  A case
 goes away when its item lands, and cases of the landed surface take its
-place: the engine's ``cache=`` and ``session`` and the device descent
+place: the engine's ``cache=`` and ``session``, the device descent
 (``get_group_batch(T, jit=True)``), with a loaded hierarchy that appends
-and registers with a cache.
+and registers with a cache, and the heap-built DLV.
 """
 import numpy as np
 import pytest
@@ -93,13 +93,19 @@ def test_mesh_sharded_passes_name_item_6(call):
         calls[call]()
 
 
-def test_heap_build_names_item_8():
+def test_heap_build_through_dlv_and_fit():
+    """``dlv(method="heap")`` and ``fit(..., method="heap")`` reach the
+    heap build (ported) and give one partition; its ``mesh=`` is item 6."""
     X = np.random.default_rng(1).normal(size=(500, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        dlv.dlv(X, d_f=10, method="heap", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        partitioner.fit(X, backend="dlv", d_f=10, method="heap",
+    a = dlv.dlv(X, d_f=10, method="heap", device="cpu")
+    b = partitioner.fit(X, backend="dlv", d_f=10, method="heap",
                         device="cpu")
+    assert a.num_groups == b.num_groups >= 40
+    for f in ("order", "offsets", "gid"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    np.testing.assert_array_equal(a.tree.bounds, b.tree.bounds)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+        dlv.dlv_heap(X, 10, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("level", ["partition", "hierarchy"])

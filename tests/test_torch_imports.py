@@ -7,7 +7,10 @@ with no CPU fallback; ``chip_smoke.py`` fails without a card or without
 the package beside it, and prints no result.
 """
 import ast
+import importlib
+import inspect
 import os
+import pkgutil
 import shutil
 import subprocess
 import sys
@@ -78,6 +81,41 @@ def test_default_device_raises_without_cuda():
     assert eng.device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+# helpers that take their caller's tensor device, never a user's choice
+DEVICE_FROM_CALLER = {"repro_torch.models.layers.sinusoidal_positions"}
+
+
+def _device_parameters():
+    import repro_torch
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else [
+                (f"{name}.{k}", v) for k, v in vars(obj).items()
+                if inspect.isfunction(v)] if inspect.isclass(obj) else []
+            for qual, fn in fns:
+                p = inspect.signature(fn).parameters.get("device")
+                if p is not None:
+                    yield f"{mod.__name__}.{qual}", p.default
+
+
+def test_every_device_parameter_defaults_to_cuda():
+    """Every function or method of the port that takes ``device=`` with a
+    default defaults to "cuda" (the heap build and the seed scan too)."""
+    found = dict(_device_parameters())
+    for must in ("repro_torch.core.dlv.dlv_heap",
+                 "repro_torch.core.dlv.dlv_1d_seed",
+                 "repro_torch.core.dlv.dlv",
+                 "repro_torch.core.engine.PackageQueryEngine.__init__"):
+        assert found.get(must) == "cuda", must
+    wrong = {q: d for q, d in found.items()
+             if d is not inspect.Parameter.empty and d != "cuda"
+             and q not in DEVICE_FROM_CALLER}
+    assert not wrong
 
 
 def _run_smoke(cwd: Path):
