@@ -123,8 +123,8 @@ package.  Phases, one line each (or one per kernel):
    "faults <site>" lines with the report status, ``fault_retries``, the
    fires per site and the walls: each status defined, a feasible
    package valid, the read faults' packages equal to the clean one,
-   ``SHARD`` never fired (its site comes with the distributed pivot
-   loop);
+   ``SHARD`` never fired (only the distributed pivot loop polls it:
+   phase 15);
 
 The streamed (out-of-core) path:
 
@@ -173,6 +173,23 @@ The LM slice (qwen2-1.5b at full width, bf16, random init from a seeded
    tokens), then one short batch profiled;
 14. lm main-path inputs: the prefill rerun keeping every flash call's
     arguments, each held against the plain version.
+
+Distributed pricing (``core.distributed`` on an NCCL world of one rank,
+a (1, 1) ``DeviceMesh`` named ("data", "model"); no fallback if NCCL
+fails to start):
+
+15. dist: the reference's distributed-pricing profile at full size
+    (``benchmarks/warm_start.py::_distributed_pricing --full``: a 1M-column
+    package LP, m = 12) cold with every kernel count read around it, again
+    for its wall and under the profiler (device-to-host reads a pivot),
+    warm from the numpy twin's answer, each against ``solve_lp_np``, and
+    the single-device ``solve_lp`` beside it ("dist profile"); the full
+    cell's 10M rows built by ``PackageQueryEngine(mesh=, chunk_rows=1M)``
+    (groups equal to phase 4's build, reps to 1e-8) and Q2_TPCH h=3 with
+    every layer LP through ``solve_lp(mesh=)`` against the single-device
+    solve ("dist full"); ``SHARD`` armed once ("dist SHARD"); the first
+    pivots' pricing and histogram calls and every sharded segment stats
+    call held against the plain versions ("main-path dist ...").
 
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
@@ -684,6 +701,63 @@ def dlv_times(vals, Ls, beta, plain_ms, **kw) -> dict:
 # --------------------------------------------------------------- phase 2
 
 
+def bfrt_hist_check(ratio, cost, edges) -> float:
+    """The histogram kernel (pass 1 alone, as the distributed pricing step
+    calls it) against its plain version: counts exact, sums to REL_TOL
+    relative, two runs bit-identical; returns the sums' max abs error."""
+    import torch
+    from repro_torch.kernels.bfrt import bfrt_histogram, bfrt_histogram_plain
+    s_k, n_k = bfrt_histogram(ratio, cost, edges)
+    s_p, n_p = bfrt_histogram_plain(ratio, cost, edges)
+    check(torch.equal(n_k, n_p), "bfrt histogram: counts differ")
+    err = float((s_k - s_p).abs().max())
+    check(bool(((s_k - s_p).abs() <= REL_TOL * s_p.abs().clamp_min(1.0))
+               .all()), f"bfrt histogram: sums differ (max abs err {err})")
+    check(torch.equal(bfrt_histogram(ratio, cost, edges)[0], s_k),
+          "bfrt histogram is not deterministic")
+    return err
+
+
+def bfrt_hist_times(ratio, cost, edges) -> dict:
+    """The histogram kernel per call, its plain version and the profiler's
+    device ms; bytes: ratio and cost read, the edges read, sums and counts
+    written; operations: the bucket search."""
+    from repro_torch.kernels import bfrt
+    N, NB = ratio.shape[0], edges.shape[0]
+    return _numbers(
+        f"N={N} NB={NB} f64", 16 * N + 8 * NB + 16 * NB,
+        N * (int(np.log2(NB)) + 2),
+        timed_ms(lambda: bfrt.bfrt_histogram(ratio, cost, edges), 200),
+        timed_ms(lambda: bfrt.bfrt_histogram_plain(ratio, cost, edges), 50),
+        None, **hist_device(ratio, cost, edges))
+
+
+def hist_device(ratio, cost, edges, calls: int = 20) -> dict:
+    """The profiler's device ms a histogram call: the mean of each of its
+    two kernels (``bfrt_hist_partial``, ``bfrt_hist_reduce``; the wrapper
+    counts the call as one launch) over the records it kept, added; None
+    (not measured) where it kept none of one of them."""
+    from repro_torch.kernels import bfrt
+    ours = device_profile(lambda: [bfrt.bfrt_histogram(ratio, cost, edges)
+                                   for _ in range(calls)])[3]
+    mine = [ours.get(k, (0.0, 0)) for k in ("bfrt_hist_partial",
+                                            "bfrt_hist_reduce")]
+    return {"device_ms": sum(ms / n for ms, n in mine)
+            if all(n for _, n in mine) else None,
+            "profiled_kernels": f"{sum(n for _, n in mine)} of {2 * calls}"}
+
+
+def host_top(prof, n: int = 8):
+    """A profiled run's host ops by their self CPU time: (the total ms,
+    the top ``n``).  The profiler's own cost a call weighs on each."""
+    from torch.autograd import DeviceType
+    rows = sorted(((ev.self_cpu_time_total / 1e3, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU), reverse=True)
+    return sum(r[0] for r in rows), [{"op": k[:50], "ms": ms, "calls": c}
+                                     for ms, k, c in rows[:n]]
+
+
 def kernel_pricing(dev, N: int = 100_004):
     import torch
     rng = np.random.default_rng(1)
@@ -1078,7 +1152,13 @@ CALL_SITES = {"pricing": ("repro_torch.kernels.pricing", "Pricer.__call__"),
               "dlv_scan": ("repro_torch.core.dlv", "dlv_scan"),
               "dlv_scan_seed": ("repro_torch.core.dlv", "dlv_scan_seed"),
               "flash_attention": ("repro_torch.models.attention",
-                                  "flash_attention_op")}
+                                  "flash_attention_op"),
+              # phase "dist": the histogram as the pricing step calls it,
+              # segment stats as the mesh-sharded group stats call it
+              "bfrt_histogram dist": ("repro_torch.core.distributed",
+                                      "bfrt_histogram"),
+              "segment_stats mesh": ("repro_torch.core.partitioner",
+                                     "segment_stats")}
 
 
 def _copy(a):
@@ -1089,10 +1169,11 @@ def _copy(a):
 
 
 @contextlib.contextmanager
-def capturing(names=PQ_KERNELS):
-    """Keep a copy of the arguments of every call of the kernels ``names``
-    made inside the block: {kernel name: [(args, kwargs), ...]}.  A call
-    site ``Class.method`` keeps the instance as the first argument."""
+def capturing(names=PQ_KERNELS, limit=None):
+    """Keep a copy of the arguments of every call (the first ``limit``
+    calls, where given) of the kernels ``names`` made inside the block:
+    {kernel name: [(args, kwargs), ...]}.  A call site ``Class.method``
+    keeps the instance as the first argument."""
     calls = {name: [] for name in names}
     saved = []
     for name in names:
@@ -1104,8 +1185,9 @@ def capturing(names=PQ_KERNELS):
         fn = getattr(mod, attr)
 
         def kept(*args, _fn=fn, _log=calls[name], **kw):
-            _log.append((tuple(_copy(a) for a in args),
-                         {k: _copy(v) for k, v in kw.items()}))
+            if limit is None or len(_log) < limit:
+                _log.append((tuple(_copy(a) for a in args),
+                             {k: _copy(v) for k, v in kw.items()}))
             return _fn(*args, **kw)
 
         saved.append((mod, attr, fn))
@@ -1155,11 +1237,16 @@ def hold_calls(calls, tag: str = "", row_step=None,
             "bfrt_histogram", lambda i, sel, *a, **kw: bfrt_check(*a, **kw),
             lambda sel, r, *_: r.shape[0])
         out["bfrt_histogram"] = (max(res), bfrt_times(*a[1:], **kw))
-    if "segment_stats" in calls:
-        res, (a, _), _ = compare("segment_stats",
-                                 lambda i, *a: segstats_check(*a),
-                                 lambda v, *_: v.shape[0])
-        out["segment_stats"] = (max(res), segstats_times(*a))
+    if "bfrt_histogram dist" in calls:
+        res, (a, _), _ = compare("bfrt_histogram dist",
+                                 lambda i, *a: bfrt_hist_check(*a),
+                                 lambda r, *_: r.shape[0])
+        out["bfrt_histogram dist"] = (max(res), bfrt_hist_times(*a))
+    for name in ("segment_stats", "segment_stats mesh"):
+        if name in calls:
+            res, (a, _), _ = compare(name, lambda i, *a: segstats_check(*a),
+                                     lambda v, *_: v.shape[0])
+            out[name] = (max(res), segstats_times(*a))
     if "dlv_scan" in calls:
         res, (a, kw), big = compare(
             "dlv_scan", lambda i, *a, **kw: dlv_check(
@@ -2419,7 +2506,8 @@ def phase_faults(device="cuda"):
     report status, fault retries, fires per site and walls; the status
     defined, a feasible package valid, the read faults' packages equal to
     the clean solve's (under ``CHUNK_READ`` the build runs under the arm
-    too, since the solve reads no chunk), ``SHARD`` never fired."""
+    too, since the solve reads no chunk), ``SHARD`` never fired (it is
+    polled by the distributed pivot loop only: phase "dist")."""
     from repro_torch.core import guard, relation
     from repro_torch.core.relation import MemmapRelation
     from repro_torch.runtime import faults
@@ -2475,8 +2563,8 @@ def phase_faults(device="cuda"):
             check(same, f"faults {name}: a retried read changed the "
                         "package")
         if site == faults.SHARD:
-            check(fired[name] == 0, "faults SHARD fired: no site polls it "
-                                    "until ROADMAP queue 1, item 6")
+            check(fired[name] == 0, "faults SHARD fired: these solves run "
+                                    "no distributed pivot loop")
     del eng, rel
     path.unlink()
 
@@ -3270,6 +3358,217 @@ def phase_lm_main_inputs(model, batch, counts):
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------ distributed pricing
+
+# "dist": benchmarks/warm_start.py::_distributed_pricing's --full profile
+# (``_big_package_lp(1_000_000)``, m = 12, max_iters 20,000) on an NCCL
+# world of one rank, then the full cell built and solved through the mesh
+DIST_LP = dict(n=1_000_000, m=12, seed=0, max_iters=20_000)
+DIST_CHUNK = 1_000_000       # the mesh build's chunk_rows
+DIST_HOLD = 3                # pivots whose pricing and histogram are held
+
+
+def big_package_lp(n: int, m: int = 12, seed: int = 0):
+    """``benchmarks/warm_start.py::_big_package_lp``: a paper-style
+    package LP (a count row and m - 1 attribute rows around a 30-row
+    package)."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=n)
+    A = np.stack([np.ones(n)] + [
+        rng.normal(rng.uniform(-5, 15), rng.uniform(1, 3), n)
+        for _ in range(m - 1)])
+    x0 = np.zeros(n)
+    x0[rng.choice(n, 30, replace=False)] = 1.0
+    act = A @ x0
+    w = np.maximum(np.abs(act) * 0.02, 0.5)
+    return c, A, act - w, act + w, np.ones(n)
+
+
+def dist_mesh():
+    """An NCCL world of one rank (a ``HashStore``, rank 0) and its (1, 1)
+    ``DeviceMesh`` named ("data", "model")."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def dist_profile(mesh, device):
+    """The reference's distributed-pricing profile on the card: cold (the
+    kernel counts read around it, the first pivots' calls kept) and warm
+    from the numpy twin's answer, each against ``solve_lp_np``; the cold
+    solve again for its wall and under the profiler (device to host reads
+    a pivot), and the single-device ``solve_lp`` on the same LP."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.distributed import solve_lp_dist
+    from repro_torch.core.lp import OPTIMAL, solve_lp, solve_lp_np
+    cfg = DIST_LP
+    lp = big_package_lp(cfg["n"], cfg["m"], cfg["seed"])
+    it = cfg["max_iters"]
+    t0 = time.perf_counter()
+    ref = solve_lp_np(*lp, max_iters=it)
+    np_s = time.perf_counter() - t0
+
+    def dist_solve(**kw):
+        t0 = time.perf_counter()
+        res = solve_lp_dist(*lp, mesh=mesh, device=device,
+                            **{"max_iters": it, **kw})
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    with capturing(("pricing", "bfrt_histogram dist"), limit=DIST_HOLD) \
+            as calls:
+        cold, first_s = dist_solve()
+    launched = kernels.launch_counts()
+    cold2, cold_s = dist_solve()
+    # the solve's fixed part alone: standard form, the shards' copies to
+    # the card, the final factorization and state gather (no pivot)
+    fixed_s = min(dist_solve(max_iters=0)[1] for _ in range(2))
+    warm, warm_s = dist_solve(warm_start=ref)
+    host = []
+    busy_ms, ops, reads, ours, top = device_profile(
+        dist_solve, on_prof=lambda p: host.append(host_top(p)))
+    t0 = time.perf_counter()
+    single = solve_lp(*lp, max_iters=it, device=device)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    tol = 1e-6 * (1 + abs(ref.obj))
+    for tag, r in (("cold", cold), ("cold again", cold2), ("warm", warm),
+                   ("single-device solve_lp", single)):
+        check(r.status == ref.status == OPTIMAL,
+              f"dist profile {tag}: status {r.status}, numpy {ref.status}")
+        check(abs(r.obj - ref.obj) <= tol,
+              f"dist profile {tag}: objective {r.obj} vs {ref.obj}")
+    check(cold2.iters == cold.iters and np.array_equal(cold2.x, cold.x),
+          "dist profile: a second cold solve differs")
+    pivots = max(cold.iters, 1)
+    for name in ("pricing", "bfrt_histogram"):
+        check(launched[name] > 0, f"dist profile: {name} never launched")
+    say("dist profile", n=cfg["n"], m=cfg["m"], status=cold.status,
+        obj=cold.obj, numpy_obj=ref.obj,
+        obj_rel_diff=abs(cold.obj - ref.obj) / max(1.0, abs(ref.obj)),
+        pivots=cold.iters, numpy_pivots=ref.iters, warm_pivots=warm.iters,
+        single_pivots=single.iters, exact=cold.pivot_stats["exact"],
+        conservative=cold.pivot_stats["conservative"],
+        us_per_pivot=cold_s / pivots * 1e6, fixed_s=fixed_s,
+        loop_us_per_pivot=(cold_s - fixed_s) / pivots * 1e6,
+        first_solve_us_per_pivot=first_s / pivots * 1e6,
+        warm_s=warm_s, single_us_per_pivot=single_s
+        / max(single.iters, 1) * 1e6,
+        numpy_us_per_pivot=np_s / max(ref.iters, 1) * 1e6,
+        device_busy_s=busy_ms / 1e3, device_ops_per_pivot=ops / pivots,
+        host_self_ms_profiled=host[0][0],
+        device_to_host=reads, device_to_host_per_pivot=reads / pivots,
+        pricing_per_pivot=launched["pricing"] / pivots,
+        histogram_per_pivot=launched["bfrt_histogram"] / pivots,
+        launches=json.dumps(launched), kernels=json.dumps(ours),
+        top=json.dumps(top), host_top=json.dumps(host[0][1]))
+    return launched, calls, lp, ref
+
+
+def dist_full(mesh, table, q3, alpha, layers, device):
+    """The full cell through the mesh: ``PackageQueryEngine(mesh=,
+    chunk_rows=)`` (kernel counts read around the build and the solve,
+    every mesh-sharded segment stats call kept), its layers held to the
+    full phase's ``mesh=None`` build, and Q2_TPCH h=3 with every layer LP
+    through ``solve_lp(mesh=)`` against the single-device solve."""
+    from repro_torch import kernels
+    from repro_torch.core.engine import PackageQueryEngine
+    from repro_torch.core.lp import solve_lp
+    kernels.reset_launches()
+    with capturing(("segment_stats mesh",)) as calls:
+        t0 = time.perf_counter()
+        eng = PackageQueryEngine(table, ATTRS, d_f=100, alpha=alpha,
+                                 seed=0, mesh=mesh, chunk_rows=DIST_CHUNK,
+                                 device=device).partition()
+        _sync(device)
+        part_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = eng.session(0).solve(q3, ilp_kwargs=ILP_KW,
+                                 lp_solver=functools.partial(
+                                     solve_lp, mesh=mesh, device=device))
+        _sync(device)
+        dist_s = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    got = [(ly.part.gid, ly.part.reps) for ly in eng.hierarchy.layers[1:]]
+    check(len(got) == len(layers), "dist full: layer count differs")
+    rel = 0.0
+    for (g, reps), (g0, reps0) in zip(got, layers):
+        check(np.array_equal(g, g0), "dist full: groups differ from the "
+                                     "mesh=None build")
+        rel = max(rel, float(np.max(np.abs(reps - reps0)
+                                    / np.maximum(np.abs(reps0), 1.0))))
+    check(rel <= 1e-8, f"dist full: reps differ by {rel} (relative)")
+    single, single_s = solve(eng.session(0), q3)
+    check(bool(r.feasible and q3.check_package(table, r.idx, r.mult)),
+          "dist full: the h=3 solve through the mesh is not a feasible, "
+          "valid package")
+    obj_rel = abs(r.obj - single.obj) / max(1.0, abs(single.obj))
+    check(obj_rel <= 1e-6, f"dist full: objective {r.obj} vs the "
+                           f"single-device {single.obj}")
+    check(launched["segment_stats"] > 0 and launched["pricing"] > 0,
+          "dist full: segment stats or pricing never launched")
+    say("dist full", rows=len(table[ATTRS[0]]), chunk_rows=DIST_CHUNK,
+        layers=[len(layers[0][0])] + [len(x[1]) for x in layers],
+        groups="identical", reps_max_rel_diff=rel, partition_s=part_s,
+        solve_s=dist_s, single_device_solve_s=single_s, obj=r.obj,
+        single_device_obj=single.obj, obj_rel_diff=obj_rel,
+        same_package=same_package(r, single), report=r.report.status,
+        lp_iters=getattr(r.ps_stats, "lp_iters", None),
+        sharded_stats_calls=len(calls["segment_stats mesh"]),
+        launches=json.dumps(launched))
+    return launched, calls
+
+
+def dist_shard(mesh, lp, ref, device):
+    """``SHARD`` armed once (seed 0): the first pivot raises, the solve
+    falls back to the host twin and reaches its optimum."""
+    from repro_torch.core.distributed import solve_lp_dist
+    from repro_torch.runtime import faults
+    t0 = time.perf_counter()
+    with faults.injected(seed=0, arms={faults.SHARD: dict(times=1)}) as inj:
+        r = solve_lp_dist(*lp, mesh=mesh, max_iters=DIST_LP["max_iters"],
+                          device=device)
+    fires = inj.fire_count(faults.SHARD)
+    check(fires == 1, f"dist SHARD: {fires} fires")
+    check(r.pivot_stats.get("fallback") == 1 and any(
+        "single_host_fallback" in nt for nt in r.notes),
+        "dist SHARD: no single-host fallback")
+    check(r.status == ref.status and abs(r.obj - ref.obj)
+          <= 1e-6 * (1 + abs(ref.obj)), "dist SHARD: another optimum")
+    say("dist SHARD", fires=fires, status=r.status, obj=r.obj,
+        numpy_obj=ref.obj, pivot_stats=json.dumps(r.pivot_stats),
+        seconds=time.perf_counter() - t0)
+
+
+def phase_dist(table, q3, alpha, layers, device="cuda"):
+    """Distributed pricing (``core.distributed``) on an NCCL world of one
+    rank: the profile, the full cell through the mesh, ``SHARD``, and each
+    kernel the phase launched held against its plain version on its real
+    inputs.  Returns ({path: launch counts}, {kernel: (max abs err,
+    numbers at its largest call)})."""
+    import torch.distributed as dist
+    mesh = dist_mesh()
+    try:
+        prof_n, calls, lp, ref = dist_profile(mesh, device)
+        full_n, seg = dist_full(mesh, table, q3, alpha, layers, device)
+        dist_shard(mesh, lp, ref, device)
+    finally:
+        dist.destroy_process_group()
+    held = hold_calls({**calls, **seg}, tag="dist ")
+    return {"dist profile": prof_n, "dist full": full_n}, {
+        "pricing": held["pricing"],
+        "bfrt_histogram": held["bfrt_histogram dist"],
+        "segment_stats": held["segment_stats mesh"]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3321,6 +3620,11 @@ def main() -> None:
     lp = phase("lp batch", phase_lp_batch, eng, *inputs)
     fixed["split_tree_descent"] = phase("kernel split_tree_descent",
                                         kernel_split_tree, eng, dev)
+    # phase "dist" builds the full cell again through the mesh: its
+    # table, query and the layers of this build (before the append)
+    full_layers = [(ly.part.gid.copy(), ly.part.reps.copy())
+                   for ly in eng.hierarchy.layers[1:]]
+    full_cell = (inputs[0], inputs[1], inputs[3], full_layers)
     append_n, append_err, append_nums, flight_n = phase(
         "cache", phase_cache, eng, inputs[0], dev)
     del inputs, eng
@@ -3353,6 +3657,10 @@ def main() -> None:
     serve_lp = phase("lm serve", phase_lm_serve, model)
     main_nums["flash_attention"] = phase(
         "lm main-path inputs", phase_lm_main_inputs, model, batch, lm_counts)
+    del model, batch
+    torch.cuda.empty_cache()
+    dist_counts, dist_nums = phase("dist", phase_dist, *full_cell)
+    del full_cell
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
@@ -3394,6 +3702,10 @@ def main() -> None:
             paths["heap"] = heap_n
             err_m = max(err_m, heap_err)
             extra["heap_largest_call"] = heap_nums
+        if name in dist_nums:
+            paths.update({p: n[name] for p, n in dist_counts.items()})
+            err_m = max(err_m, dist_nums[name][0])
+            extra["dist_largest_call"] = dist_nums[name][1]
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "launches_by_path": paths,

@@ -21,7 +21,11 @@ For relations that do not fit in memory (the paper's 10^9-tuple regime):
      kernels run on it there.  Group ids are offset into a global space.
 
 Passes 1-3 and the merge are host numpy, as in the reference without a
-mesh.  Buckets are disjoint half-open intervals on one attribute, so the
+mesh; with ``mesh`` (a ``DeviceMesh``) each chunk's moments (pass 1) and
+bucket counts (pass 2) run sharded over the mesh's leading dim on the
+ranks' devices, summed over that dim's group, while the cross-chunk
+merge stays on the host.  Buckets are disjoint half-open intervals on
+one attribute, so the
 merged result is one :class:`~repro_torch.core.partitioner.Partition`: a
 root split node holding the bucket edges whose children are the
 per-bucket split trees.
@@ -29,7 +33,6 @@ per-bucket split trees.
 The relation is consumed through the ``ChunkSource`` protocol (anything
 yielding (n_i, k) arrays); ``MemmapSource`` adapts an on-disk ``.npy``
 memmap (or, via :meth:`MemmapSource.from_raw`, a headerless binary file).
-The reference's mesh-sharded stats passes are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,8 +45,12 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.distributed import mesh_device, row_shards
 from repro_torch.core.dlv import dlv
-from repro_torch.core.partitioner import (Partition, SplitTree, no_mesh,
+from repro_torch.core.partitioner import (Partition, SplitTree,
                                           register_backend)
 from repro_torch.device import resolve_device
 
@@ -132,28 +139,89 @@ class StreamStats:
     hi: np.ndarray
 
 
+# ----------------------------------------------------- mesh-sharded passes
+
+
+def _mesh_moments(shards, chunk: np.ndarray, shift: np.ndarray):
+    """One chunk's (count, shifted sum, shifted sumsq, min, max) over the
+    mesh: the chunk padded with NaN rows to a multiple of the shards,
+    this rank's rows reduced on its device with NaN entries masked, then
+    one SUM of ``[count, sum, sumsq]`` and one MIN of ``[min, -max]``
+    over the shards' group.  ``shift`` (a per-column anchor, the
+    relation's first row) centres the sums so that ``q - n mb^2`` does not
+    cancel on large-mean, small-spread data."""
+    per = -(-len(chunk) // shards.nd)
+    v = torch.as_tensor(shards.take(np.asarray(chunk, np.float64), per,
+                                    np.nan), device=shards.device)
+    bad = torch.isnan(v)
+    vz = torch.where(bad, 0.0, v - torch.as_tensor(shift, device=v.device))
+    cnt = (~bad[:, 0]).sum().to(torch.float64).reshape(1)
+    sums = torch.cat([cnt, vz.sum(0), (vz * vz).sum(0)])
+    ext = torch.cat([torch.where(bad, float("inf"), v).amin(0),
+                     -torch.where(bad, -float("inf"), v).amax(0)])
+    dist.all_reduce(sums, group=shards.group)
+    dist.all_reduce(ext, op=dist.ReduceOp.MIN, group=shards.group)
+    sums, ext = sums.cpu().numpy(), ext.cpu().numpy()
+    k = v.shape[1]
+    return (int(sums[0]), sums[1:k + 1], sums[k + 1:], ext[:k], -ext[k:])
+
+
+def _mesh_bincount(shards, col: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """One chunk's bucket counts of one column against fixed ``edges``
+    over the mesh (NaN pad rows count nowhere), summed over the shards'
+    group."""
+    nbins = len(edges) - 1
+    per = -(-len(col) // shards.nd)
+    dev = shards.device
+    v = torch.as_tensor(shards.take(col, per, np.nan), device=dev)
+    e = torch.as_tensor(edges, dtype=torch.float64, device=dev)
+    bad = torch.isnan(v)
+    ids = (torch.searchsorted(e, torch.where(bad, e[0], v), right=True)
+           - 1).clamp(0, nbins - 1)
+    cnt = torch.zeros(nbins, dtype=torch.int64, device=dev).index_add_(
+        0, ids, (~bad).to(torch.int64))
+    dist.all_reduce(cnt, group=shards.group)
+    return cnt.cpu().numpy()
+
+
 def streaming_stats(src: ChunkSource, chunk_rows: int,
                     mesh=None) -> StreamStats:
-    """One pass: per-attribute mean/var (Chan's parallel Welford) + range."""
-    no_mesh("streaming_stats", mesh)
+    """One pass: per-attribute mean/var (Chan's parallel Welford) + range.
+
+    With ``mesh``, each chunk's (count, sum, sumsq, min, max) runs sharded
+    over the mesh's leading dim (:func:`_mesh_moments`); the cross-chunk
+    Chan merge stays on the host on (k,) accumulators.
+    """
+    shards = None if mesh is None else row_shards(mesh)
     count = 0
     mean = np.zeros(src.num_cols)
     m2 = np.zeros(src.num_cols)
     lo = np.full(src.num_cols, np.inf)
     hi = np.full(src.num_cols, -np.inf)
+    shift = None
     for c in src.chunks(chunk_rows):
         nb = len(c)
         if nb == 0:
             continue
-        mb = c.mean(axis=0)
-        m2b = ((c - mb) ** 2).sum(axis=0)
+        if shards is not None:
+            if shift is None:
+                shift = np.asarray(c[0], np.float64)  # per-column anchor
+            nb, s, q, cl, ch = _mesh_moments(shards, c, shift)
+            mbs = s / nb                       # mean of (v - shift)
+            m2b = np.maximum(q - nb * mbs * mbs, 0.0)
+            mb = shift + mbs
+        else:
+            mb = c.mean(axis=0)
+            m2b = ((c - mb) ** 2).sum(axis=0)
+            cl = c.min(axis=0)
+            ch = c.max(axis=0)
         delta = mb - mean
         tot = count + nb
         mean = mean + delta * (nb / tot)
         m2 = m2 + m2b + delta ** 2 * (count * nb / tot)
         count = tot
-        lo = np.minimum(lo, c.min(axis=0))
-        hi = np.maximum(hi, c.max(axis=0))
+        lo = np.minimum(lo, cl)
+        hi = np.maximum(hi, ch)
     var = np.maximum(m2, 0.0) / max(count, 1)
     return StreamStats(count, mean, var, lo, hi)
 
@@ -166,18 +234,24 @@ def _bucket_ids(col: np.ndarray, e: np.ndarray) -> np.ndarray:
 
 
 def _count_buckets(src: ChunkSource, attr: int, e: np.ndarray,
-                   chunk_rows: int) -> np.ndarray:
+                   chunk_rows: int, mesh=None) -> np.ndarray:
+    shards = None if mesh is None else row_shards(mesh)
     counts = np.zeros(len(e) - 1, np.int64)
     for c in src.chunks(chunk_rows):
-        if len(c):
+        if not len(c):
+            continue
+        if shards is not None:
+            counts += _mesh_bincount(shards, np.asarray(c[:, attr],
+                                                        np.float64), e)
+        else:
             counts += np.bincount(_bucket_ids(c[:, attr], e),
                                   minlength=len(counts))
     return counts
 
 
 def _bucket_edges(src: ChunkSource, attr: int, lo: float, hi: float,
-                  r: int, chunk_rows: int, max_depth: int = 8
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+                  r: int, chunk_rows: int, max_depth: int = 8,
+                  mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Equal-width edges refined until every bucket holds <= r rows.
 
     Returns ``(edges, counts)`` with counts exact for the returned edges.
@@ -194,7 +268,7 @@ def _bucket_edges(src: ChunkSource, attr: int, lo: float, hi: float,
     edges = np.asarray([lo, np.nextafter(hi, np.inf)])
     counts = None
     for _ in range(max_depth):
-        counts = _count_buckets(src, attr, edges, chunk_rows)
+        counts = _count_buckets(src, attr, edges, chunk_rows, mesh=mesh)
         if counts.max() <= r:
             return edges, counts
         new_edges = [edges[0]]
@@ -211,7 +285,7 @@ def _bucket_edges(src: ChunkSource, attr: int, lo: float, hi: float,
         edges = refined
         counts = None
     if counts is None:
-        counts = _count_buckets(src, attr, edges, chunk_rows)
+        counts = _count_buckets(src, attr, edges, chunk_rows, mesh=mesh)
     return edges, counts
 
 
@@ -384,18 +458,20 @@ def dlv_bucketed(src: ChunkSource, d_f: int, *, memory_rows: int,
     contiguous slice on ``device``, all buckets drawing from the one
     ``rng`` in bucket order.  ``spill_rows`` bounds the in-RAM scratch
     (above it the scratch is memmap-backed; default ``max(memory_rows,
-    4M)`` rows).
+    4M)`` rows); ``mesh`` runs the per-chunk stats and counting passes
+    sharded (its device type must agree with ``device``).
     """
     from repro_torch.core import relation as relation_mod  # late: a cycle
 
-    no_mesh("dlv_bucketed", mesh)
+    if mesh is not None:
+        mesh_device(mesh, device)
     dev = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     chunk_rows = chunk_rows or max(memory_rows // 4, 1024)
-    stats = streaming_stats(src, chunk_rows)
+    stats = streaming_stats(src, chunk_rows, mesh=mesh)
     attr = int(np.argmax(stats.var))
     edges, counts = _bucket_edges(src, attr, stats.lo[attr], stats.hi[attr],
-                                  memory_rows, chunk_rows)
+                                  memory_rows, chunk_rows, mesh=mesh)
     nb = len(edges) - 1
     n = src.num_rows
     k = src.num_cols
@@ -447,15 +523,15 @@ def _bucketing_backend(X, *, d_f: int = 100, memory_rows: int = None,
                        spill_dir: Optional[str] = None,
                        device="cuda") -> Partition:
     """Partitioner backend: accepts an array (wrapped in ArraySource) or
-    any ChunkSource; each bucket's DLV runs on ``device``."""
-    no_mesh("fit(backend='bucketing')", mesh)
+    any ChunkSource; each bucket's DLV runs on ``device``; ``mesh``
+    shards the per-chunk stats and counting passes."""
     src = X if isinstance(X, ChunkSource) else ArraySource(np.asarray(X))
     if memory_rows is None:
         memory_rows = max(src.num_rows // 8, 4096)
     return dlv_bucketed(src, d_f, memory_rows=memory_rows,
                         chunk_rows=chunk_rows, rng=rng, method=method,
-                        spill_rows=spill_rows, spill_dir=spill_dir,
-                        device=device)
+                        mesh=mesh, spill_rows=spill_rows,
+                        spill_dir=spill_dir, device=device)
 
 
 # Back-compat: the merged result is a plain Partition now.

@@ -35,8 +35,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import mesh_device
 from repro_torch.core.partitioner import (Partition, SplitTree, finalize,
-                                          no_mesh, register_backend)
+                                          register_backend)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dlv_scan import dlv_scan, dlv_scan_seed
 from repro_torch.kernels.segstats import segment_stats
@@ -255,10 +256,12 @@ def dlv_heap(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
     O(G) python iterations, each with its own span argsort (host) and
     scan (on ``device``).  ``scan="seed"`` runs the seed's scan
     (``dlv_1d_seed``) in place of ``dlv_1d``; ``time_budget_s`` raises
-    TimeoutError mid-build when exceeded."""
+    TimeoutError mid-build when exceeded; ``chunk_rows`` and ``mesh`` go
+    to the final group stats (``partitioner.group_stats``)."""
     import time as _time
     t0 = _time.time()
-    no_mesh("dlv_heap", mesh)
+    if mesh is not None:
+        mesh_device(mesh, device)
     dev = resolve_device(device)
     scan_1d = dlv_1d_seed if scan == "seed" else dlv_1d
     X = np.asarray(X, np.float64)
@@ -362,10 +365,12 @@ def dlv_rounds(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
 
     Same rounds, selection rule and tree as the reference; ``log``
     (optional list) receives one dict per round; ``chunk_rows`` runs the
-    final group stats chunk by chunk (``partitioner.group_stats``)."""
+    final group stats chunk by chunk (``partitioner.group_stats``), with
+    ``mesh`` sharded over its leading dim."""
     import time as _time
     t0 = _time.time()
-    no_mesh("dlv", mesh)
+    if mesh is not None:
+        mesh_device(mesh, device)
     dev = resolve_device(device)
     X = np.asarray(X, np.float64)
     n, k = X.shape
@@ -559,7 +564,8 @@ def dlv_rounds(X: np.ndarray, d_f: int, *, c: Optional[np.ndarray] = None,
             ~pid_to_gid[ch - _PID_TAG] if ch >= _PID_TAG else ch
             for ch in node.children]
     return finalize(X, order.cpu().numpy(), offsets,
-                    _tree_from_nodes(nodes, root), chunk_rows=chunk_rows)
+                    _tree_from_nodes(nodes, root), mesh=mesh,
+                    chunk_rows=chunk_rows)
 
 
 # ------------------------------------------------------------- entry point

@@ -29,9 +29,16 @@ which then runs on the engine's device.
 ``True`` makes a private ``QCache``, an instance is shared (across
 engines and sessions: the serving shape), ``None`` or ``False`` means
 none.  ``session(seed)`` gives a per-session engine over the same table,
-hierarchy, cache and device with a private rng.  Mesh distribution is
-later work: ``mesh=`` raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item.
+hierarchy, cache and device with a private rng.
+
+``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh``; every rank
+builds the same engine) shards the build's stats passes over the mesh's
+leading dim: layer 0's chunked group stats with ``chunk_rows``, and the
+streaming passes of a streamed table.  Its device type must agree with
+``device``.  The layer LPs reach the mesh through the solver::
+
+    engine.solve(query, lp_solver=functools.partial(
+        solve_lp, mesh=mesh, device=device))    # core.lp.solve_lp
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 
 from repro_torch.core import guard
 from repro_torch.core import ilp as ilp_mod
+from repro_torch.core.distributed import mesh_device
 from repro_torch.core.dual_reducer import PackageResult
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.lp import OPTIMAL, solve_lp_np
@@ -56,12 +64,6 @@ from repro_torch.core.sketchrefine import sketch_refine
 from repro_torch.device import resolve_device
 
 
-def _unported(what: str, item: str):
-    """The error of a reference feature the port does not have yet."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item {item})")
-
-
 class PackageQueryEngine:
     def __init__(self, table, attrs: Sequence[str],
                  *, d_f: int = 100, alpha: int = 100_000,
@@ -71,8 +73,7 @@ class PackageQueryEngine:
                  memory_rows: Optional[int] = None, mesh=None,
                  cache=None, device="cuda"):
         if mesh is not None:
-            raise _unported("PackageQueryEngine(mesh=)",
-                            "6: distributed pricing")
+            mesh_device(mesh, device)
         self.table: Relation = as_relation(table, columns=list(attrs))
         self.attrs = list(attrs)
         self.d_f = d_f
@@ -81,6 +82,7 @@ class PackageQueryEngine:
         self.layer0_backend = layer0_backend
         self.chunk_rows = chunk_rows
         self.memory_rows = memory_rows
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self.hierarchy: Optional[Hierarchy] = None
@@ -118,7 +120,7 @@ class PackageQueryEngine:
                                    layer0_backend=self.layer0_backend,
                                    chunk_rows=self.chunk_rows,
                                    memory_rows=self.memory_rows,
-                                   device=self.device)
+                                   mesh=self.mesh, device=self.device)
         self.partition_time_s = time.time() - t0
         return self
 

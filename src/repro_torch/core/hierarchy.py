@@ -17,15 +17,16 @@ Out-of-core layer 0: the hierarchy accepts any
 streamed relation is partitioned through the ``bucketing`` backend -- the
 default for out-of-core sources -- consuming the relation chunk by chunk
 without ever materialising the layer-0 attribute matrix (``Layer.X`` is
-None there); ``memory_rows`` bounds the per-bucket resident set and each
-bucket's DLV runs on ``device``.  For in-memory tables ``chunk_rows``
-routes layer-0 group stats through the chunked accumulation, and
+None there); ``memory_rows`` bounds the per-bucket resident set, each
+bucket's DLV runs on ``device`` and ``mesh`` (a ``DeviceMesh``) shards
+the streaming stats and counting passes.  For in-memory tables
+``chunk_rows`` (optionally with ``mesh``) routes layer-0 group stats
+through the chunked (mesh-sharded) accumulation, and
 ``layer0_backend="bucketing"`` with the same ``memory_rows`` gives the
 memmap build's partition bit for bit.
 
 :meth:`Hierarchy.from_arrays` loads a hierarchy built elsewhere (for
-example by the reference package) from plain arrays.  The mesh-sharded
-passes are later work.
+example by the reference package) from plain arrays.
 
 Appends (the Stochastic SketchRefine re-partitioning story): see
 :meth:`Hierarchy.append` -- new tuples descend to their layer-0 leaf
@@ -44,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core import partitioner
+from repro_torch.core.distributed import mesh_device
 from repro_torch.core.partitioner import Partition, SplitTree
 from repro_torch.core.relation import Relation, as_relation
 from repro_torch.device import resolve_device
@@ -103,7 +105,8 @@ class Hierarchy:
                  backend_kwargs: Optional[dict] = None,
                  mesh=None, chunk_rows: Optional[int] = None,
                  memory_rows: Optional[int] = None, device="cuda"):
-        partitioner.no_mesh("Hierarchy", mesh)
+        if mesh is not None:
+            mesh_device(mesh, device)
         self.attrs = list(attrs)
         self.d_f = d_f
         self.alpha = alpha
@@ -146,15 +149,18 @@ class Hierarchy:
                     layer_kw.setdefault("memory_rows", memory_rows)
                 if chunk_rows is not None:
                     layer_kw.setdefault("chunk_rows", chunk_rows)
+                if mesh is not None:
+                    layer_kw.setdefault("mesh", mesh)
                 part = partitioner.fit(
                     rel.chunk_source(self.attrs, chunk_rows),
                     backend=layer0_backend, d_f=d_f, rng=rng, **layer_kw)
             else:
                 lb = layer0_backend if len(self.layers) == 1 else backend
                 if len(self.layers) == 1 and chunk_rows is not None:
-                    # layer 0 is the big one: chunked group-stats
-                    # accumulation instead of a full sorted copy
-                    layer_kw["chunk_rows"] = chunk_rows
+                    # layer 0 is the big one: chunked (optionally mesh-
+                    # sharded) group-stats accumulation instead of a full
+                    # sorted copy
+                    layer_kw.update(chunk_rows=chunk_rows, mesh=mesh)
                 if len(self.layers) == 1 and lb == "bucketing" and \
                         memory_rows is not None:
                     # same bucket layout as the streamed path -> in-memory

@@ -474,12 +474,19 @@ def solve_lp(c, A_t, bl, bu, ub, *, lb: Optional[np.ndarray] = None,
     Same conventions as ``solve_lp_np``, including the warm-start and
     budget/monitor contracts: tolerance 1e-7, the pivot cap
     ``budget.lp_iter_cap(max_iters)`` and no shared cap, as in the
-    reference.  ``mesh=`` (the distributed pricing backend) is not ported
-    yet and raises."""
+    reference.
+
+    ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh``) routes the
+    solve through the distributed pricing backend
+    (``core.distributed.solve_lp_dist``), as the reference does: every
+    rank calls with the same arguments; ``device`` must agree with the
+    mesh (``ValueError``), so a CPU (gloo) mesh takes ``device="cpu"``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_lp(mesh=) is not ported yet (ROADMAP queue 1, item 6: "
-            "distributed pricing)")
+        from repro_torch.core.distributed import solve_lp_dist
+        return solve_lp_dist(c, A_t, bl, bu, ub, lb=lb,
+                             max_iters=max_iters, warm_start=warm_start,
+                             mesh=mesh, budget=budget, monitor=monitor,
+                             device=device)
     from repro_torch.core.lp_batch import _dispatch, _monitor
     from repro_torch.device import resolve_device
     c = np.asarray(c, np.float64)

@@ -22,8 +22,9 @@ baseline, host numpy as in the reference) and ``bucketing`` (the
 out-of-core Appendix D.2 scheme: host streaming passes, each bucket's DLV
 on the device).  :func:`group_stats` is the reference's host pass: one
 ``reduceat`` sweep in memory, or a chunked accumulation with
-``chunk_rows``.  The reference's mesh-sharded passes are not ported yet:
-``mesh=`` raises naming their ROADMAP item.
+``chunk_rows``; with a ``mesh`` as well, each chunk's sums run sharded
+over the mesh's leading dim through the segment-stats kernel and a SUM
+over that dim's group.
 """
 from __future__ import annotations
 
@@ -33,9 +34,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed import row_shards
 from repro_torch.device import resolve_device
 from repro_torch.kernels import split_tree as split_tree_kernel
+from repro_torch.kernels.segstats import MAX_K, segment_stats
 
 # guards every SplitTree's cache of device copies: sessions share trees
 # across threads
@@ -222,14 +226,6 @@ def available_backends():
     return sorted(_BACKENDS)
 
 
-def no_mesh(what: str, mesh) -> None:
-    """The error of a ``mesh=`` the port cannot serve yet."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what}(mesh=...) is not ported yet "
-                                  "(ROADMAP queue 1, item 6: distributed "
-                                  "pricing)")
-
-
 def fit(X, *, backend: str = "dlv", **kwargs) -> Partition:
     """Partition ``X`` with the named backend: an (n, k) array, or a
     ChunkSource for ``bucketing`` (e.g. ``Relation.chunk_source()`` of an
@@ -253,9 +249,12 @@ def group_stats(X: np.ndarray, order: np.ndarray, offsets: np.ndarray, *,
 
     In-memory default: a single vectorized ``reduceat`` sweep over
     ``X[order]``.  With ``chunk_rows`` set, the sorted relation is consumed
-    chunk by chunk and only the (G, k) accumulators are kept whole.
+    chunk by chunk and only the (G, k) accumulators are kept whole; with
+    ``mesh`` (a ``DeviceMesh``) also set, each chunk is padded to the same
+    sharded shape (pad rows in the dead group G), each rank's rows go
+    through ``kernels.segment_stats`` with G + 1 groups on its device, and
+    the sums are added up over the mesh's leading dim (one SUM).
     """
-    no_mesh("group_stats", mesh)
     X = np.asarray(X)
     n, k = X.shape
     G = len(offsets) - 1
@@ -274,17 +273,21 @@ def group_stats(X: np.ndarray, order: np.ndarray, offsets: np.ndarray, *,
     sums = np.zeros((G, k))
     lo = np.full((G, k), np.inf)
     hi = np.full((G, k), -np.inf)
+    shards = None if mesh is None else row_shards(mesh)
     for a in range(0, n, chunk_rows):
         b = min(a + chunk_rows, n)
         chunk = X[order[a:b]]
         # contiguous layout -> chunk-local ids are sorted ascending
         ids = np.searchsorted(offsets, np.arange(a, b), side="right") - 1
         u0, u1 = int(ids[0]), int(ids[-1])
-        loc = ids - u0
-        nloc = u1 - u0 + 1
-        for j in range(k):
-            sums[u0:u1 + 1, j] += np.bincount(loc, weights=chunk[:, j],
-                                              minlength=nloc)
+        if shards is not None:
+            sums += _sharded_sums(shards, chunk, ids, G, chunk_rows)
+        else:
+            loc = ids - u0
+            nloc = u1 - u0 + 1
+            for j in range(k):
+                sums[u0:u1 + 1, j] += np.bincount(loc, weights=chunk[:, j],
+                                                  minlength=nloc)
         # boxes: reduceat over the chunk's group boundary positions
         bpos = np.concatenate([[0], np.flatnonzero(np.diff(ids)) + 1])
         np.minimum.at(lo, ids[bpos],
@@ -293,6 +296,23 @@ def group_stats(X: np.ndarray, order: np.ndarray, offsets: np.ndarray, *,
                       np.maximum.reduceat(chunk, bpos, axis=0))
     reps = sums / np.maximum(counts, 1.0)[:, None]
     return reps, lo, hi
+
+
+def _sharded_sums(shards, chunk: np.ndarray, ids: np.ndarray, G: int,
+                  chunk_rows: int) -> np.ndarray:
+    """(G, k) sums of one chunk over the mesh: the chunk padded to the
+    same sharded shape for every chunk (pad rows zero, in group G), this
+    rank's rows through the segment-stats kernel (at most ``MAX_K``
+    columns a call), the partial sums added up over the shards' group."""
+    per = -(-chunk_rows // shards.nd)
+    dev = shards.device
+    v = torch.as_tensor(shards.take(chunk, per, 0.0), device=dev)
+    i = torch.as_tensor(shards.take(ids, per, G), dtype=torch.int64,
+                        device=dev)
+    s = torch.cat([segment_stats(v[:, j:j + MAX_K].contiguous(), i, G + 1)[1]
+                   for j in range(0, v.shape[1], MAX_K)], dim=1)
+    dist.all_reduce(s, group=shards.group)
+    return s[:G].cpu().numpy()
 
 
 def finalize(X: np.ndarray, order: np.ndarray, offsets: np.ndarray,

@@ -12,10 +12,10 @@ when no injector is active:
   retries with capped exponential backoff);
 * ``lp.binv``   — perturb the maintained basis inverse inside
   ``solve_lp_np`` (forcing the NumericalMonitor drift path);
-* ``dist.shard`` — raise inside the ``solve_lp_dist`` pivot loop,
-  standing in for a dead mesh shard (forcing the single-host fallback).
-  Defined here but polled nowhere yet: the distributed pivot loop is
-  ROADMAP queue 1, item 6, and its site comes with it.
+* ``dist.shard`` — raise inside the ``solve_lp_dist`` pivot loop
+  (``core.distributed``), standing in for a dead mesh shard (forcing the
+  single-host fallback).  The schedule is per process: armed alike on
+  every rank, it fires on every rank at the same pivot.
 
 Determinism — now per *thread*: each thread that touches an injector is
 lazily assigned a stream in registration order; stream 0 draws from
@@ -43,8 +43,7 @@ from repro_torch.runtime import racecheck
 CHUNK_READ = "relation.chunk_read"
 GATHER_READ = "relation.gather"
 BINV = "lp.binv"
-# polled by the distributed pivot loop, which comes with ROADMAP queue 1,
-# item 6 (distributed pricing); until then it never fires
+# polled at the top of each pivot of core.distributed.solve_lp_dist
 SHARD = "dist.shard"
 
 

@@ -1298,3 +1298,90 @@ def test_append_descends_through_the_kernel_once(dev):
     assert split_tree.launches == before + 1
     np.testing.assert_array_equal(rep.gids,
                                   h.layers[1].part.tree.descend_batch(rows))
+
+
+# ------------------------------------------- distributed pricing (world 1)
+
+
+@pytest.fixture(scope="module")
+def dist_meshes(tmp_path_factory):
+    """A process group of one rank with both backends (gloo for CPU
+    tensors, NCCL for CUDA tensors) and a (1, 1) mesh on each device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path_factory.mktemp("dist") / "store"), 1)
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=store, rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield {d: init_device_mesh(d, (1, 1), mesh_dim_names=("data",
+                                                              "model"))
+               for d in ("cuda", "cpu")}
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_package_lp(seed, n, m=6):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=n)
+    A = np.stack([np.ones(n)] + [
+        rng.normal(rng.uniform(-2, 5), rng.uniform(0.5, 2), n)
+        for _ in range(m - 1)])
+    x0 = np.zeros(n)
+    x0[rng.choice(n, 16, replace=False)] = 1.0
+    act = A @ x0
+    w = np.maximum(np.abs(act) * 0.05, 0.5)
+    return c, A, act - w, act + w, np.ones(n)
+
+
+@pytest.mark.parametrize("seed, budget", [(0, 25.0), (1, 3.0), (2, 400.0)])
+def test_dist_pricing_step_on_the_card_is_the_cpu_step(dist_meshes, seed,
+                                                       budget):
+    """The NCCL world-1 pricing step at N = 100,004 (one launch each of
+    pricing and the histogram) against the same step on the gloo world:
+    the selection and the flip mask exact, the sums 1e-12 relative."""
+    from repro_torch.core.distributed import make_pq_step
+    rng = np.random.default_rng(seed)
+    m, N = 4, 100_004
+    A, lo, hi = rng.normal(size=(m, N)), np.zeros(N), rng.uniform(1, 3, N)
+    state = rng.integers(0, 3, N)
+    rho = rng.normal(size=m)
+    d = rng.normal(size=N) - rng.normal(size=m) @ A
+    outs = {}
+    for kind, mesh in dist_meshes.items():
+        step = make_pq_step(mesh, m, N)[0]
+        dv = torch.device(kind)
+        p0, b0 = pricing.launches, bfrt.launches
+        outs[kind] = [o.cpu() for o in step(
+            _t(A, dv), _t(d, dv), _t(lo, dv), _t(hi, dv),
+            _t(state, dv, torch.int32), _t(rho, dv), 1.0, budget)]
+        if kind == "cuda":
+            torch.cuda.synchronize()
+            assert (pricing.launches - p0, bfrt.launches - b0) == (1, 1)
+    names = ("alpha", "flip_mask", "r_best", "q", "d_q", "at_up_q", "Acol",
+             "fvec", "n_flips", "has_cross", "exact")
+    for name, g, w in zip(names, outs["cuda"], outs["cpu"]):
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12,
+                                       msg=name)
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("seed, n", [(0, 800), (3, 800), (2, 100_000)])
+def test_dist_solve_on_the_card_is_the_cpu_solve(dist_meshes, seed, n):
+    """``solve_lp_dist`` on the card against the gloo world's: the same
+    pivots, pivot_stats and basis, the objective 1e-9 relative."""
+    from repro_torch.core.distributed import solve_lp_dist
+    lp = _dist_package_lp(seed, n)
+    got = solve_lp_dist(*lp, mesh=dist_meshes["cuda"], device="cuda")
+    want = solve_lp_dist(*lp, mesh=dist_meshes["cpu"], device="cpu")
+    assert got.status == want.status == 0
+    assert (got.iters, got.pivot_stats) == (want.iters, want.pivot_stats)
+    assert np.array_equal(np.sort(got.basis), np.sort(want.basis))
+    assert got.obj == pytest.approx(want.obj, rel=1e-9, abs=1e-9)

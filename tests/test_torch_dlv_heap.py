@@ -21,6 +21,7 @@ import repro.core  # noqa: F401  (jax x64, as the reference runs)
 import jax.numpy as jnp
 from repro.core import dlv as ref_dlv
 from repro.core import partitioner as ref_partitioner
+import torch_dist_worker as W
 from repro_torch.core import dlv, partitioner
 from repro_torch.kernels import dlv_scan as kdlv
 
@@ -118,13 +119,38 @@ def test_zero_time_budget_raises_in_both(X):
         dlv.dlv_heap(X, 60, time_budget_s=0, device="cpu")
 
 
-def test_heap_mesh_names_item_6(X):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 6"):
-        dlv.dlv_heap(X[:500], 10, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 6"):
-        dlv.dlv(X[:500], 10, method="heap", mesh=object(), device="cpu")
+@pytest.fixture(scope="module")
+def world1(tmp_path_factory):
+    with W.world1(tmp_path_factory.mktemp("world1") / "store"):
+        yield
+
+
+def test_heap_mesh_names_item_6(X, world1):
+    """Item 6 has landed: with a world-1 mesh and ``chunk_rows`` the heap
+    build's group stats run sharded -- the partition of ``mesh=None`` and
+    the reference's mesh build; a mesh that is not a ``DeviceMesh`` is a
+    ``TypeError``."""
+    import jax
+    Xs = X[:500]
+    want = dlv.dlv_heap(Xs, 10, device="cpu")
+    ref = ref_dlv.dlv_heap(Xs, 10, chunk_rows=128,
+                           mesh=jax.make_mesh((1, 1), W.NAMES))
+    for got in (dlv.dlv_heap(Xs, 10, mesh=W.mesh(), chunk_rows=128,
+                             device="cpu"),
+                dlv.dlv(Xs, 10, method="heap", mesh=W.mesh(),
+                        chunk_rows=128, device="cpu")):
+        for f in ("order", "offsets", "gid"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+            np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))
+        for f in ("reps", "boxes_lo", "boxes_hi"):
+            np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                       rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(getattr(got, f), getattr(ref, f),
+                                       rtol=1e-12, atol=1e-12)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        dlv.dlv_heap(Xs, 10, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        dlv.dlv(Xs, 10, method="heap", mesh=object(), device="cpu")
 
 
 def test_heap_seed_build_equals_the_reference():

@@ -6,15 +6,28 @@ of a bare ``TypeError``, ``AttributeError`` or "unknown backend".  A case
 goes away when its item lands, and cases of the landed surface take its
 place: the engine's ``cache=`` and ``session``, the device descent
 (``get_group_batch(T, jit=True)``), with a loaded hierarchy that appends
-and registers with a cache, and the heap-built DLV.
+and registers with a cache, the heap-built DLV, and ``mesh=`` (a
+``DeviceMesh``; here a gloo world of one rank): each mesh-sharded pass
+equal to ``mesh=None`` and the reference's, anything else a
+``TypeError``.
 """
 import numpy as np
 import pytest
 
+import torch_dist_worker as W
+from repro.core import bucketing as ref_bucketing
+from repro.core import partitioner as ref_partitioner
+from repro.core.hierarchy import Hierarchy as RefHierarchy
 from repro_torch.core import bucketing, dlv, partitioner
 from repro_torch.core.engine import PackageQueryEngine
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.qcache import QCache
+
+
+@pytest.fixture(scope="module")
+def world1(tmp_path_factory):
+    with W.world1(tmp_path_factory.mktemp("world1") / "store"):
+        yield
 
 
 def _table(n=2_000):
@@ -26,9 +39,12 @@ def _table(n=2_000):
     ("mesh", object(), "item 6"),
 ])
 def test_unported_engine_knobs_name_their_item(kwarg, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    """Item 6 has landed: a ``mesh=`` that is not a ``DeviceMesh`` is a
+    ``TypeError`` that no longer points at the ROADMAP."""
+    with pytest.raises(TypeError, match="DeviceMesh") as err:
         PackageQueryEngine(_table(), ["a", "b"], device="cpu",
                            **{kwarg: value})
+    assert item not in str(err.value)
 
 
 def test_engine_knobs_left_at_their_defaults_build():
@@ -70,32 +86,63 @@ def test_session_shares_hierarchy_and_cache_and_owns_its_rng():
         np.random.default_rng(7).integers(0, 1 << 30, 4).tolist()
 
 
+def _flat(out):
+    """A call's result as a list of arrays, to compare two of them."""
+    if isinstance(out, Hierarchy) or isinstance(out, RefHierarchy):
+        return [a for ly in out.layers[1:] for a in _flat(ly.part)]
+    if hasattr(out, "gid"):
+        return [out.gid, out.order, out.offsets, out.reps, out.boxes_lo,
+                out.boxes_hi]
+    if hasattr(out, "var"):
+        return [np.asarray(out.count), out.mean, out.var, out.lo, out.hi]
+    return list(out)
+
+
 @pytest.mark.parametrize("call", ["fit bucketing", "fit dlv", "hierarchy",
                                   "group_stats", "streaming_stats"])
-def test_mesh_sharded_passes_name_item_6(call):
-    """The reference's ``mesh=`` (its sharded stats passes) is item 6."""
+def test_mesh_sharded_passes_name_item_6(call, world1):
+    """The reference's ``mesh=`` (its sharded stats passes, item 6) on a
+    world-1 mesh: the same answer as ``mesh=None`` and as the
+    reference's own mesh path."""
+    import jax
     X = np.random.default_rng(1).normal(size=(500, 2))
-    mesh = object()
-    calls = {
-        "fit bucketing": lambda: partitioner.fit(
-            X, backend="bucketing", d_f=10, mesh=mesh, device="cpu"),
-        "fit dlv": lambda: partitioner.fit(X, backend="dlv", d_f=10,
-                                           mesh=mesh, device="cpu"),
-        "hierarchy": lambda: Hierarchy(_table(), ["a", "b"], d_f=20,
-                                       alpha=150, mesh=mesh, device="cpu"),
-        "group_stats": lambda: partitioner.group_stats(
-            X, np.arange(500), np.array([0, 250, 500]), mesh=mesh,
-            chunk_rows=100),
-        "streaming_stats": lambda: bucketing.streaming_stats(
-            bucketing.ArraySource(X), 100, mesh=mesh)}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 6"):
-        calls[call]()
+    table = _table()
+    ids = (np.arange(500), np.array([0, 250, 500]))
+
+    def calls(part, hier, bk, mesh, **dev):
+        rng = np.random.default_rng(0)
+        return {
+            "fit bucketing": lambda: part.fit(
+                X, backend="bucketing", d_f=10, mesh=mesh,
+                chunk_rows=128, **dev),
+            "fit dlv": lambda: part.fit(X, backend="dlv", d_f=10,
+                                        mesh=mesh, chunk_rows=128, **dev),
+            "hierarchy": lambda: hier(table, ["a", "b"], d_f=20, alpha=150,
+                                      mesh=mesh, chunk_rows=700, rng=rng,
+                                      **dev),
+            "group_stats": lambda: part.group_stats(
+                X, *ids, mesh=mesh, chunk_rows=100),
+            "streaming_stats": lambda: bk.streaming_stats(
+                bk.ArraySource(X), 100, mesh=mesh)}[call]()
+
+    got = _flat(calls(partitioner, Hierarchy, bucketing, W.mesh(),
+                      device="cpu"))
+    plain = _flat(calls(partitioner, Hierarchy, bucketing, None,
+                        device="cpu"))
+    ref = _flat(calls(ref_partitioner, RefHierarchy, ref_bucketing,
+                      jax.make_mesh((1, 1), W.NAMES)))
+    assert len(got) == len(plain) == len(ref) > 0
+    for g, p, r in zip(got, plain, ref):
+        np.testing.assert_allclose(g, p, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(g, r, rtol=1e-12, atol=1e-12)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        calls(partitioner, Hierarchy, bucketing, object(), device="cpu")
 
 
-def test_heap_build_through_dlv_and_fit():
+def test_heap_build_through_dlv_and_fit(world1):
     """``dlv(method="heap")`` and ``fit(..., method="heap")`` reach the
-    heap build (ported) and give one partition; its ``mesh=`` is item 6."""
+    heap build (ported) and give one partition; with a mesh (item 6) and
+    ``chunk_rows`` its group stats run sharded, to the same partition."""
     X = np.random.default_rng(1).normal(size=(500, 2))
     a = dlv.dlv(X, d_f=10, method="heap", device="cpu")
     b = partitioner.fit(X, backend="dlv", d_f=10, method="heap",
@@ -104,8 +151,10 @@ def test_heap_build_through_dlv_and_fit():
     for f in ("order", "offsets", "gid"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
     np.testing.assert_array_equal(a.tree.bounds, b.tree.bounds)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        dlv.dlv_heap(X, 10, mesh=object(), device="cpu")
+    c = dlv.dlv_heap(X, 10, mesh=W.mesh(), chunk_rows=128, device="cpu")
+    for f in ("order", "offsets", "gid"):
+        np.testing.assert_array_equal(getattr(c, f), getattr(a, f))
+    np.testing.assert_allclose(c.reps, a.reps, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("level", ["partition", "hierarchy"])

@@ -8,10 +8,10 @@ that ``_retry_io`` retries and at the top of each ``solve_lp_np`` pivot,
 so the twins of ``tests/test_resilience.py``'s fault cases give the
 reference's results, fire counts and retry counts, and the engine under
 each of the four arms gives the reference's status, ``fault_retries``,
-fire counts, package and objective.  The reference's
-``test_dist_shard_fault_falls_back_to_single_host`` waits for the
-distributed pivot loop (ROADMAP queue 1, item 6): until then ``SHARD``
-never fires in the port.
+fire counts, package and objective.  ``SHARD`` is polled only by the
+distributed pivot loop, which these solves do not run; the reference's
+``test_dist_shard_fault_falls_back_to_single_host`` has its twin in
+``tests/test_torch_distributed.py``.
 """
 import threading
 
@@ -290,7 +290,7 @@ def test_engine_never_raises_under_faults(site, arm):
     assert res.report.status == ref.report.status
     assert res.report.fault_retries == ref.report.fault_retries
     assert fired == ref_fired
-    assert fired[faults.SHARD] == 0        # polled nowhere until item 6
+    assert fired[faults.SHARD] == 0        # no distributed pivot loop here
     assert res.feasible == ref.feasible
     if ref.feasible:
         np.testing.assert_array_equal(res.idx, ref.idx)

@@ -15,6 +15,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import torch_dist_worker as W
 from repro.core import guard as ref_guard
 from repro.core import lp as ref_lp
 from repro.core import lp_batch as ref_batch
@@ -353,7 +354,7 @@ def test_solve_lp_is_one_lane_of_the_engine(seed):
         [nt for nt in ref_warm.notes if not nt.startswith("drift")]
 
 
-def test_solve_lp_budget_and_mesh():
+def test_solve_lp_budget_and_mesh(tmp_path):
     c, A, bl, bu, ubs, _ = _flight(2)
     got = port_lp.solve_lp(c, A, bl, bu, ubs[0], device="cpu",
                            budget=guard.SolveBudget(max_pivots=0))
@@ -365,8 +366,21 @@ def test_solve_lp_budget_and_mesh():
     got = port_lp.solve_lp(c, A, bl, bu, ubs[0], device="cpu", max_iters=1)
     ref = ref_lp.solve_lp(c, A, bl, bu, ubs[0], max_iters=1)
     assert (got.status, got.iters) == (ref.status, ref.iters)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_lp.solve_lp(c, A, bl, bu, ubs[0], mesh=object(), device="cpu")
+    # mesh= (item 6, landed) routes to the distributed backend: on a
+    # world-1 gloo mesh the reference's answer on its (1, 1) mesh
+    import jax
+    with W.world1(tmp_path / "store"):
+        got = port_lp.solve_lp(c, A, bl, bu, ubs[0], mesh=W.mesh(),
+                               device="cpu")
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            port_lp.solve_lp(c, A, bl, bu, ubs[0], mesh=object(),
+                             device="cpu")
+    ref = ref_lp.solve_lp(c, A, bl, bu, ubs[0],
+                          mesh=jax.make_mesh((1, 1), W.NAMES))
+    assert (got.status, got.iters, got.pivot_stats) == (
+        ref.status, ref.iters, ref.pivot_stats)
+    assert got.obj == pytest.approx(ref.obj, rel=1e-9, abs=1e-9)
+    assert np.array_equal(np.sort(got.basis), np.sort(ref.basis))
 
 
 # ---------------------------------------- the warp path's ordered-merge walk

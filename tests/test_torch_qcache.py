@@ -370,8 +370,8 @@ def test_warm_rejected_surfaced(sides, monkeypatch):
 
 def test_bounded_step_cache_counters():
     """The port's step cache counts as the reference's over the same key
-    sequence (the module-level cache of the distributed steps comes with
-    ROADMAP queue 1 item 6)."""
+    sequence (``core.distributed`` keeps its step triples in one, as the
+    batched LP engine keeps its workspaces)."""
     stats = []
     for Cache in (RefStepCache, BoundedStepCache):
         c = Cache(maxsize=2)
