@@ -108,12 +108,22 @@ package.  Phases, one line each (or one per kernel):
    scores) held to the heap build's quality bar (group counts within
    max(10, G/3), each attribute's weighted ratio score within 1.25 x the
    heap build's + 5e-3);
-5f. heap seed: the same build with ``scan="seed"`` (the seed's scan,
-   ``dlv_scan_seed_kernel``, one thread a span), every seed-scan launch
-   held to ``dlv_scan_seed_plain`` (bit-equal), and "kernel
-   dlv_scan_seed[...]" lines for the first (largest) span and a fixed
-   1M-row span: ms (CUDA events), device ms (profiler), plain ms, bound,
-   launches;
+5f. heap seed: the same build with ``scan="seed"`` (the seed's scan:
+   the certified design's four kernels a call, prefix sums across the
+   card and a one-CTA walk), every seed-scan call held to
+   ``dlv_scan_seed_plain`` (bit-equal; the replaced one-thread kernel,
+   ``serial=True``, too; the first call's counters to
+   ``seed_scan_certified_plain``'s), the build's calls replayed (CUDA
+   events; the profiler's summed seed-kernel device ms, profiled again
+   while a kernel's record is missing), its wall uncaptured in turns
+   with the same build through the replaced kernel (new, serial,
+   serial, new), and "kernel dlv_scan_seed[...]" lines for the first
+   (largest) span and a fixed 1M-row span: ms (CUDA events), device ms
+   (profiler, a call's four kernels summed; profiled again up to three
+   times before "not measured"; each kernel's in ``kernel_ms``), plain
+   ms, bound, launches, the counters (windows, near-ties, short runs,
+   rows stepped serially, tests, cycles) and the replaced kernel's ms
+   and device ms;
 5g. faults: the 10M-row tpch table written to ``build/streamed`` and
    opened as a ``MemmapRelation`` (the bucketing build within 2.5M
    resident rows), Q2_TPCH h=3 clean and then under each arm of the
@@ -267,7 +277,8 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
                                    "host descent and, for member rows, "
                                    "the rows' own group ids",
              "dlv_scan_seed": "cuts bit-equal to dlv_scan_seed_plain on "
-                              "every call of the heap-seed build"}
+                              "every call of the heap-seed build and on "
+                              "the fixed span"}
 # the flash kernel against its plain version, by dtype: an elementwise
 # limit (see flash_agreement) and a bar on the relative norm of the error
 FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
@@ -369,23 +380,40 @@ def pricing_check(args, tol=REL_TOL) -> float:
     return worst
 
 
-def per_call_device(call, calls: int, module, prefix: str,
-                    counter: str = "launches") -> dict:
-    """``call()`` ``calls`` times under the profiler: the device ms per call
-    of this repo's kernels named ``prefix...``, the launches per call (the
-    wrapper's own count ``module.<counter>``, exact) and how many of them
-    the profiler recorded.  Where it recorded fewer, the device ms is their
-    mean scaled to every launch; where it recorded none, None (not
-    measured)."""
-    before = getattr(module, counter)
-    ours = device_profile(lambda: [call() for _ in range(calls)])[3]
-    launched = getattr(module, counter) - before
-    mine = [(ms, n) for k, (ms, n) in ours.items() if k.startswith(prefix)]
-    seen = sum(n for _, n in mine)
-    device = sum(ms for ms, _ in mine) / seen * launched / calls \
-        if seen else None
-    return {"device_ms": device, "launches_per_call": launched / calls,
-            "profiled_launches": f"{seen} of {launched}"}
+def per_call_device(call, calls: int, module, prefix,
+                    counter: str = "launches",
+                    kernels_per_call: int = 1) -> dict:
+    """``call()`` ``calls`` times under the profiler: the device ms a call
+    of this repo's kernels named ``prefix...`` (a string or a tuple of
+    them), summed over every kernel the calls started; the launches a call
+    (the wrapper's own count ``module.<counter>``, exact); how many of the
+    started kernels the profiler recorded; and ``kernel_ms``, each
+    kernel's mean ms and records.  The profiler can lose records, so the
+    calls are profiled again, up to four times in all, until it has
+    recorded every kernel they started.  If it never has, and each call
+    started one kernel (the same work every call), the recorded mean is
+    the call's time (the estimate these rows have always printed, beside
+    "seen of started"); where a call starts several kernels of different
+    lengths (the seed scan's call counts once and starts
+    ``kernels_per_call`` = 4, the histogram's two; a replay of a build's
+    calls), no mean
+    stands for them, and the device ms is None (not measured)."""
+    for _ in range(4):
+        before = getattr(module, counter)
+        ours = device_profile(lambda: [call() for _ in range(calls)])[3]
+        started = (getattr(module, counter) - before) * kernels_per_call
+        mine = {k: v for k, v in ours.items() if k.startswith(prefix)}
+        seen = sum(n for _, n in mine.values())
+        if seen >= started:
+            break
+    total = sum(ms for ms, _ in mine.values())
+    device = total / calls if seen >= started > 0 \
+        else total / seen if seen and started == calls else None
+    return {"device_ms": device,
+            "launches_per_call": started / kernels_per_call / calls,
+            "profiled_launches": f"{seen} of {started}",
+            "kernel_ms": json.dumps({k: [ms / n, n]
+                                     for k, (ms, n) in mine.items()})}
 
 
 def pricing_times(args) -> dict:
@@ -729,22 +757,9 @@ def bfrt_hist_times(ratio, cost, edges) -> dict:
         N * (int(np.log2(NB)) + 2),
         timed_ms(lambda: bfrt.bfrt_histogram(ratio, cost, edges), 200),
         timed_ms(lambda: bfrt.bfrt_histogram_plain(ratio, cost, edges), 50),
-        None, **hist_device(ratio, cost, edges))
-
-
-def hist_device(ratio, cost, edges, calls: int = 20) -> dict:
-    """The profiler's device ms a histogram call: the mean of each of its
-    two kernels (``bfrt_hist_partial``, ``bfrt_hist_reduce``; the wrapper
-    counts the call as one launch) over the records it kept, added; None
-    (not measured) where it kept none of one of them."""
-    from repro_torch.kernels import bfrt
-    ours = device_profile(lambda: [bfrt.bfrt_histogram(ratio, cost, edges)
-                                   for _ in range(calls)])[3]
-    mine = [ours.get(k, (0.0, 0)) for k in ("bfrt_hist_partial",
-                                            "bfrt_hist_reduce")]
-    return {"device_ms": sum(ms / n for ms, n in mine)
-            if all(n for _, n in mine) else None,
-            "profiled_kernels": f"{sum(n for _, n in mine)} of {2 * calls}"}
+        None, **per_call_device(
+            lambda: bfrt.bfrt_histogram(ratio, cost, edges), 20, bfrt,
+            ("bfrt_hist_partial", "bfrt_hist_reduce"), kernels_per_call=2))
 
 
 def host_top(prof, n: int = 8):
@@ -2426,38 +2441,97 @@ def phase_heap(X, device="cuda"):
 
 def seed_numbers(vals, beta, plain_ms: float) -> dict:
     """The seed scan on one span: CUDA events over 3 calls, the profiler's
-    device ms a call, the plain version's ms, the bound (8 B read and 1 B
-    written a row, over the card's memory rate)."""
+    device ms a call (its four kernels summed; ``kernel_ms``: each
+    kernel's mean ms and records), the plain version's ms, the bound (8 B
+    read and 1 B written a row, over the card's memory rate), the counters
+    of one call, and the replaced kernel (``serial=True``) timed the same
+    way right after."""
     from repro_torch.kernels import dlv_scan as kdlv
     n = len(vals)
-    return _numbers(f"{n} rows", 9 * n, 8 * n,
-                    timed_ms(lambda: kdlv.dlv_scan_seed(vals, beta), 3),
-                    plain_ms, **per_call_device(
-                        lambda: kdlv.dlv_scan_seed(vals, beta), 3, kdlv,
-                        "dlv_scan_seed", counter="seed_launches"))
+    _, st = kdlv.dlv_scan_seed(vals, beta, stats=True)
+    counters = dict(zip(kdlv.SEED_STAT_NAMES, st.tolist()))
+    ms = timed_ms(lambda: kdlv.dlv_scan_seed(vals, beta), 3)
+    dev = per_call_device(lambda: kdlv.dlv_scan_seed(vals, beta), 3, kdlv,
+                          kdlv.SEED_KERNELS, counter="seed_launches",
+                          kernels_per_call=len(kdlv.SEED_KERNELS))
+    serial_ms = timed_ms(
+        lambda: kdlv.dlv_scan_seed(vals, beta, serial=True), 3)
+    sdev = per_call_device(
+        lambda: kdlv.dlv_scan_seed(vals, beta, serial=True), 3, kdlv,
+        "dlv_scan_seed_serial", counter="seed_serial_launches")
+    return _numbers(f"{n} rows", 9 * n, 8 * n, ms, plain_ms, **dev,
+                    serial_ms=serial_ms, serial_device_ms=sdev["device_ms"],
+                    serial_profiled_launches=sdev["profiled_launches"],
+                    serial_over_new=serial_ms / ms,
+                    serial_row_share=counters["serial_rows"] / n,
+                    **counters)
 
 
-def seed_hold(vals, beta) -> float:
-    """The seed kernel against ``dlv_scan_seed_plain`` (on a host copy) on
-    one span: bit-equal cuts, or the run fails; returns the plain ms."""
+def seed_hold(vals, beta, mirror: bool = False) -> float:
+    """The seed kernel and the replaced serial kernel against
+    ``dlv_scan_seed_plain`` (on a host copy) on one span: bit-equal cuts,
+    or the run fails; with ``mirror``, the kernel's counters (all but the
+    cycles) also equal to ``seed_scan_certified_plain``'s.  Returns the
+    plain ms."""
     import torch
     from repro_torch.kernels import dlv_scan as kdlv
-    got = kdlv.dlv_scan_seed(vals, beta).cpu()
+    got, st = kdlv.dlv_scan_seed(vals, beta, stats=True)
+    got = got.cpu()
+    serial = kdlv.dlv_scan_seed(vals, beta, serial=True).cpu()
     t0 = time.perf_counter()
     want = kdlv.dlv_scan_seed_plain(vals.cpu(), beta)
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(torch.equal(got, want),
           f"dlv_scan_seed cuts differ from dlv_scan_seed_plain in "
           f"{int((got != want).sum())} of {len(vals)} rows")
+    check(torch.equal(serial, want),
+          f"dlv_scan_seed_serial cuts differ from dlv_scan_seed_plain in "
+          f"{int((serial != want).sum())} of {len(vals)} rows")
+    if mirror:
+        count = {}
+        cuts = kdlv.seed_scan_certified_plain(vals.cpu(), beta, stats=count)
+        mine = dict(zip(kdlv.SEED_STAT_NAMES, st.tolist()))
+        names = [k for k in kdlv.SEED_STAT_NAMES if not k.endswith("cycles")]
+        check(torch.equal(cuts, want) and all(mine[k] == count[k]
+                                              for k in names),
+              f"dlv_scan_seed counters {mine} differ from "
+              f"seed_scan_certified_plain's {count}")
     return plain_ms
+
+
+def seed_device_ms(calls, serial: bool) -> dict:
+    """The kept calls of a build replayed: by CUDA events around the whole
+    replay (``replay_ms``: device time and the gaps between launches),
+    and the profiler's sum of the seed kernels' device ms over the replay
+    (``per_call_device``: None unless it recorded every kernel)."""
+    from repro_torch.kernels import dlv_scan as kdlv
+
+    def replay():
+        return [kdlv.dlv_scan_seed(*a, serial=serial) for a, _ in calls]
+
+    dev = per_call_device(
+        replay, 1, kdlv,
+        "dlv_scan_seed_serial" if serial else kdlv.SEED_KERNELS,
+        counter="seed_serial_launches" if serial else "seed_launches",
+        kernels_per_call=1 if serial else len(kdlv.SEED_KERNELS))
+    return {"replay_ms": timed_ms(replay, 1), "device_ms": dev["device_ms"],
+            "profiled_kernels": dev["profiled_launches"]}
 
 
 def phase_heap_seed(X, device="cuda"):
     """The heap build through the seed's scan on the card: every seed-scan
-    launch held to its plain version (bit-equal), then the kernel timed
-    on the first (largest) span and on a fixed 1M-row span.  Returns (its
+    call held to its plain version (bit-equal, the replaced serial kernel
+    too), the build's summed seed-kernel device ms, and its wall (without
+    the capture) with the certified kernels and with the replaced one in
+    turns (new, serial, serial, new), then both timed on the
+    first (largest) span and on a fixed 1M-row span.  Returns (its
     launches, its main-path numbers, its fixed-span numbers)."""
+    import functools
+
     import torch
+    from repro_torch.core import dlv as core_dlv
+    from repro_torch.core.dlv import dlv
+    from repro_torch.kernels import dlv_scan as kdlv
     part, wall, pops, counts, calls = heap_build(
         X, device, ("dlv_scan_seed",), scan="seed")
     kept = calls["dlv_scan_seed"]
@@ -2465,13 +2539,40 @@ def phase_heap_seed(X, device="cuda"):
     check(launched > 0 and launched == len(kept),
           f"heap seed: {launched} seed-scan launches for {len(kept)} calls")
     t0 = time.perf_counter()
-    plain = [seed_hold(*a) for a, _ in kept]
+    plain = [seed_hold(*a, mirror=i == 0) for i, (a, _) in enumerate(kept)]
     rows = sum(len(a[0]) for a, _ in kept)
+    check_s = time.perf_counter() - t0
+    # the build's wall without the capture: the certified kernels and the
+    # replaced one in turns (new, serial, serial, new)
+    walls = {False: [], True: []}
+    try:
+        for serial in (False, True, True, False):
+            core_dlv.dlv_scan_seed = functools.partial(kdlv.dlv_scan_seed,
+                                                       serial=serial)
+            t0 = time.perf_counter()
+            again = dlv(X, HEAP["d_f"], method="heap", device=device,
+                        scan="seed")
+            _sync(device)
+            walls[serial].append(time.perf_counter() - t0)
+            check(np.array_equal(again.gid, part.gid),
+                  f"heap seed: a build (serial={serial}) gives other groups")
+    finally:
+        core_dlv.dlv_scan_seed = kdlv.dlv_scan_seed
+    dev = seed_device_ms(kept, serial=False)
+    sdev = seed_device_ms(kept, serial=True)
     say("heap seed", rows=len(X), d_f=HEAP["d_f"], wall_s=wall, pops=pops,
         splits=part.tree.num_nodes, groups=part.num_groups,
         seed_scan_launches=launched, dlv_scan_launches=counts["dlv_scan"],
-        held=f"all {len(kept)} launches ({rows} rows), bit-equal",
-        check_s=time.perf_counter() - t0,
+        held=f"all {len(kept)} calls ({rows} rows), bit-equal, the serial "
+             f"kernel too",
+        check_s=check_s, seed_replay_ms=dev["replay_ms"],
+        seed_device_ms=dev["device_ms"],
+        profiled_kernels=dev["profiled_kernels"],
+        walls_s=json.dumps(walls[False]),
+        serial_walls_s=json.dumps(walls[True]),
+        serial_seed_replay_ms=sdev["replay_ms"],
+        serial_seed_device_ms=sdev["device_ms"],
+        serial_profiled_kernels=sdev["profiled_kernels"],
         ratio_scores=json.dumps(ratio_scores(X, part.gid)))
     (v0, b0), _ = kept[0]
     main = seed_numbers(v0, b0, plain[0])
@@ -2480,7 +2581,7 @@ def phase_heap_seed(X, device="cuda"):
     v = v - v.mean()
     vals = torch.as_tensor(v, device=device)
     beta = 13.5 * float(v.var()) / HEAP["d_f"] ** 2
-    fixed = seed_numbers(vals, beta, seed_hold(vals, beta))
+    fixed = seed_numbers(vals, beta, seed_hold(vals, beta, mirror=True))
     for tag, nums in (("first span", main), ("1M fixed", fixed)):
         say(f"kernel dlv_scan_seed[{tag}]", max_abs_err=0.0,
             cuts_bit_equal=True, launches=launched, **nums)

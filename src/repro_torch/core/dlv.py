@@ -24,8 +24,9 @@ build (the quality and benchmark baseline): the heap, each span's stable
 argsort, the children's variances and the tree stay host numpy, line for
 line the reference's, and each pop's scan runs on ``device`` through
 ``dlv_1d`` -- or, with ``scan="seed"``, through ``dlv_1d_seed``, the
-seed's uncompensated scan (``kernels.dlv_scan.dlv_scan_seed``, one launch
-for any span length).
+seed's uncompensated scan (``kernels.dlv_scan.dlv_scan_seed``: on the
+card a certified prefix-sum design, four kernels and one counted launch
+a call for any span length).
 """
 from __future__ import annotations
 

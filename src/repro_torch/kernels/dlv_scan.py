@@ -37,13 +37,43 @@ what tells a kernel fault from a rounding-order difference.
 :func:`dlv_scan_seed` is the seed's scan, for one span: the
 uncompensated running-variance recurrence of the jitted ``lax.scan``
 ``repro/core/dlv.py::_dlv_scan_seed`` (no run snapping, no ``k > 0``
-guard).  On a CUDA tensor it launches ``dlv_scan_seed_kernel`` (one
-thread walks the span); on a CPU tensor it runs
-:func:`dlv_scan_seed_plain`, the same recurrence in Python floats.  The
-reference's compiled scan (XLA on the CPU) computes var = s2/k - m*m as
-one fused multiply-add and rounds every other operation on its own; the
-kernel and the plain version round exactly so, and their cuts equal the
-reference's bit for bit, at near-ties too.
+guard).  The reference's compiled scan (XLA on the CPU) computes var =
+s2/k - m*m as one fused multiply-add and rounds every other operation on
+its own; every version here decides each row as it does, and their cuts
+equal the reference's bit for bit, at near-ties too.  On a CPU tensor it
+runs :func:`dlv_scan_seed_plain`, the recurrence in Python floats.  On a
+CUDA tensor it launches four kernels of ``csrc/dlv_scan.cu`` (one count
+in ``seed_launches`` a call).  What bounds the work is 9 bytes a row; the
+recurrence, walked in order, is a chain of two divisions and an FMA a
+row, which is what the design takes off the path:
+
+* the restart state at a cut, (1, x, x*x), is the state of a scan
+  started fresh there, so each window between cuts is decided on its
+  own: var_ref(j, i), the reference's value at row i of the window from
+  j, depends on j and i alone;
+* double-double prefix sums of x and x*x over the span (every SM, a
+  fixed order of additions) give each window's sums as a difference,
+  and k*s2 - s1*s1 estimates k^2 var_ref(j, i) within a band W that
+  bounds the serial chain's rounding (|s1^ - S1| <= g_{k-1} sum|x|,
+  |s2^ - S2| <= g_k S2, two divisions, one fused rounding; sum|x| <=
+  sqrt(k S2)), the prefixes' own error and the evaluation's (the proof is
+  the source note; :func:`_seed_band_terms` is its arithmetic);
+* one CTA walks the windows, each test taking 256 rows one by one and
+  256 blocks of 128 rows after them; a block is proved below beta from its
+  last row's prefix alone (k * variance, the window's sum of squared
+  deviations, never decreases); the first block not proved below has its
+  rows tested next, and the first row not surely below is a cut where
+  the band proves it; otherwise (a near-tie, a non-finite sum, band or
+  beta), and for the windows after a short one, one thread runs the
+  reference's chain from the window start.
+
+So a row is decided by the band only where the band proves the
+reference's decision; the cuts do not depend on the span being sorted.
+:func:`seed_scan_certified_plain` is that design in plain torch (same
+tiles, band, order of additions and fallback, same counters) for the
+CPU tests; the main path never runs it.  ``serial=True`` launches the
+kernel the design replaced (one thread walks the span), kept as its
+baseline.
 """
 from __future__ import annotations
 
@@ -56,7 +86,8 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
-seed_launches = 0            # dlv_scan_seed's kernel
+seed_launches = 0            # dlv_scan_seed's calls (four kernels each)
+seed_serial_launches = 0     # dlv_scan_seed(..., serial=True)'s kernel
 
 _BATCH_MIN_COLS = 16         # below this, per-segment jump scan wins
 _MAX_COLS = 1024             # row-step width cap
@@ -77,8 +108,10 @@ STAT_NAMES = ("segments", "passes", "spec_cuts", "windows", "repairs",
 _SIG = {"dlv_scan_f64": (_build.P,) * 4 + (_build.I64, _build.P, _build.P),
         "dlv_scan_long_f64": (_build.P,) * 4 + (_build.I64,) + (_build.P,) * 2
         + (_build.I64, _build.P, _build.P),
-        "dlv_scan_seed_f64": (_build.P, _build.I64, _build.F64, _build.P,
-                              _build.P)}
+        "dlv_scan_seed_f64": (_build.P, _build.I64, _build.F64)
+        + (_build.P,) * 4,
+        "dlv_scan_seed_serial_f64": (_build.P, _build.I64, _build.F64,
+                                     _build.P, _build.P)}
 
 
 def _starts(Ls: np.ndarray) -> np.ndarray:
@@ -481,23 +514,317 @@ def dlv_scan_seed_plain(vals, beta: float):
     return torch.tensor(out, dtype=torch.bool, device=vals.device)
 
 
-def dlv_scan_seed(vals, beta: float):
+# the certified seed scan's geometry (csrc/dlv_scan.cu): the prefix pass's
+# tiles (threads x consecutive rows a thread); the walk's test (WALK_ROWS
+# rows one by one, then WALK_BLOCKS blocks of WALK_L rows); after a window
+# shorter than SEED_SHORT rows the reference's chain decides the next ones
+SEED_SCAN = (512, 8)
+WALK_ROWS = 256
+WALK_BLOCKS = 256
+WALK_L = 128
+SEED_SHORT = 8
+# its counters (``dlv_scan_seed(..., stats=True)``), in this order: windows
+# (cuts after row 0, plus one), near-ties (serial chains run where the band
+# could not decide), short runs (serial chains run after a short window),
+# rows the serial chains stepped, the walk's tests, and cycles of the
+# prefix pass (summed over its blocks), the tests and the serial chains
+SEED_STAT_NAMES = ("windows", "near_ties", "short_runs", "serial_rows",
+                   "tests", "prefix_cycles", "test_cycles", "serial_cycles")
+# the kernels of one call, as the profiler names them
+SEED_KERNELS = ("dlv_scan_seed_totals", "dlv_scan_seed_bases",
+                "dlv_scan_seed_prefix", "dlv_scan_seed_walk")
+_U4 = 2.0 ** -51             # 4u, u = 2^-53
+_TAU = 2.0 ** -1000          # the band's absolute term (underflow)
+
+
+def _dd_add(ah, al, bh, bl):
+    """(ah + al) + (bh + bl) in double-double, as the kernel's ``dd_add``:
+    the high parts' exact sum (two_sum), the low parts added to its error,
+    renormalised exactly."""
+    s = ah + bh
+    bb = s - ah
+    e = (ah - (s - bb)) + (bh - bb)
+    e = e + (al + bl)
+    h = s + e
+    bb = h - s
+    return h, (s - (h - bb)) + (e - bb)
+
+
+def _shift(h, l, off: int):
+    """(h, l) moved ``off`` places up along the last dim, zeros below."""
+    z = torch.zeros_like(h[..., :off])
+    return (torch.cat([z, h[..., :-off]], -1),
+            torch.cat([z, l[..., :-off]], -1))
+
+
+def _hillis_steele(h, l):
+    """Inclusive scan along the last dim (a power of two wide) in the
+    kernel's order: at each offset, the lower entry plus one's own."""
+    off = 1
+    while off < h.shape[-1]:
+        nh, nl = _dd_add(h[..., :-off], l[..., :-off], h[..., off:],
+                         l[..., off:])
+        h = torch.cat([h[..., :off], nh], -1)
+        l = torch.cat([l[..., :off], nl], -1)
+        off *= 2
+    return h, l
+
+
+def _block_scan_plain(h, l, threads: int, rpt: int):
+    """The kernel's ``tile_scan`` on rows of items (tiles, threads * rpt),
+    double-doubles (h, l): each thread's rpt items in order from zero,
+    a Hillis-Steele scan of the thread totals over the 32 lanes, one of
+    the warp totals over the warps, then (warp prefix + lane prefix) +
+    item prefix.  Returns the inclusive prefixes within each tile and the
+    tiles' totals."""
+    T, W = h.shape[0], threads // 32
+    h = h.reshape(T, threads, rpt)
+    l = l.reshape(T, threads, rpt)
+    ch, cl = torch.empty_like(h), torch.empty_like(l)
+    ah = torch.zeros(T, threads, dtype=h.dtype)
+    al = torch.zeros_like(ah)
+    for q in range(rpt):
+        ah, al = _dd_add(ah, al, h[:, :, q], l[:, :, q])
+        ch[:, :, q], cl[:, :, q] = ah, al
+    vh, vl = _hillis_steele(ah.reshape(T, W, 32), al.reshape(T, W, 32))
+    leh, lel = _shift(vh, vl, 1)
+    wh, wl = _hillis_steele(vh[..., 31], vl[..., 31])
+    weh, wel = _shift(wh, wl, 1)
+    tbh, tbl = _dd_add(weh[..., None], wel[..., None], leh, lel)
+    ph, pl = _dd_add(tbh.reshape(T, threads, 1), tbl.reshape(T, threads, 1),
+                     ch, cl)
+    return ph.reshape(T, -1), pl.reshape(T, -1), wh[:, -1], wl[:, -1]
+
+
+def _seed_prefix_plain(vals, threads: int = SEED_SCAN[0],
+                       rpt: int = SEED_SCAN[1]):
+    """The prefix pass of the certified seed scan, bit for bit: the
+    double-double prefix sums (P1h, P1l) of x and (P2h, P2l) of x*x, each
+    of length n (``dlv_scan_seed_totals``, ``_bases``, ``_prefix``)."""
+    tile = threads * rpt
+    n = len(vals)
+    nt = -(-n // tile)
+    x = torch.zeros(nt * tile, dtype=torch.float64)
+    x[:n] = vals.detach().cpu()
+    zero = torch.zeros_like(x)
+    out = []
+    for h in (x, x * x):
+        ph, pl, th, tl = _block_scan_plain(h.reshape(nt, tile),
+                                           zero.reshape(nt, tile), threads,
+                                           rpt)
+        # the tile totals' inclusive scan, chunks of `tile` with a carry
+        nc = -(-nt // tile)
+        th2 = torch.zeros(nc * tile, dtype=torch.float64)
+        tl2 = torch.zeros_like(th2)
+        th2[:nt], tl2[:nt] = th, tl
+        ih, il, _, _ = _block_scan_plain(th2.reshape(nc, tile),
+                                         tl2.reshape(nc, tile), threads, rpt)
+        ch = cl = torch.zeros((), dtype=torch.float64)
+        for c in range(nc):
+            ih[c], il[c] = _dd_add(ch, cl, ih[c], il[c])
+            ch, cl = ih[c, -1], il[c, -1]
+        bh, bl = _shift(ih.reshape(-1)[:nt], il.reshape(-1)[:nt], 1)
+        ph, pl = _dd_add(bh[:, None], bl[:, None], ph, pl)
+        out += [ph.reshape(-1)[:n], pl.reshape(-1)[:n]]
+    return out
+
+
+def _seed_bounds(p2_total: float, n: int):
+    """The prefix error bounds of the band, from P2's total hi part (the
+    kernel's arithmetic): (3 E1, 2 E2, 4 E1^2) with E1 = 16 (n + 2) u^2
+    sqrt(n T2) and E2 = 16 (n + 2) u^2 T2, T2 = P2's total, 1 + 2^-40 up."""
+    t2 = p2_total * (1.0 + 2.0 ** -40)
+    g = (float(n) + 2.0) * 2.0 ** -102
+    e2 = g * t2
+    e1 = (g * math.sqrt(float(n) * t2)) * (1.0 + 2.0 ** -40)
+    return 3.0 * e1, 2.0 * e2, (4.0 * e1) * e1
+
+
+def _seed_band_terms(s1, s2, k, beta, bounds, ka=None):
+    """The walk's test on window sums (s1, s2) of k rows, as the kernel's
+    ``seed_classify`` rounds it: (d, bk, e, Wd, W) with d = k*s2 - s1*s1
+    (an estimate of k^2 var_ref), bk = beta*k*k (beta*ka*k for a block
+    whose first row has count ka), e = d - bk, Wd the band of |k^2 var_ref
+    - d| and W = Wd + 4u|bk|, the whole band."""
+    e1x3, e2x2, e1sq4 = bounds
+    a = k * s2
+    d = a - s1 * s1
+    bk = (beta * (k if ka is None else ka)) * k
+    e = d - bk
+    w = ((k + 5.0) * _U4) * abs(a)
+    w = w + k * (e2x2 + k * _TAU)
+    w = w + abs(s1) * e1x3
+    wd = w + e1sq4
+    return d, bk, e, wd, wd + abs(bk) * _U4
+
+
+def _seed_classify_plain(P, a, rows, j: int, beta: float, bounds,
+                         starts=None):
+    """The class of each row in ``rows`` (a tensor) in the window from j,
+    as the kernel's ``seed_classify`` computes it (0 surely no cut, 1
+    surely a cut, 2 uncertain); with ``starts``, of each block
+    starts..rows (0: every row of it surely no cut, the bar beta*ka*kb)."""
+    p1h, p1l, p2h, p2l = (q[rows] for q in P)
+    s1 = (p1h - a[0]) + (p1l - a[1])
+    s2 = (p2h - a[2]) + (p2l - a[3])
+    kb = (rows - j + 1).to(torch.float64)
+    ka = kb if starts is None else (starts - j + 1).to(torch.float64)
+    _, _, e, _, w = _seed_band_terms(s1, s2, kb, beta, bounds, ka)
+    cls = torch.full(rows.shape, 2, dtype=torch.int64)
+    fin = torch.isfinite(e)
+    cls[fin & (e < -w)] = 0
+    cls[fin & (e > w)] = 1
+    return cls
+
+
+def _seed_serial_plain(x: list, j: int, h: int, b: float, hold: bool,
+                       short: int, cuts):
+    """The kernel's ``seed_serial`` in Python floats: the reference's
+    chain from window start j, its sums alone before row h, then each
+    row decided exactly, restarting at every cut; it stops at a cut that
+    closes a window of ``short`` rows or more, or (once the first window
+    has closed, or at once without ``hold``) when the current window
+    reaches ``short`` rows without a cut, or at the end.  Sets the cuts;
+    returns (first undecided row or len(x), window start there, rows
+    stepped, cuts set)."""
+    n = len(x)
+    j0, ncut = j, 0
+    k, s1, s2 = 1.0, x[j], x[j] * x[j]
+    for r in range(j + 1, n):
+        v = x[r]
+        k += 1.0
+        s1 += v
+        s2 += v * v
+        if r < h:
+            continue
+        if _var_gt(s2 / k, s1 / k, b):
+            cuts[r] = True
+            ncut += 1
+            if r - j >= short:
+                return r + 1, r, r - j0 + 1, ncut
+            j, k, s1, s2, hold = r, 1.0, v, v * v, False
+        elif not hold and r - j + 1 >= short:
+            return r + 1, j, r - j0 + 1, ncut
+    return n, j, n - j0, ncut
+
+
+def seed_scan_certified_plain(vals, beta: float, *, rows: int = WALK_ROWS,
+                              blocks: int = WALK_BLOCKS, block: int = WALK_L,
+                              short: int = SEED_SHORT,
+                              scan: tuple = SEED_SCAN, stats: dict = None):
+    """The certified seed scan of ``csrc/dlv_scan.cu`` in plain torch, for
+    the tests: the prefix pass (``scan`` = (threads, rows a thread)), then
+    the walk -- each test takes ``rows`` rows one by one and ``blocks``
+    blocks of ``block`` rows after them; the reference's chain at
+    near-ties and after windows shorter than ``short`` -- with the same
+    band.  ``stats`` (a dict) receives ``SEED_STAT_NAMES``' counts (the
+    cycles 0).  Returns the cut flags (bool, on ``vals``' device), equal
+    to :func:`dlv_scan_seed_plain`'s."""
+    n = len(vals)
+    b = float(beta)
+    cuts = torch.zeros(n, dtype=torch.bool)
+    count = dict.fromkeys(SEED_STAT_NAMES, 0)
+    if n:
+        P = _seed_prefix_plain(vals, *scan)
+        x = vals.tolist()
+        bounds = _seed_bounds(float(P[2][-1]), n)
+        k1, s1, s2 = 1.0, 0.0 + x[0], 0.0 + x[0] * x[0]   # row 0's flag
+        cuts[0] = _var_gt(s2 / k1, s1 / k1, b)
+        count["windows"] = 1
+        zero = torch.zeros((), dtype=torch.float64)
+        a = (zero,) * 4
+        j, lo = 0, 1
+        offs = torch.cat([torch.arange(rows),
+                          rows + torch.arange(blocks) * block])
+        span = rows + blocks * block
+        while lo < n:
+            count["tests"] += 1
+            if count["tests"] > 2 * n + 4:
+                raise RuntimeError("seed_scan_certified_plain: the walk "
+                                   "did not advance")
+            starts = lo + offs
+            single = torch.arange(len(offs)) < rows
+            keep = starts < n
+            starts, single = starts[keep], single[keep]
+            ends = torch.where(single, starts,
+                               torch.clamp(starts + block - 1, max=n - 1))
+            cls = _seed_classify_plain(P, a, ends, j, b, bounds, starts)
+            hit = torch.nonzero(cls).flatten()
+            if not len(hit):
+                lo += span
+                continue
+            m = int(starts[hit[0]])
+            if not bool(single[hit[0]]):      # a block: its rows next
+                lo = m
+                continue
+            jn, lon = m, m + 1
+            if int(cls[hit[0]]) == 1 and m - j >= short:
+                cuts[m] = True
+                count["windows"] += 1
+            else:
+                if int(cls[hit[0]]) == 1:
+                    cuts[m] = True
+                    count["windows"] += 1
+                    lon, jn, stepped, ncut = _seed_serial_plain(
+                        x, m, m + 1, b, False, short, cuts)
+                    count["short_runs"] += 1
+                else:
+                    lon, jn, stepped, ncut = _seed_serial_plain(
+                        x, j, m, b, True, short, cuts)
+                    count["near_ties"] += 1
+                count["windows"] += ncut
+                count["serial_rows"] += stepped
+            if jn != j:
+                a = tuple(q[jn - 1] for q in P)
+            j, lo = jn, lon
+    if stats is not None:
+        stats.update(count)
+    return cuts.to(vals.device)
+
+
+def dlv_scan_seed(vals, beta: float, *, stats: bool = False,
+                  serial: bool = False):
     """Cut flags (bool, like ``vals``) of the seed's scan over the one span
     ``vals`` (contiguous float64, already shifted by its mean) with bar
-    ``beta``.  A CUDA tensor launches ``dlv_scan_seed_kernel`` (one launch
-    for any length, counted in ``seed_launches``); a CPU tensor runs
-    :func:`dlv_scan_seed_plain`."""
-    global seed_launches
+    ``beta``.  A CUDA tensor launches the certified design's four kernels
+    (one count in ``seed_launches`` a call, whatever the length), or with
+    ``serial`` the kernel it replaced (``dlv_scan_seed_serial``, one thread
+    walks the span; counted in ``seed_serial_launches``); a CPU tensor runs
+    :func:`dlv_scan_seed_plain`.  With ``stats`` the result is (cuts, the
+    counters: an int64 tensor in ``SEED_STAT_NAMES`` order, zeros on the
+    CPU and for ``serial``)."""
+    global seed_launches, seed_serial_launches
     if vals.device.type != "cuda":
-        return dlv_scan_seed_plain(vals, beta)
+        cuts = dlv_scan_seed_plain(vals, beta)
+        return (cuts, torch.zeros(len(SEED_STAT_NAMES), dtype=torch.int64)) \
+            if stats else cuts
     _check_vals(vals)
     n = len(vals)
-    cuts = torch.empty(n, dtype=torch.bool, device=vals.device)
-    if n:
-        lib = _build.load("dlv_scan", _SIG)
-        err = lib.dlv_scan_seed_f64(vals.data_ptr(), n, float(beta),
-                                    cuts.data_ptr(),
-                                    _build.stream_ptr(vals.device))
-        _build.check(err, "dlv_scan_seed")
-        seed_launches += 1
-    return cuts
+    if n >= 1 << 31:
+        raise ValueError("dlv_scan_seed: a span of 2^31 rows or more")
+    dev = vals.device
+    st = torch.zeros(len(SEED_STAT_NAMES), dtype=torch.int64, device=dev) \
+        if stats else None
+    lib = _build.load("dlv_scan", _SIG)
+    stream = _build.stream_ptr(dev)
+    if serial:
+        cuts = torch.empty(n, dtype=torch.bool, device=dev)
+        if n:
+            _build.check(lib.dlv_scan_seed_serial_f64(
+                vals.data_ptr(), n, float(beta), cuts.data_ptr(), stream),
+                "dlv_scan_seed")
+            seed_serial_launches += 1
+    else:
+        cuts = torch.zeros(n, dtype=torch.bool, device=dev)
+        if n:
+            tile = SEED_SCAN[0] * SEED_SCAN[1]
+            nt = -(-n // tile)
+            # P (32 bytes a row), then the tile totals and their scan
+            scratch = torch.empty(4 * (n + 2 * nt), dtype=torch.float64,
+                                  device=dev)
+            _build.check(lib.dlv_scan_seed_f64(
+                vals.data_ptr(), n, float(beta), cuts.data_ptr(),
+                scratch.data_ptr(), st.data_ptr() if stats else None,
+                stream), "dlv_scan_seed")
+            seed_launches += 1
+    return (cuts, st) if stats else cuts

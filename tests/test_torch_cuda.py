@@ -536,6 +536,143 @@ def test_dlv_scan_seed_rejects_bad_inputs(dev):
     assert dlv_scan.dlv_scan_seed(v[:0], 1.0).shape == (0,)
 
 
+def _seed_held(dev, v, beta):
+    """The certified seed kernel on ``v``: cuts bit-equal to the replaced
+    serial kernel's, to ``seed_scan_certified_plain``'s and to
+    ``dlv_scan_seed_plain``'s, and its counters (all but the cycles)
+    equal to the mirror's.  Returns the counters."""
+    vals = _t(v, dev)
+    cuts, st = dlv_scan.dlv_scan_seed(vals, beta, stats=True)
+    serial = dlv_scan.dlv_scan_seed(vals, beta, serial=True)
+    want = {}
+    mirror = dlv_scan.seed_scan_certified_plain(vals.cpu(), beta, stats=want)
+    assert torch.equal(cuts.cpu(), mirror), beta
+    assert torch.equal(serial.cpu(), mirror), beta
+    assert torch.equal(mirror, dlv_scan.dlv_scan_seed_plain(vals.cpu(), beta))
+    got = dict(zip(dlv_scan.SEED_STAT_NAMES, st.tolist()))
+    for name in dlv_scan.SEED_STAT_NAMES:
+        if not name.endswith("cycles"):
+            assert got[name] == want[name], (name, got, want)
+    return got
+
+
+def test_dlv_scan_seed_certified_near_ties(dev):
+    """A 100k-row span with beta at the running variance of ten rows (each
+    beyond every earlier row of the first window) and one ulp to each
+    side: every decision at those rows is a near-tie that the kernel's
+    serial chain takes, and the cuts and counters are the mirror's."""
+    from fractions import Fraction
+    rng = np.random.default_rng(21)
+    v = np.sort(rng.normal(0.0, 2.0, 100_000))
+    v = v - v.mean()
+    k = s1 = s2 = 0.0
+    var, records, best = [], [], -np.inf
+    for i, x in enumerate(v[:60_000]):
+        k += 1.0
+        s1 += x
+        s2 += x * x
+        m = s1 / k
+        var.append(float(Fraction(s2 / k) - Fraction(m) * Fraction(m)))
+        if i and var[-1] > best:
+            records.append(i)
+            best = var[-1]
+    rows = [records[int(q)] for q in np.linspace(5, len(records) - 1, 10)]
+    for r in rows:
+        for beta in (var[r], np.nextafter(var[r], np.inf),
+                     np.nextafter(var[r], -np.inf)):
+            got = _seed_held(dev, v, float(beta))
+            assert got["near_ties"] >= 1, (r, beta)
+
+
+@pytest.mark.parametrize("kind", ["normal", "dups", "dups beta 0",
+                                  "shift 1e4", "shift 1e8", "unsorted"])
+def test_dlv_scan_seed_certified_spans(dev, kind):
+    """Duplicate-heavy spans (flat variances; at beta 0 nearly every row a
+    near-tie), spans far from zero (m^2 >> var) and an unsorted span:
+    the kernel against the serial kernel and the mirror."""
+    rng = np.random.default_rng(len(kind))
+    n = 20_000
+    if kind == "normal":
+        v = np.sort(rng.normal(0.0, 2.0, 200_000))
+    elif kind.startswith("dups"):
+        v = np.sort(np.round(rng.normal(0.0, 3.0, n), 1))
+    elif kind.startswith("shift"):
+        v = np.sort(rng.normal(float(kind.split()[1]), 1.0, n))
+    else:
+        v = rng.normal(0.0, 1.0, n)
+    if not kind.startswith("shift"):
+        v = v - v.mean()
+    beta = 0.0 if kind == "dups beta 0" else 13.5 * v.var() / 100 ** 2
+    got = _seed_held(dev, v, beta)
+    if kind == "normal":
+        assert got["serial_rows"] < 0.01 * len(v) and got["near_ties"] == 0
+
+
+@pytest.mark.parametrize("case", ["nan", "inf", "-inf", "beta nan",
+                                  "beta inf", "beta -inf", "beta 0",
+                                  "beta -1"])
+def test_dlv_scan_seed_certified_non_finite(dev, case):
+    v = np.sort(np.random.default_rng(3).normal(0.0, 1.0, 3000))
+    beta = 1e-3
+    if case.startswith("beta"):
+        beta = float(case.split()[1])
+    else:
+        v[1200] = float(case)
+    _seed_held(dev, v, beta)
+
+
+def test_dlv_scan_seed_certified_past_one_chunk_of_tiles(dev):
+    """17M rows: more than one chunk of tile totals (4,096 tiles of 4,096
+    rows), so the totals' scan carries between chunks, and windows of
+    ~600k rows, where the band (it grows with k m^2 / var) leaves a
+    near-tie that the reference's chain walks for the whole window.  Cuts
+    equal to the replaced serial kernel's, counters to the mirror's."""
+    rng = np.random.default_rng(17)
+    v = np.sort(rng.normal(0.0, 2.0, 17_000_000))
+    v = v - v.mean()
+    beta = 13.5 * float(v.var()) / 100 ** 2
+    vals = _t(v, dev)
+    cuts, st = dlv_scan.dlv_scan_seed(vals, beta, stats=True)
+    assert torch.equal(cuts, dlv_scan.dlv_scan_seed(vals, beta, serial=True))
+    want = {}
+    mirror = dlv_scan.seed_scan_certified_plain(vals.cpu(), beta, stats=want)
+    assert torch.equal(cuts.cpu(), mirror)
+    got = dict(zip(dlv_scan.SEED_STAT_NAMES, st.tolist()))
+    for name in dlv_scan.SEED_STAT_NAMES:
+        if not name.endswith("cycles"):
+            assert got[name] == want[name], (name, got, want)
+    assert got["near_ties"] >= 1 and got["serial_rows"] > 100_000
+
+
+def test_dlv_scan_seed_certified_offset_view(dev):
+    """A span that is a view 8 bytes off a 16-byte boundary: the kernels
+    read x 8 bytes at a time, so any address serves."""
+    rng = np.random.default_rng(4)
+    v = np.sort(rng.normal(0.0, 2.0, 30_001))
+    base = _t(v - v.mean(), dev)
+    view = base[1:]
+    assert view.data_ptr() % 16 == 8
+    beta = 13.5 * float(view.var()) / 100 ** 2
+    assert torch.equal(dlv_scan.dlv_scan_seed(view, beta).cpu(),
+                       dlv_scan.dlv_scan_seed_plain(view.cpu(), beta))
+
+
+def test_dlv_scan_seed_counts_one_launch_a_call(dev):
+    """``seed_launches`` counts calls (four kernels each), the replaced
+    kernel's calls go to ``seed_serial_launches``, and an empty span
+    launches nothing."""
+    v = _t(np.linspace(-1.0, 1.0, 50_000), dev)
+    kernels.reset_launches()
+    dlv_scan.seed_serial_launches = 0
+    dlv_scan.dlv_scan_seed(v, 1e-4)
+    dlv_scan.dlv_scan_seed(v, 1e-4, stats=True)
+    assert kernels.launch_counts()["dlv_scan_seed"] == 2
+    dlv_scan.dlv_scan_seed(v, 1e-4, serial=True)
+    dlv_scan.dlv_scan_seed(v[:0], 1e-4)
+    assert kernels.launch_counts()["dlv_scan_seed"] == 2
+    assert dlv_scan.seed_serial_launches == 1
+
+
 def test_heap_build_on_the_card_equals_the_cpu(dev):
     """``dlv_heap`` with each pop's scan on the card (``scan="fast"``: the
     DLV scan kernel; ``"seed"``: the seed kernel) gives the CPU build's
