@@ -201,6 +201,29 @@ fails to start):
     pivots' pricing and histogram calls and every sharded segment stats
     call held against the plain versions ("main-path dist ...").
 
+The MoE slice (mixtral-8x22b at full width cut to 8 of its 56 layers,
+bf16, random init from a seeded ``torch.Generator``; the qwen2 model is
+freed before phase 15):
+
+16. moe prefill: ``Model.prefill_logits`` on B = 1 x S = 8,192 tokens
+    (the 4,096-token window masks keys) with every launch count read
+    around it (8 flash launches): first and warm walls, tokens/s, peak
+    memory, then profiled; then one more prefill logging each layer's
+    routing (copies per expert, copies dropped, "moe prefill routing
+    layer i");
+17. moe layer: layer 0's experts on 512 tokens, in float32 ``apply_moe``
+    at capacity factor 8.0 against the dense oracle ``ref_moe`` (2e-4 abs
+    + 2e-4 rel, the reference's bar), in bf16 at the default capacity
+    twice (bit-identical outputs and aux);
+18. moe agreement: a float32 copy of the first 2 layers at capacity factor
+    8.0 (the reference's test setting: no copy drops), prefill logits at
+    S = 64 against 64 ``decode_step``s (2e-3);
+19. moe serve: phase 13 on the MoE model (the same 16 requests and budget,
+    admissions equal to a CPU scheduler's tick by tick, tick 0 rerun
+    identical);
+20. moe main-path inputs: phase 14 on phase 16's prefill ("main-path
+    flash_attention moe").
+
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without CUDA, or without the
@@ -3254,9 +3277,11 @@ def lm_model(dev):
     return model
 
 
-def phase_lm_prefill(model, B: int = 2, S: int = 4096):
+def phase_lm_prefill(model, B: int = 2, S: int = 4096,
+                     label: str = "lm prefill"):
     """The prefill path: launch counts reset just before and read just
-    after one ``prefill_logits``; then a warm run and a profiled run."""
+    after one ``prefill_logits`` (one flash launch a layer); then a warm
+    run and a profiled run."""
     import torch
     from repro_torch import kernels
     cfg = model.cfg
@@ -3272,11 +3297,10 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096):
     first = time.perf_counter() - t0
     counts = kernels.launch_counts()
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
-          and logits.dtype == torch.float32, "lm prefill: logits shape")
-    check(bool(torch.isfinite(logits).all()), "lm prefill: non-finite "
-                                              "logits")
+          and logits.dtype == torch.float32, f"{label}: logits shape")
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
     check(counts["flash_attention"] == cfg.num_layers,
-          f"lm prefill: {counts['flash_attention']} flash launches, "
+          f"{label}: {counts['flash_attention']} flash launches, "
           f"expected {cfg.num_layers}")
     peak = torch.cuda.max_memory_allocated()
     del logits
@@ -3284,26 +3308,42 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096):
     model.prefill_logits(batch)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    say("lm prefill", B=B, S=S, wall_ms_first=first * 1e3,
+    say(label, B=B, S=S, wall_ms_first=first * 1e3,
         wall_ms=warm * 1e3, tokens_per_s=B * S / warm,
         launches=json.dumps(counts), peak_mem_gib=peak / 2**30)
     busy_ms, ops, reads, ours, top = device_profile(
         lambda: model.prefill_logits(batch))
-    say("profile lm prefill", wall_ms=warm * 1e3, device_busy_ms=busy_ms,
+    say(f"profile {label}", wall_ms=warm * 1e3, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / 1e3 / warm, device_ops=ops,
         device_to_host=reads,
         kernels=json.dumps(ours), top=json.dumps(top))
     return counts, batch
 
 
-def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3) -> float:
-    """A float32 copy of the model: prefill logits at S tokens against S
-    decode steps (the reference's prefill-vs-decode test at full width)."""
+def first_layers(params, n: int):
+    """The parameter tree of a model cut to its first ``n`` layers
+    (views)."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+    return {**params, "decoder": {"layers": cut(params["decoder"]["layers"])}}
+
+
+def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3,
+                       label: str = "lm agreement", **changes) -> float:
+    """A float32 copy of the model (with ``changes`` to its config; a
+    smaller ``num_layers`` keeps the first layers): prefill logits at S
+    tokens against S decode steps (the reference's prefill-vs-decode test
+    at full width)."""
     import dataclasses
     import torch
     from repro_torch.models import Model
-    cfg = dataclasses.replace(model.cfg, param_dtype="float32")
-    m32 = Model(cfg, device=model.device).load_params(model.params)
+    cfg = dataclasses.replace(model.cfg, param_dtype="float32", **changes)
+    params = model.params
+    if cfg.num_layers < model.cfg.num_layers:
+        params = first_layers(params, cfg.num_layers)
+    m32 = Model(cfg, device=model.device).load_params(params)
+    del params
     g = torch.Generator(device=model.device).manual_seed(2)
     toks = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
                          device=model.device)
@@ -3315,9 +3355,11 @@ def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3) -> float:
         diff = (logits - full[:, t]).abs()
         worst = max(worst, float(diff.max()))
         rel = max(rel, float((diff / (tol + tol * full[:, t].abs())).max()))
-    say("lm agreement", dtype="float32", S=S, max_abs_err=worst,
-        max_err_over_bar=rel, logits_absmax=float(full.abs().max()))
-    check(rel <= 1.0, f"lm agreement: prefill and decode logits differ by "
+    say(label, dtype="float32", S=S, layers=cfg.num_layers,
+        capacity_factor=cfg.capacity_factor if cfg.uses_moe else None,
+        max_abs_err=worst, max_err_over_bar=rel,
+        logits_absmax=float(full.abs().max()))
+    check(rel <= 1.0, f"{label}: prefill and decode logits differ by "
                       f"{worst} (bar {tol} abs + {tol} rel)")
     del m32, full, cache
     torch.cuda.empty_cache()
@@ -3360,7 +3402,7 @@ def cpu_admissions(model, reqs, ticks: int) -> list:
     return [[r.rid for r in sched.tick()] for _ in range(ticks)]
 
 
-def phase_lm_serve(model):
+def phase_lm_serve(model, label: str = "lm serve"):
     from repro_torch import kernels
     from repro_torch.core import guard
     cfg = model.cfg
@@ -3373,38 +3415,38 @@ def phase_lm_serve(model):
         per_tick.append([g.rid for g in done[at:at + t.admitted]])
         at += t.admitted
     want = cpu_admissions(model, reqs, len(engine.tick_log))
-    say("lm serve admissions", card=json.dumps(per_tick),
+    say(f"{label} admissions", card=json.dumps(per_tick),
         cpu=json.dumps(want), lp_batch_launches=counts["lp_batch"])
-    check(per_tick == want, "lm serve: the card's admissions differ from "
-                            "a CPU scheduler's")
-    lp_err = hold_flights(flights, "lm serve")
+    check(per_tick == want, f"{label}: the card's admissions differ "
+                            "from a CPU scheduler's")
+    lp_err = hold_flights(flights, label)
     for i, t in enumerate(engine.tick_log):
         per_tok = t.decode_s / max(t.steps - 1, 1)
-        say(f"lm serve tick {i}", admitted=t.admitted,
+        say(f"{label} tick {i}", admitted=t.admitted,
             solve_ms=t.solve_s * 1e3, status=t.status,
             prompt_len=t.prompt_len, steps=t.steps, tokens=t.tokens,
             ttft_ms=t.prefill_s * 1e3, decode_ms_per_token=per_tok * 1e3,
             tokens_per_s=t.tokens / max(t.prefill_s + t.decode_s, 1e-9))
-        check(t.status == guard.OK, f"lm serve: tick {i} status {t.status}")
+        check(t.status == guard.OK, f"{label}: tick {i} status {t.status}")
     want = {r.rid: r.max_new_tokens for r in reqs}
     got = {g.rid: g.tokens for g in done}
     check(set(got) == set(want) and not sched.queue,
-          f"lm serve: answered {sorted(got)} of {sorted(want)}")
+          f"{label}: answered {sorted(got)} of {sorted(want)}")
     for rid, toks in got.items():
-        check(len(toks) == want[rid], f"lm serve: rid {rid} got "
+        check(len(toks) == want[rid], f"{label}: rid {rid} got "
                                       f"{len(toks)} of {want[rid]} tokens")
         check(all(0 <= x < cfg.vocab_size for x in toks),
-              f"lm serve: rid {rid} has out-of-vocabulary tokens")
+              f"{label}: rid {rid} has out-of-vocabulary tokens")
     # determinism: the first tick again from the same seed (its admission
     # and its batch's tokens) proves what a whole second run would, at
     # half its cost
     _, again, _, _, again_s = serve_once(model, ticks=1)
     first = [(g.rid, g.tokens) for g in done[:engine.tick_log[0].admitted]]
     check([(g.rid, g.tokens) for g in again] == first,
-          "lm serve: tick 0 rerun with the same seed gave other admissions "
+          f"{label}: tick 0 rerun with the same seed gave other admissions "
           "or tokens")
     tokens = sum(want.values())
-    say("lm serve", requests=len(reqs), answered=len(done), wall_s=wall,
+    say(label, requests=len(reqs), answered=len(done), wall_s=wall,
         generated_tokens=tokens, tokens_per_s=tokens / wall,
         tick0_rerun="identical", tick0_rerun_s=again_s,
         launches=json.dumps(counts))
@@ -3419,7 +3461,7 @@ def phase_lm_serve(model):
     busy_ms, ops, reads, _, top = device_profile(
         lambda: engine.generate_batch(prompts, new))
     steps = prompts.shape[1] + new - 1
-    say(f"profile lm serve (batch 8, {prompts.shape[1]} prompt + {new} "
+    say(f"profile {label} (batch 8, {prompts.shape[1]} prompt + {new} "
         f"new)", wall_s=gen_s,
         device_busy_s=busy_ms / 1e3, idle_share=1.0 - busy_ms / 1e3 / gen_s,
         decode_steps=steps, device_ops_per_step=ops / steps,
@@ -3427,7 +3469,8 @@ def phase_lm_serve(model):
     return counts["lp_batch"], lp_err
 
 
-def phase_lm_main_inputs(model, batch, counts):
+def phase_lm_main_inputs(model, batch, counts,
+                         label: str = "main-path flash_attention"):
     """The prefill rerun keeping every flash call's arguments, each held
     against the plain version; numbers at the largest call."""
     import torch
@@ -3439,14 +3482,14 @@ def phase_lm_main_inputs(model, batch, counts):
     again = kernels.launch_counts()
     kept = calls["flash_attention"]
     check(len(kept) == model.cfg.num_layers,
-          f"lm main path: {len(kept)} flash calls kept")
+          f"{label}: {len(kept)} flash calls kept")
     t0 = time.perf_counter()
     errs, overs, rels = zip(*(flash_check(*a, **kw) for a, kw in kept))
     torch.cuda.synchronize()
     sizes = [a[0].numel() for a, _ in kept]
     (a, kw) = kept[int(np.argmax(sizes))]
     nums = flash_times(*a, **kw)
-    say("main-path flash_attention", calls=len(kept),
+    say(label, calls=len(kept),
         launches_as_in_prefill=again["flash_attention"]
         == counts["flash_attention"], max_abs_err=max(errs),
         err_over_limit=max(overs), rel_norm_err=max(rels),
@@ -3454,6 +3497,145 @@ def phase_lm_main_inputs(model, batch, counts):
     del calls, kept
     torch.cuda.empty_cache()
     return max(errs), nums
+
+
+
+# ------------------------------------------- the MoE slice: mixtral-8x22b
+
+MOE_ARCH = "mixtral-8x22b"
+# of its 56 layers: one full-width layer holds 2.50e9 parameters (5.0 GB
+# in bf16), 8 hold 40.9 GB with the embeddings; every decode step of the
+# capacity dispatch reads every expert's weights (~38.7 GB at 8 layers)
+MOE_LAYERS = 8
+MOE_PREFILL = dict(B=1, S=8192)   # twice the 4,096-token window
+MOE_LAYER_TOKENS = 512            # phase "moe layer"
+MOE_TOL = 2e-4                    # the reference's MoE bar, float32
+MOE_AGREEMENT = dict(num_layers=2, capacity_factor=8.0)
+
+
+def moe_model(dev):
+    """mixtral-8x22b at full width cut to ``MOE_LAYERS`` layers, bf16,
+    random init from a seeded generator."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say("moe model", arch=MOE_ARCH, params=model.param_count(),
+        active_params=cfg.active_param_count(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_tok, moe_d_ff=cfg.moe_d_ff,
+        window=cfg.sliding_window, vocab=cfg.padded_vocab,
+        param_gib=torch.cuda.memory_allocated() / 2**30)
+    return model
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Every ``moe.apply_moe`` call in the block also logs its routing:
+    [(copies per expert, copies dropped per expert, tokens a group,
+    slots an expert)], one entry a layer."""
+    import torch
+    from repro_torch.models import moe
+    log, apply = [], moe.apply_moe
+
+    def logged(p, cfg, x, *args, **kw):
+        r = moe.route(p, cfg, x, *args, **kw)
+        E = cfg.num_experts
+        log.append((torch.bincount(r.idx.flatten(), minlength=E),
+                    torch.bincount(r.idx[~r.keep], minlength=E), r.g, r.C))
+        return apply(p, cfg, x, *args, **kw)
+
+    moe.apply_moe = logged
+    try:
+        yield log
+    finally:
+        moe.apply_moe = apply
+
+
+def phase_moe_prefill(model):
+    """Phase "lm prefill" on the MoE model (B = 1, S = 8,192: the window
+    masks keys), then one more prefill logging each layer's routing."""
+    counts, batch = phase_lm_prefill(model, label="moe prefill",
+                                     **MOE_PREFILL)
+    with routing_log() as log:
+        model.prefill_logits(batch)
+    for i, (copies, dropped, g, C) in enumerate(log):
+        say(f"moe prefill routing layer {i}", tokens_a_group=g,
+            slots_an_expert=C, copies=json.dumps(copies.tolist()),
+            dropped=json.dumps(dropped.tolist()),
+            dropped_share=float(dropped.sum()) / float(copies.sum()))
+    return counts, batch
+
+
+def phase_moe_layer(model, T: int = MOE_LAYER_TOKENS, tol: float = MOE_TOL):
+    """Layer 0's experts on T tokens: in float32 at capacity 8.0 (no copy
+    drops) ``apply_moe`` against the dense oracle ``ref_moe`` (2e-4 abs +
+    2e-4 rel); in bf16 at the default capacity, twice: bit-identical
+    outputs and aux.  Times: the bf16 layer and the float32 pair (CUDA
+    events)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer
+    cfg = model.cfg
+    ffn = layer(model.params["decoder"]["layers"], 0)["ffn"]
+    g = torch.Generator(device=model.device).manual_seed(3)
+    x = torch.randn((1, T, cfg.d_model), generator=g, device=model.device)
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    p32 = {k: v.float() for k, v in ffn.items()}
+    out, _ = moe.apply_moe(p32, cfg8, x)
+    want = moe.ref_moe(p32, cfg8, x)
+    kept = bool(moe.route(p32, cfg8, x).keep.all())
+    ms32 = timed_ms(lambda: moe.apply_moe(p32, cfg8, x), 3)
+    plain32 = timed_ms(lambda: moe.ref_moe(p32, cfg8, x), 1)
+    diff = (out - want).abs()
+    err = float(diff.max())
+    over = float((diff / (tol + tol * want.abs())).max())
+    check(bool(torch.isfinite(out).all()), "moe layer: non-finite output")
+    check(kept, "moe layer: a copy dropped at capacity factor 8.0")
+    check(over <= 1.0, f"moe layer: apply_moe and ref_moe differ by {err} "
+                       f"(bar {tol} abs + {tol} rel)")
+    del p32, out, want, diff
+    xb = x.bfloat16()
+    a, aux_a = moe.apply_moe(ffn, cfg, xb)
+    b, aux_b = moe.apply_moe(ffn, cfg, xb)
+    check(torch.equal(a, b) and torch.equal(aux_a, aux_b),
+          "moe layer: two bf16 runs differ")
+    r = moe.route(ffn, cfg, xb)
+    ms16 = timed_ms(lambda: moe.apply_moe(ffn, cfg, xb), 5)
+    say("moe layer", tokens=T, float32_max_abs_err=err,
+        float32_err_over_bar=over, float32_ms=ms32,
+        float32_ref_moe_ms=plain32, bf16_rerun="identical", bf16_ms=ms16,
+        bf16_tokens_a_group=r.g, bf16_slots_an_expert=r.C,
+        bf16_dropped=int((~r.keep).sum()), aux=float(aux_a))
+    torch.cuda.empty_cache()
+    return err
+
+
+def moe_phases(phase, dev):
+    """Phases 16-20, each through ``phase(label, fn, *args)``; the model is
+    freed at the end.  Returns (the prefill's launch counts, the main-path
+    flash hold's (max abs err, numbers), the serve phase's (lp_batch
+    launches, max lane error))."""
+    import torch
+    model = phase("moe model", moe_model, dev)
+    counts, batch = phase("moe prefill", phase_moe_prefill, model)
+    phase("moe layer", phase_moe_layer, model)
+    phase("moe agreement", functools.partial(
+        phase_lm_agreement, label="moe agreement", **MOE_AGREEMENT), model)
+    serve = phase("moe serve", phase_lm_serve, model, "moe serve")
+    held = phase("moe main-path inputs", phase_lm_main_inputs, model, batch,
+                 counts, "main-path flash_attention moe")
+    del model, batch
+    torch.cuda.empty_cache()
+    return counts, held, serve
 
 
 # ------------------------------------------------------------------ main
@@ -3753,26 +3935,33 @@ def main() -> None:
 
     model = phase("lm model", lm_model, dev)
     lm_counts, batch = phase("lm prefill", phase_lm_prefill, model)
-    counts["flash_attention"] = lm_counts["flash_attention"]
     phase("lm agreement", phase_lm_agreement, model)
     serve_lp = phase("lm serve", phase_lm_serve, model)
-    main_nums["flash_attention"] = phase(
-        "lm main-path inputs", phase_lm_main_inputs, model, batch, lm_counts)
+    lm_main = phase("lm main-path inputs", phase_lm_main_inputs, model,
+                    batch, lm_counts)
     del model, batch
     torch.cuda.empty_cache()
     dist_counts, dist_nums = phase("dist", phase_dist, *full_cell)
     del full_cell
+
+    moe_counts, moe_main, moe_serve_lp = moe_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
+
+    # flash's main paths: the two prefills, numbers at the largest call
+    counts["flash_attention"] = lm_counts["flash_attention"] \
+        + moe_counts["flash_attention"]
+    main_nums["flash_attention"] = (max(lm_main[0], moe_main[0]),
+                                    moe_main[1])
 
     # the batched LP engine: its main path is phase "lp batch"'s B&B;
     # its launches on every other path that batches LP flights
     fixed["lp_batch"] = (lp["err"], lp["fixed"])
-    main_nums["lp_batch"] = (max(lp["err"], parity_lp[1], serve_lp[1]),
-                             lp["main"])
+    main_nums["lp_batch"] = (max(lp["err"], parity_lp[1], serve_lp[1],
+                                 moe_serve_lp[1]), lp["main"])
     counts["lp_batch"] = lp["launches"]
     lp_paths = {**lp["paths"], "parity W=8": parity_lp[0],
-                "lm serve": serve_lp[0]}
+                "lm serve": serve_lp[0], "moe serve": moe_serve_lp[0]}
     # the descent's main path is the append; the build and the solves
     # (phase "full", the cache flight) never descend
     main_nums["split_tree_descent"] = (float(append_err), append_nums)
@@ -3797,12 +3986,15 @@ def main() -> None:
             if name in PQ_KERNELS else lp_paths if name == "lp_batch" \
             else descent_paths if name == "split_tree_descent" \
             else seed_paths if name == "dlv_scan_seed" \
-            else {"lm prefill": counts[name]}
+            else {"lm prefill": lm_counts[name],
+                  "moe prefill": moe_counts[name]}
         extra = {}
         if name == "dlv_scan":
             paths["heap"] = heap_n
             err_m = max(err_m, heap_err)
             extra["heap_largest_call"] = heap_nums
+        if name == "flash_attention":
+            extra["lm_prefill_largest_call"] = lm_main[1]
         if name in dist_nums:
             paths.update({p: n[name] for p, n in dist_counts.items()})
             err_m = max(err_m, dist_nums[name][0])

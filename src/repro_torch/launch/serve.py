@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         [--device cuda] [--requests 24] [--ticks 6]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mixtral-8x22b-smoke --device cpu
 
 The reference's flags, plus ``--device`` (default ``cuda``; the CPU runs
 only with ``--device cpu``).  The model is randomly initialised from a

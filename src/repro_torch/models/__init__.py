@@ -1,4 +1,5 @@
-"""Model stack of the port: dense GQA decoder LMs (see ``model.Model``)."""
+"""Model stack of the port: GQA decoder LMs, dense and mixture of experts
+(see ``model.Model``)."""
 from repro_torch.models.model import Model
 
 __all__ = ["Model"]

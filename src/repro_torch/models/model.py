@@ -10,10 +10,11 @@ reference's names and layouts (``decoder.layers.attn.wq`` is
 (L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
 the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints.
 
-The port runs the dense GQA families; MoE, MLA, SSM, hybrid,
-encoder-decoder and VLM raise ``NotImplementedError`` naming their ROADMAP
-item, and the training loss waits for the training slice.  Decode keeps
-the cache index as a host int and writes the caches in place.
+The port runs the GQA families, dense and mixture of experts; MLA, SSM,
+hybrid, encoder-decoder and VLM raise ``NotImplementedError`` naming
+their ROADMAP item, and the training loss waits for the training slice.
+Decode keeps the cache index as a host int and writes the caches in
+place.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        embedding_spec, logits_from, norm_spec,
@@ -149,7 +151,7 @@ class Model(nn.Module):
         with kv_len = min(cache_len, window) for a sliding window (a
         rolling cache), and the host int ``index``."""
         cfg = self.cfg
-        tfm._dense_gqa_only(cfg)
+        tfm._gqa_stacks_only(cfg)
         kv_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
         shape = (cfg.num_layers, batch_size, kv_len, cfg.num_kv_heads,
@@ -177,7 +179,13 @@ class Model(nn.Module):
 
     def _decode_gqa(self, params, cache, x, index: int) -> torch.Tensor:
         cfg = self.cfg
-        layers = params["decoder"]["layers"]
+        dec = params["decoder"]
+        if "dense_layers" in dec:
+            # as the reference (``model.py:245-246``): its GQA decode body
+            # has no leading dense stack
+            raise NotImplementedError("GQA decode with first_k_dense "
+                                      "leading dense layers")
+        layers = dec["layers"]
         for i in range(cfg.num_layers):
             lp = tfm.layer(layers, i)
             a = apply_norm(lp["ln1"], x, cfg.norm_eps)
@@ -186,7 +194,11 @@ class Model(nn.Module):
                                       window=cfg.sliding_window)
             x = x + a
             f = apply_norm(lp["ln2"], x, cfg.norm_eps)
-            x = x + apply_mlp(lp["ffn"], f, cfg.act)
+            if "router" in lp["ffn"]:
+                f, _ = moe_lib.apply_moe(lp["ffn"], cfg, f)
+            else:
+                f = apply_mlp(lp["ffn"], f, cfg.act)
+            x = x + f
         return x
 
     # -------------------------------------------- cache-filling prefill

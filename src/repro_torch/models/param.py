@@ -10,9 +10,12 @@ port does not read them.
 the reference's flatten order (sorted keys).  The rules are the
 reference's -- normal(0, scale), zeros, ones, and fan-in "scaled" normals
 (scale ``1/sqrt(prod(shape[:-1]))`` of the stacked shape) -- drawn in
-float32 and cast to the parameter dtype.  The numbers differ from
-``jax.random``'s; tests carry the reference's parameters across with
-``repro_torch.models.convert.from_jax_params``.
+float32 and cast to the parameter dtype.  A leaf of more than
+``DRAW_WHOLE_MAX`` elements is drawn one index of its leading (layers)
+axis at a time into the cast result, so no whole-leaf float32 temporary
+exists; its fan-in is still that of the stacked shape.  The numbers
+differ from ``jax.random``'s; tests carry the reference's parameters
+across with ``repro_torch.models.convert.from_jax_params``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,13 @@ import numpy as np
 import torch
 
 Axes = Tuple[Optional[str], ...]
+
+# Leaves up to this many elements are drawn whole, in one ``randn``: every
+# leaf of the dense archs (glm4-9b's largest holds 2.2e9), so their draws
+# are what they were before large leaves were sliced.  Mixtral's stacked
+# ``wi`` at 8 layers holds 6.4e9 (a 25.8 GB float32 draw beside 12.9 GB of
+# bf16); sliced, the temporary is one layer's 3.2 GB.
+DRAW_WHOLE_MAX = 2 ** 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +87,15 @@ def _init_one(info: ParamInfo, generator: torch.Generator, dtype,
     if info.init == "scaled":          # fan-in scaled (output projections)
         fan_in = int(np.prod(info.shape[:-1])) or 1
         scale = 1.0 / math.sqrt(fan_in)
-    v = torch.randn(info.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return v.mul_(scale).to(dtype)
+    if math.prod(info.shape) <= DRAW_WHOLE_MAX:
+        v = torch.randn(info.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return v.mul_(scale).to(dtype)
+    out = torch.empty(info.shape, dtype=dtype, device=device)
+    for part in out:
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(scale))
+    return out
 
 
 def init_params(spec: Dict[str, Any], generator: torch.Generator, dtype,

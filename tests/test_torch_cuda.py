@@ -756,6 +756,54 @@ def test_model_prefill_goes_through_the_kernel(dev):
         torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)
 
 
+# ------------------------------------------------ mixture of experts
+
+
+def test_moe_greedy_tokens_on_the_card_equal_the_cpus(dev):
+    """mixtral-smoke in float32, the same seeded parameters on the card and
+    on the CPU: ``generate_batch`` gives the same greedy tokens (decode
+    steps only: the smoke head_dim of 32 is no flash shape).  Four prompts
+    a step at the default capacity, so copies may drop, alike on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").smoke(),
+                              param_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    card = Model(cfg, device=dev).load_params(cpu.params)
+    prompts = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (4, 10)).astype(np.int32)
+    want = ServingEngine(cpu, cache_len=32).generate_batch(prompts, 8)
+    got = ServingEngine(card, cache_len=32).generate_batch(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_moe_layer_on_the_card(dev, K):
+    """A MoE layer of 8 experts (d_model 512, expert width 1,024) on 1,024
+    tokens, top-K: in bf16 at the default capacity two runs give the same
+    bits (the combine adds a token's slots in k order, no atomics); in
+    float32 at capacity 8.0 it is the dense oracle's within 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").smoke(),
+                              num_experts=8, num_experts_per_tok=K,
+                              d_model=512, moe_d_ff=1024)
+    g = torch.Generator(device=dev).manual_seed(K)
+    p = init_params(moe.moe_spec(cfg), g, torch.bfloat16, dev)
+    x = torch.randn((4, 256, cfg.d_model), generator=g, device=dev)
+    a, aux_a = moe.apply_moe(p, cfg, x.bfloat16())
+    b, aux_b = moe.apply_moe(p, cfg, x.bfloat16())
+    assert bool(torch.isfinite(a.float()).all())
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    p32 = {k: v.float() for k, v in p.items()}
+    out, _ = moe.apply_moe(p32, cfg8, x)
+    torch.testing.assert_close(out, moe.ref_moe(p32, cfg8, x), rtol=2e-4,
+                               atol=2e-4)
+
+
 # ------------------------------------------- the batched LP engine (lp_batch)
 
 

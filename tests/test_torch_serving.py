@@ -33,11 +33,14 @@ def _requests(n, seed, prompt=(4, 24), new=(4, 16)):
 
 
 @pytest.mark.parametrize("arch,hbm_frac,n", [("qwen2-1.5b", 0.05, 24),
-                                             ("smollm-135m", 6e-3, 30)])
+                                             ("smollm-135m", 6e-3, 30),
+                                             ("mixtral-8x22b-smoke", 1.5e-4,
+                                              24)])
 def test_scheduler_admits_as_reference(arch, hbm_frac, n):
     """Same submits -> the same request ids admitted on every tick, and no
-    tick ends in an ERROR report.  The second case makes the KV budget
-    bind, so the admission is a knapsack that B&B has to branch on.  The
+    tick ends in an ERROR report.  The second and third cases make the KV
+    budget bind, so the admission is a knapsack that B&B has to branch on
+    (the third prices a MoE's prefill by its active parameters).  The
     wall-clock deadline is set far out: on a loaded host the reference's
     first tick (which compiles its batched LP engine) can pass the 5 s
     default and degrade, which would compare clocks, not solvers."""
@@ -62,10 +65,12 @@ def test_scheduler_admits_as_reference(arch, hbm_frac, n):
     assert port.admitted_total == ref.admitted_total == n
 
 
-def test_generate_batch_greedy_matches_reference():
-    ref_cfg = dataclasses.replace(ref_config("qwen2-1.5b").smoke(),
+def _greedy_pair(arch):
+    """(reference tokens, port tokens) of ``generate_batch``: 3 prompts of
+    10 tokens, 8 new, float32 smoke parameters of the reference."""
+    ref_cfg = dataclasses.replace(ref_config(arch).smoke(),
                                   param_dtype="float32")
-    cfg = dataclasses.replace(get_config("qwen2-1.5b").smoke(),
+    cfg = dataclasses.replace(get_config(arch).smoke(),
                               param_dtype="float32")
     params = RefModel(ref_cfg).init(jax.random.PRNGKey(0))
     model = from_jax_params(jax.tree.map(np.asarray, params), cfg, "cpu")
@@ -74,7 +79,18 @@ def test_generate_batch_greedy_matches_reference():
     want = RefEngine(ref_cfg, params, cache_len=32).generate_batch(prompts, 8)
     got = ServingEngine(model, cache_len=32).generate_batch(prompts, 8)
     assert got.dtype == np.int32 and got.shape == (3, 8)
-    np.testing.assert_array_equal(got, want)
+    return want, got
+
+
+def test_generate_batch_greedy_matches_reference():
+    np.testing.assert_array_equal(*_greedy_pair("qwen2-1.5b"))
+
+
+def test_generate_batch_greedy_matches_reference_moe():
+    """mixtral-smoke at the default capacity: a decode step's three tokens
+    are one group (C = 2 slots an expert for 6 copies), so copies may drop,
+    in the reference and the port alike."""
+    np.testing.assert_array_equal(*_greedy_pair("mixtral-8x22b"))
 
 
 def test_temperature_sampling_is_seeded():
@@ -115,3 +131,10 @@ def test_launch_serve_on_cpu_and_not_without_a_device():
         pytest.skip("a CUDA card is present: the no-card contract is moot")
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "qwen2-1.5b-smoke", "--requests", "2"])
+
+
+def test_launch_serve_moe_on_cpu():
+    from repro_torch.launch import serve
+    done = serve.main(["--arch", "mixtral-8x22b-smoke", "--device", "cpu",
+                       "--requests", "6", "--ticks", "3"])
+    assert sorted(g.rid for g in done) == list(range(6))
