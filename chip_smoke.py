@@ -224,6 +224,32 @@ freed before phase 15):
 20. moe main-path inputs: phase 14 on phase 16's prefill ("main-path
     flash_attention moe").
 
+The MLA slice (deepseek-v3-671b at full width cut to 5 of its 61 layers:
+the 3 leading dense layers and 2 MoE layers of 256 experts, top-8, and a
+shared one; the MTP head's parameters; bf16, 27.30e9 parameters, random
+init from a seeded ``torch.Generator``; the mixtral model is freed
+first):
+
+21. mla prefill: ``Model.prefill_logits`` on B = 1 x S = 8,192 tokens
+    with every launch count read around it (5 flash launches, each at
+    q/k head_dim 192 and v head_dim 128): first and warm walls,
+    tokens/s, peak memory, then profiled (top ops, idle share); each MoE
+    layer's routing ("mla prefill routing layer i");
+22. mla flash: the prefill's first flash call (the five share one shape)
+    held against its plain version (the one-ulp bar), and its ms,
+    TFLOP/s, bound and the ``scaled_dot_product_attention`` call's time
+    on the same shapes, with the backend that ran it;
+23. mla serve: phase 13 on the MLA model (absorbed decode over the
+    latent cache; admissions equal to a CPU scheduler's, tick 0 rerun
+    identical);
+25. mla main-path inputs: phase 14 on phase 21's prefill, every call
+    held, the times being phase 22's ("main-path flash_attention mla");
+24. mla agreement (last: the bf16 model is freed first): a float32
+    deepseek of one dense and one MoE layer at full width (14.63e9
+    parameters) drawn from a seeded generator, capacity factor 8.0,
+    prefill logits at S = 64 (the float32 flash kernel at (192, 128))
+    against 64 absorbed ``decode_step``s (2e-3).
+
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without CUDA, or without the
@@ -305,6 +331,7 @@ TOLERANCE = {"pricing": "1e-12 of max(1, |plain|); inf where plain is inf",
 # the flash kernel against its plain version, by dtype: an elementwise
 # limit (see flash_agreement) and a bar on the relative norm of the error
 FLASH_NORM_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
+PLAIN_BLOCK_BYTES = 2 ** 30   # the plain flash scan's score block, at most
 # the kernels of the package-query path (phases 4-5); flash_attention is
 # the LM slice's (phases 6-10)
 PQ_KERNELS = ("pricing", "bfrt_histogram", "segment_stats", "dlv_scan")
@@ -3090,13 +3117,14 @@ def phase_sketchrefine(rows: int = SR_ROWS, device="cuda"):
 
 def ptxas_entries(log: str) -> list:
     """One dict per kernel entry of an ``nvcc -Xptxas -v`` log: its name
-    (``flash_fwd_tc_kernel<128>``), registers, stack frame and spill
+    (``flash_fwd_tc_kernel<192,128>``), registers, stack frame and spill
     bytes; and the log's warnings under ``warning``."""
     out, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\d+(\w+?)ILi(\d+)ELi(\d+)E", line)
         if m:
-            cur = {"kernel": f"{m[1]}<{m[2]}>"}
+            cur = {"kernel": f"{m[1]}<{m[2]},{m[3]}>"}
             out.append(cur)
         elif "warning" in line.lower():
             out.append({"warning": line.strip()})
@@ -3124,10 +3152,10 @@ def ptxas_report(build) -> None:
         if "warning" in e:
             say("ptxas flash_attn warning", text=json.dumps(e["warning"]))
             continue
-        hd = int(e["kernel"].split("<")[1].rstrip(">"))
+        hd, hdv = map(int, e["kernel"].split("<")[1].rstrip(">").split(","))
         bf16 = e["kernel"].startswith("flash_fwd_tc_kernel")
         say("ptxas flash_attn", **e, dtype="bfloat16" if bf16 else "float32",
-            dynamic_smem_bytes=lib.flash_attn_smem_bytes(hd, int(bf16)))
+            dynamic_smem_bytes=lib.flash_attn_smem_bytes(hd, hdv, int(bf16)))
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -3162,71 +3190,119 @@ def flash_agreement(got, want) -> tuple:
             over <= 1.0 and rel <= FLASH_NORM_TOL[dt])
 
 
-def flash_check(q, k, v, *, causal=True, window=0) -> tuple:
+def flash_plain(q, k, v, **kw):
+    """``flash_attention_plain`` over groups of KV heads (a head's output
+    depends on its own q, k and v alone), each group's float32 score
+    block (B, S, heads, PLAIN_CHUNK) within ``PLAIN_BLOCK_BYTES``: an MLA
+    call's whole block is 4 GiB at S = 8,192 and 128 heads, and the scan
+    holds several such temporaries beside a 51 GiB model."""
+    import torch
+    from repro_torch.kernels.attention import (PLAIN_CHUNK,
+                                               flash_attention_plain)
+    B, S, H, _ = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    step = max(1, PLAIN_BLOCK_BYTES // (B * S * g * min(S, PLAIN_CHUNK) * 4))
+    if step >= KV:
+        return flash_attention_plain(q, k, v, **kw)
+    return torch.cat([flash_attention_plain(
+        q[:, :, h * g:(h + step) * g], k[:, :, h:h + step],
+        v[:, :, h:h + step], **kw) for h in range(0, KV, step)], dim=2)
+
+
+def flash_check(q, k, v, *, causal=True, window=0, scale=None) -> tuple:
     """Kernel vs plain flash attention on (q, k, v): (max abs error, max
     error over its limit, relative norm error); fails beyond the bars of
     ``flash_agreement`` or on a non-finite output."""
     import torch
-    from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.ops import flash_attention_op
-    got = flash_attention_op(q, k, v, causal=causal, window=window)
-    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    got = flash_attention_op(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    want = flash_plain(q, k, v, causal=causal, window=window, scale=scale)
     check(bool(torch.isfinite(got).all()), "flash_attention: non-finite "
                                            "output")
     err, over, rel, ok = flash_agreement(got, want)
     check(ok, f"flash_attention disagrees with its plain version at "
-              f"{tuple(q.shape)} {q.dtype} window={window} (max abs err "
-              f"{err}, {over} of its limit, relative norm {rel})")
+              f"{tuple(q.shape)} v {tuple(v.shape)} {q.dtype} "
+              f"window={window} (max abs err {err}, {over} of its limit, "
+              f"relative norm {rel})")
     return err, over, rel
 
 
-def sdpa_call(q, k, v, *, causal, window):
+def sdpa_call(q, k, v, *, causal, window, scale=None):
     """The library yardstick: one ``scaled_dot_product_attention`` call on
-    the same inputs (heads-first views).  The window needs an explicit
-    mask, and with a mask the call is pinned to the memory-efficient
-    backend over K/V expanded to every head (expanded outside the timed
-    call): the math backend would hold (H, S, S) scores."""
+    the same inputs (heads-first views), and the name of the backend that
+    runs it.  The window needs an explicit mask, and with a mask the call
+    is pinned to the memory-efficient backend over K/V expanded to every
+    head (expanded outside the timed call): the math backend would hold
+    (H, S, S) scores.  So would it for v's head_dim other than q's (MLA),
+    where the flash backend refuses: that call may take any fused
+    backend, never math."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window <= 0:
-        return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-    i = torch.arange(q.shape[1], device=q.device)
-    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
-    rep = q.shape[2] // k.shape[2]
-    ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+    kw = dict(is_causal=causal, scale=scale)
+    backends = None
+    if window > 0:
+        i = torch.arange(q.shape[1], device=q.device)
+        kw = dict(attn_mask=(i[:, None] >= i[None, :])
+                  & (i[:, None] - i[None, :] < window), scale=scale)
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+        backends = [SDPBackend.EFFICIENT_ATTENTION]
+    else:
+        if q.shape[2] != k.shape[2]:
+            kw["enable_gqa"] = True
+        if q.shape[-1] != v.shape[-1]:
+            backends = [getattr(SDPBackend, b) for b in
+                        ("FLASH_ATTENTION", "CUDNN_ATTENTION",
+                         "EFFICIENT_ATTENTION") if hasattr(SDPBackend, b)]
+    pinned = (lambda: sdpa_kernel(backends)) if backends \
+        else contextlib.nullcontext
 
     def call():
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            return F.scaled_dot_product_attention(qt, ke, ve,
-                                                  attn_mask=mask)
-    return call
+        with pinned():
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    backend = "unknown"
+    try:
+        with pinned():
+            choice = torch._fused_sdp_choice(qt, kt, vt, **kw)
+        backend = {int(v): k for k, v in
+                   SDPBackend.__members__.items()}.get(int(choice), backend)
+    except (AttributeError, RuntimeError, TypeError):
+        pass
+    return call, backend
 
 
-def flash_times(q, k, v, *, causal=True, window=0, reps=3) -> dict:
-    from repro_torch.kernels.attention import flash_attention_plain
+def flash_times(q, k, v, *, causal=True, window=0, scale=None,
+                reps=3) -> dict:
     from repro_torch.kernels.ops import flash_attention_op
     B, S, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[3]
     dt = str(q.dtype).split(".")[-1]
-    nbytes = (2 * B * S * H * d + 2 * B * S * KV * d) * q.element_size()
-    ops = 4 * d * flash_pairs(S, causal, window) * B * H
+    nbytes = (B * S * H * (d + dv) + B * S * KV * (d + dv)) \
+        * q.element_size()
+    # the useful FLOP: 2 (d + dv) a (query, key) pair the mask keeps
+    ops = 2 * (d + dv) * flash_pairs(S, causal, window) * B * H
     lib, lib_note = None, "scaled_dot_product_attention"
     try:
-        lib = timed_ms(sdpa_call(q, k, v, causal=causal, window=window),
-                       reps)
+        call, backend = sdpa_call(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+        lib_note += f" ({backend})"
+        lib = timed_ms(call, reps)
     except RuntimeError as exc:      # the yardstick only: noted, not hidden
         lib_note = f"scaled_dot_product_attention failed: {exc}"[:200]
     ms = timed_ms(lambda: flash_attention_op(q, k, v, causal=causal,
-                                             window=window), reps)
+                                             window=window, scale=scale),
+                  reps)
     return _numbers(
-        f"B={B} S={S} H={H} KV={KV} d={d} {dt} "
+        f"B={B} S={S} H={H} KV={KV} d={d} dv={dv} {dt} "
         f"{'causal' if causal else 'full'} window={window}",
         nbytes, ops, ms,
-        timed_ms(lambda: flash_attention_plain(q, k, v, causal=causal,
-                                               window=window), 1),
+        timed_ms(lambda: flash_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale), 1),
         lib, peak=PEAK_OPS[dt], library=lib_note,
         tflops=ops / ms / 1e9,
         vs_library=ms / lib if lib else None)
@@ -3344,9 +3420,20 @@ def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3,
         params = first_layers(params, cfg.num_layers)
     m32 = Model(cfg, device=model.device).load_params(params)
     del params
-    g = torch.Generator(device=model.device).manual_seed(2)
+    worst = prefill_decode_agreement(m32, S, tol, label)
+    del m32
+    torch.cuda.empty_cache()
+    return worst
+
+
+def prefill_decode_agreement(m32, S: int, tol: float, label: str) -> float:
+    """Prefill logits of ``m32`` at S seeded tokens against S decode steps
+    (each within ``tol`` abs + ``tol`` rel)."""
+    import torch
+    cfg = m32.cfg
+    g = torch.Generator(device=m32.device).manual_seed(2)
     toks = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
-                         device=model.device)
+                         device=m32.device)
     full = m32.prefill_logits({"tokens": toks})
     cache = m32.init_cache(1, S)
     worst, rel = 0.0, 0.0
@@ -3361,8 +3448,6 @@ def phase_lm_agreement(model, S: int = 64, tol: float = 2e-3,
         logits_absmax=float(full.abs().max()))
     check(rel <= 1.0, f"{label}: prefill and decode logits differ by "
                       f"{worst} (bar {tol} abs + {tol} rel)")
-    del m32, full, cache
-    torch.cuda.empty_cache()
     return worst
 
 
@@ -3470,9 +3555,11 @@ def phase_lm_serve(model, label: str = "lm serve"):
 
 
 def phase_lm_main_inputs(model, batch, counts,
-                         label: str = "main-path flash_attention"):
+                         label: str = "main-path flash_attention",
+                         times: bool = True):
     """The prefill rerun keeping every flash call's arguments, each held
-    against the plain version; numbers at the largest call."""
+    against the plain version; numbers at the largest call (none when not
+    ``times``: the caller timed that call)."""
     import torch
     from repro_torch import kernels
     kernels.reset_launches()
@@ -3488,7 +3575,7 @@ def phase_lm_main_inputs(model, batch, counts,
     torch.cuda.synchronize()
     sizes = [a[0].numel() for a, _ in kept]
     (a, kw) = kept[int(np.argmax(sizes))]
-    nums = flash_times(*a, **kw)
+    nums = flash_times(*a, **kw) if times else {}
     say(label, calls=len(kept),
         launches_as_in_prefill=again["flash_attention"]
         == counts["flash_attention"], max_abs_err=max(errs),
@@ -3559,15 +3646,17 @@ def routing_log():
         moe.apply_moe = apply
 
 
-def phase_moe_prefill(model):
-    """Phase "lm prefill" on the MoE model (B = 1, S = 8,192: the window
-    masks keys), then one more prefill logging each layer's routing."""
-    counts, batch = phase_lm_prefill(model, label="moe prefill",
-                                     **MOE_PREFILL)
+def phase_moe_prefill(model, label: str = "moe prefill", sizes=MOE_PREFILL):
+    """Phase "lm prefill" on a MoE model (mixtral: B = 1, S = 8,192, the
+    window masks keys), then one more prefill logging each MoE layer's
+    routing (``decoder_layer`` counts the leading dense layers too)."""
+    counts, batch = phase_lm_prefill(model, label=label, **sizes)
     with routing_log() as log:
         model.prefill_logits(batch)
+    first = model.cfg.first_k_dense if model.cfg.uses_moe else 0
     for i, (copies, dropped, g, C) in enumerate(log):
-        say(f"moe prefill routing layer {i}", tokens_a_group=g,
+        say(f"{label} routing layer {i}", decoder_layer=first + i,
+            tokens_a_group=g,
             slots_an_expert=C, copies=json.dumps(copies.tolist()),
             dropped=json.dumps(dropped.tolist()),
             dropped_share=float(dropped.sum()) / float(copies.sum()))
@@ -3636,6 +3725,111 @@ def moe_phases(phase, dev):
     del model, batch
     torch.cuda.empty_cache()
     return counts, held, serve
+
+
+# ------------------------------------------- the MLA slice: deepseek-v3-671b
+
+MLA_ARCH = "deepseek-v3-671b"
+# of its 61 layers: the 3 leading dense layers (width 18,432) and 2 MoE
+# layers (256 experts of width 2,048, top-8, and a shared one) hold, with
+# the embedding and untied head (1.85e9) and the MTP head (0.69e9),
+# 27.30e9 parameters, 54.6 GB in bf16; 6 layers would be 77.6 GB.  A MoE
+# layer's expert leaf is drawn a layer at a time (a 15 GB float32
+# temporary).  Every decode step reads every expert (~45 GB at 2 MoE
+# layers)
+MLA_LAYERS = 5
+MLA_PREFILL = dict(B=1, S=8192)
+# phase "mla agreement": a float32 model of one dense and one MoE layer
+# (14.63e9 parameters, 58.5 GB: no room beside the bf16 model, so drawn
+# anew from a seeded generator once that is freed), capacity 8.0
+MLA_AGREEMENT = dict(num_layers=2, first_k_dense=1, capacity_factor=8.0)
+
+
+def mla_model(dev):
+    """deepseek-v3-671b at full width cut to ``MLA_LAYERS`` layers, bf16,
+    random init from a seeded generator."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.param import param_count
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say("mla model", arch=MLA_ARCH, params=model.param_count(),
+        mtp_params=param_count(model.spec()["mtp"]),
+        active_params=cfg.active_param_count(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0, layers=cfg.num_layers,
+        dense_layers=cfg.first_k_dense, d_model=cfg.d_model,
+        heads=cfg.num_heads, q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank, nope_dim=cfg.qk_nope_head_dim,
+        rope_dim=cfg.qk_rope_head_dim, v_head_dim=cfg.v_head_dim,
+        d_ff=cfg.d_ff, experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_tok, moe_d_ff=cfg.moe_d_ff,
+        shared_experts=cfg.num_shared_experts, vocab=cfg.padded_vocab,
+        param_gib=torch.cuda.memory_allocated() / 2**30,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return model
+
+
+def phase_mla_flash(model, batch):
+    """The prefill's first flash call (all five share its shape, so it is
+    the largest) kept and held against the plain version (the one-ulp
+    bar), then timed beside the plain scan and the library call on the
+    same inputs ("mla flash")."""
+    import torch
+    with capturing(("flash_attention",), limit=1) as calls:
+        model.prefill_logits(batch)
+    torch.cuda.synchronize()
+    (a, kw), = calls["flash_attention"]
+    err, over, rel = flash_check(*a, **kw)
+    nums = flash_times(*a, **kw)
+    say("mla flash", max_abs_err=err, err_over_limit=over,
+        rel_norm_err=rel, scale=kw.get("scale"), **nums)
+    del calls, a
+    torch.cuda.empty_cache()
+    return err, nums
+
+
+def phase_mla_agreement(dev, S: int = 64, tol: float = 2e-3) -> float:
+    """A float32 deepseek of ``MLA_AGREEMENT`` at full width, drawn from a
+    seeded generator: prefill logits (the float32 flash kernel at (192,
+    128)) against S absorbed decode steps, 2e-3."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(MLA_ARCH), param_dtype="float32",
+                              **MLA_AGREEMENT)
+    m32 = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    worst = prefill_decode_agreement(m32, S, tol, "mla agreement")
+    del m32
+    torch.cuda.empty_cache()
+    return worst
+
+
+def mla_phases(phase, dev):
+    """Phases 21-25, each through ``phase(label, fn, *args)``; "mla
+    agreement" (24) runs last, after the bf16 model is freed.  Returns
+    (the prefill's launch counts, (max flash error over phases 22 and 25,
+    phase 22's numbers), the serve phase's (lp_batch launches, max lane
+    error))."""
+    import torch
+    model = phase("mla model", mla_model, dev)
+    counts, batch = phase("mla prefill", phase_moe_prefill, model,
+                          "mla prefill", MLA_PREFILL)
+    flash_err, nums = phase("mla flash", phase_mla_flash, model, batch)
+    serve = phase("mla serve", phase_lm_serve, model, "mla serve")
+    held_err, _ = phase("mla main-path inputs", phase_lm_main_inputs, model,
+                        batch, counts, "main-path flash_attention mla",
+                        False)
+    del model, batch
+    torch.cuda.empty_cache()
+    phase("mla agreement", phase_mla_agreement, dev)
+    return counts, (max(flash_err, held_err), nums), serve
 
 
 # ------------------------------------------------------------------ main
@@ -3945,23 +4139,29 @@ def main() -> None:
     del full_cell
 
     moe_counts, moe_main, moe_serve_lp = moe_phases(phase, dev)
+    mla_counts, mla_main, mla_serve_lp = mla_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
-    # flash's main paths: the two prefills, numbers at the largest call
-    counts["flash_attention"] = lm_counts["flash_attention"] \
-        + moe_counts["flash_attention"]
-    main_nums["flash_attention"] = (max(lm_main[0], moe_main[0]),
-                                    moe_main[1])
+    # flash's main paths: the three prefills, numbers at the largest call
+    # (MLA's, at (192, 128))
+    prefills = {"lm prefill": lm_counts, "moe prefill": moe_counts,
+                "mla prefill": mla_counts}
+    counts["flash_attention"] = sum(c["flash_attention"]
+                                    for c in prefills.values())
+    main_nums["flash_attention"] = (max(lm_main[0], moe_main[0],
+                                        mla_main[0]), mla_main[1])
 
     # the batched LP engine: its main path is phase "lp batch"'s B&B;
     # its launches on every other path that batches LP flights
     fixed["lp_batch"] = (lp["err"], lp["fixed"])
     main_nums["lp_batch"] = (max(lp["err"], parity_lp[1], serve_lp[1],
-                                 moe_serve_lp[1]), lp["main"])
+                                 moe_serve_lp[1], mla_serve_lp[1]),
+                             lp["main"])
     counts["lp_batch"] = lp["launches"]
     lp_paths = {**lp["paths"], "parity W=8": parity_lp[0],
-                "lm serve": serve_lp[0], "moe serve": moe_serve_lp[0]}
+                "lm serve": serve_lp[0], "moe serve": moe_serve_lp[0],
+                "mla serve": mla_serve_lp[0]}
     # the descent's main path is the append; the build and the solves
     # (phase "full", the cache flight) never descend
     main_nums["split_tree_descent"] = (float(append_err), append_nums)
@@ -3986,15 +4186,17 @@ def main() -> None:
             if name in PQ_KERNELS else lp_paths if name == "lp_batch" \
             else descent_paths if name == "split_tree_descent" \
             else seed_paths if name == "dlv_scan_seed" \
-            else {"lm prefill": lm_counts[name],
-                  "moe prefill": moe_counts[name]}
+            else {p: c[name] for p, c in prefills.items()}
         extra = {}
         if name == "dlv_scan":
             paths["heap"] = heap_n
             err_m = max(err_m, heap_err)
             extra["heap_largest_call"] = heap_nums
         if name == "flash_attention":
-            extra["lm_prefill_largest_call"] = lm_main[1]
+            from repro_torch.kernels.attention import HEAD_DIM_PAIRS
+            extra.update(head_dim_pairs=[list(p) for p in HEAD_DIM_PAIRS],
+                         lm_prefill_largest_call=lm_main[1],
+                         moe_prefill_largest_call=moe_main[1])
         if name in dist_nums:
             paths.update({p: n[name] for p, n in dist_counts.items()})
             err_m = max(err_m, dist_nums[name][0])

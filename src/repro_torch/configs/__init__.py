@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves through here.
 
 The port registers the archs that its model stack runs today: the dense
-GQA ones (qwen2, danube, smollm and glm4) and the GQA mixture of experts
-(mixtral).  The other archs of the reference's registry join with the
-slices that port their families; asking for one raises ``KeyError``
-naming the ROADMAP item that brings it.  ``deepseek_v3_671b`` is kept as
-data (its MoE shape is tested) until MLA is ported.
+GQA ones (qwen2, danube, smollm and glm4), the GQA mixture of experts
+(mixtral) and DeepSeek-V3 (MLA, a leading dense stack, shared and routed
+experts, the MTP head).  The other archs of the reference's registry join
+with the slices that port their families; asking for one raises
+``KeyError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -19,11 +19,11 @@ _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 # archs of the reference's registry whose family is not ported yet
 _PENDING = {
-    "deepseek-v3-671b": "ROADMAP queue 1 item 10c (MLA)",
     "jamba-1.5-large-398b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
     "mamba2-1.3b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
     "whisper-base": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",

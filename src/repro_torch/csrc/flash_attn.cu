@@ -3,47 +3,61 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention.py:32
 // (_flash_kernel) and the GQA expansion of repro/kernels/ops.py::
-// flash_attention_op.
+// flash_attention_op, and serves MLA's prefill (the reference's
+// repro/models/attention.py::chunked_attention at q/k head_dim 192 and v
+// head_dim 128, scale 1/sqrt(192)).
 //
 // out[b, i, h, :] = softmax_j(q_i . k_j * scale + mask_ij) . v_j, with the
 // softmax state (m, l, acc) in float32 and the output acc / max(l, 1e-30).
 // mask: causal (i >= j) with an optional window (i - j < window), or full
-// (window alone, or nothing).  Layout: the model's own, q/o (B, S, H, HD)
-// and k/v (B, S, KV, HD), read in place; query head h reads KV head
-// h / (H / KV).  Any S: ragged tiles are masked.  KV tiles wholly above the
-// diagonal or outside the window are never visited, and the heaviest causal
-// query tiles launch first.  Two routes, by dtype:
+// (window alone, or nothing).  scale is the caller's (1/sqrt(HDQK) by
+// default in the wrapper).  Layout: the model's own, q (B, S, H, HDQK),
+// k (B, S, KV, HDQK), v (B, S, KV, HDV) and o (B, S, H, HDV), read in
+// place; query head h reads KV head h / (H / KV).  Instantiated (HDQK, HDV)
+// pairs: (64, 64), (120, 120), (128, 128) and (192, 128).  Any S: ragged
+// tiles are masked.  KV tiles wholly above the diagonal or outside the
+// window are never visited, and the heaviest causal query tiles launch
+// first.  Two routes, by dtype:
 //
 // bfloat16: flash_fwd_tc_kernel, on the tensor cores.  Bound: at the
 // prefill shape (B=2, S=4,096, 12/2 heads, HD=128, causal) a launch does
-// 1.03e11 useful FLOP (4*HD per unmasked (query, key) pair) against 25 MB
-// of q, k, v and o, ~4,000 FLOP per byte: the tensor cores' 989 TFLOP/s
-// bound it (0.104 ms), not memory.  Design:
+// 1.03e11 useful FLOP (2*(HDQK + HDV) per unmasked (query, key) pair)
+// against 25 MB of q, k, v and o, ~4,000 FLOP per byte: the tensor cores'
+// 989 TFLOP/s bound it (0.104 ms), not memory; MLA's (192, 128) does 1.25x
+// the FLOP of (128, 128) a pair.  Design:
 //  - one block per (batch x head, 128-row query tile): two consumer
 //    warpgroups of 64 rows each and one producer warp (288 threads);
 //  - the producer starts TMA loads (cp.async.bulk.tensor, 128-byte
 //    swizzle, one mbarrier per stage) of the Q tile once and of 64-key K
 //    and V tiles into a ring of STAGES stages, so the next tiles load while
-//    this one is multiplied; the consumers free a stage by an mbarrier;
-//  - S = q . k^T by wgmma (m64n64k16, both operands in shared memory), f32
-//    accumulation from the bf16 operands as they are; the f32 scores are
-//    then scaled.  The reference multiplies q by scale in f32 before the
-//    dot: the two orders differ by f32 rounding, ~1e-7 relative;
+//    this one is multiplied; the consumers free a stage by an mbarrier.
+//    The Q tile and the K ring take ceil(HDQK/64) 128-byte column blocks,
+//    the V ring ceil(HDV/64): at (192, 128) 1,024 + 128 x (3 x 128 + 4 x 64
+//    x (3 + 2)) = 214,016 bytes (+ barriers) of the 232,448 a block may
+//    have.  V padded to 192 (a square (192, 192)) would need ~246 KB and
+//    a third more P . V work;
+//  - S = q . k^T by wgmma (m64n64k16, both operands in shared memory; 4
+//    k-steps a column block, so 12 at HDQK = 192), f32 accumulation from
+//    the bf16 operands as they are; the f32 scores are then scaled.  The
+//    reference multiplies q by scale in f32 before the dot: the two orders
+//    differ by f32 rounding, ~1e-7 relative;
 //  - softmax in the log2 domain: p = exp2(s * scale*log2(e) - m *
 //    scale*log2(e)) by ex2.approx (relative error ~2^-22) where the
 //    reference calls exp; m and l are f32, l sums the unrounded f32 p;
 //  - P . V by wgmma with P from registers (the S accumulator's fragment is
-//    the A operand's) and V as the B operand in its own (keys x HD) layout
-//    through the transpose bit: no transposed copy of V.  P is split in
-//    two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), and both are
-//    multiplied into the same f32 accumulator: P rounded to bf16 alone
-//    (FlashAttention-2's choice) moves outputs near zero by ~20x the card
-//    check's bar (one bf16 ulp plus 1e-3 rms), hi + lo keeps p to ~2^-16.
-//    The split costs 1.5x the useful tensor work; bound and TFLOP/s count
-//    the useful 4*HD FLOP per pair only;
+//    the A operand's) and V as the B operand in its own (keys x HDV) layout
+//    through the transpose bit: no transposed copy of V.  The accumulator
+//    is ceil(HDV/64) x 32 registers a thread (64 at HDV = 128, as at
+//    (128, 128)).  P is split in two bf16 parts, hi = bf16(p) and lo =
+//    bf16(p - hi), and both are multiplied into the same f32 accumulator:
+//    P rounded to bf16 alone (FlashAttention-2's choice) moves outputs
+//    near zero by ~20x the card check's bar (one bf16 ulp plus 1e-3 rms),
+//    hi + lo keeps p to ~2^-16.  The split costs 2 * HDV more FLOP a pair
+//    on the tensor cores; bound and TFLOP/s count the useful 2*(HDQK +
+//    HDV) FLOP per pair only;
 //  - HD = 120 is zero-padded to 128 on the reduction side: the tensor maps'
 //    inner dimension is 120, so TMA fills columns 120..127 with zeros;
-//    stores are masked to HD columns and to rows < S;
+//    stores are masked to HDV columns and to rows < S;
 //  - the output acc / max(l, 1e-30) is rounded to nearest even into bf16
 //    and stored from registers;
 //  - inside a warpgroup the softmax waits for Q . K^T and P . V waits for
@@ -71,30 +85,32 @@
 #define THREADS 256
 #define NEG_INF (-1e30f)
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr size_t smem_floats() {
-  return (size_t)BQ * (HD + 1) + (size_t)BK * (HD + 1) + (size_t)BK * HD;
+  return (size_t)BQ * (HDQK + 1) + (size_t)BK * (HDQK + 1) +
+         (size_t)BK * HDV;
 }
 
 // One block per (batch x head, 64-row query tile); K/V tiles of 64 rows
 // staged through shared memory as float32 (rows padded to an odd stride,
 // so the 16 threads reading 16 key rows hit 16 banks); each thread keeps a
-// 4 x 4 tile of scores and a 4 x HD/16 tile of the accumulator.  P reuses
-// the K tile's shared memory: ~99 KB at HD = 128, two blocks per SM.
-template <int HD>
+// 4 x 4 tile of scores and a 4 x HDV/16 tile of the accumulator.  P reuses
+// the K tile's shared memory: ~99 KB at HDQK = HDV = 128, two blocks per SM;
+// ~129 KB at (192, 128) (MLA), one block per SM.
+template <int HDQK, int HDV>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int S, int H, int KV, int causal, int window,
                      float scale, int n_qt) {
-  constexpr int LD = HD + 1;            // padded row of the Q and K tiles
+  constexpr int LD = HDQK + 1;          // padded row of the Q and K tiles
   constexpr int PLD = BK + 1;           // padded row of P
-  constexpr int NC = (HD + 15) / 16;    // accumulator columns per thread
+  constexpr int NC = (HDV + 15) / 16;   // accumulator columns per thread
   static_assert(BK * LD >= BQ * PLD, "P must fit in the K tile");
   extern __shared__ float smem[];
   float* Qs = smem;                     // BQ x LD, scaled q
   float* Ks = Qs + BQ * LD;             // BK x LD, then P (BQ x PLD)
-  float* Vs = Ks + BK * LD;             // BK x HD
+  float* Vs = Ks + BK * LD;             // BK x HDV
   float* Ps = Ks;
 
   const int tid = threadIdx.x;
@@ -105,14 +121,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  const int64_t qrow = (int64_t)H * HD, krow = (int64_t)KV * HD;
-  const float* qb = q + (int64_t)b * S * qrow + (int64_t)h * HD;
-  const float* kb = k + (int64_t)b * S * krow + (int64_t)kvh * HD;
-  const float* vb = v + (int64_t)b * S * krow + (int64_t)kvh * HD;
-  float* ob = o + (int64_t)b * S * qrow + (int64_t)h * HD;
+  const int64_t qrow = (int64_t)H * HDQK, krow = (int64_t)KV * HDQK;
+  const int64_t vrow = (int64_t)KV * HDV, orow = (int64_t)H * HDV;
+  const float* qb = q + (int64_t)b * S * qrow + (int64_t)h * HDQK;
+  const float* kb = k + (int64_t)b * S * krow + (int64_t)kvh * HDQK;
+  const float* vb = v + (int64_t)b * S * vrow + (int64_t)kvh * HDV;
+  float* ob = o + (int64_t)b * S * orow + (int64_t)h * HDV;
 
-  for (int e = tid; e < BQ * HD; e += THREADS) {
-    const int r = e / HD, c = e - r * HD;
+  for (int e = tid; e < BQ * HDQK; e += THREADS) {
+    const int r = e / HDQK, c = e - r * HDQK;
     const int qi = q0 + r;
     Qs[r * LD + c] = qi < S ? qb[(int64_t)qi * qrow + c] * scale : 0.f;
   }
@@ -134,12 +151,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                    // Q staged / last tile's P, V read
-    for (int e = tid; e < BK * HD; e += THREADS) {
-      const int r = e / HD, c = e - r * HD;
+    for (int e = tid; e < BK * HDQK; e += THREADS) {
+      const int r = e / HDQK, c = e - r * HDQK;
       const int ki = k0 + r;
-      const bool in = ki < S;
-      Ks[r * LD + c] = in ? kb[(int64_t)ki * krow + c] : 0.f;
-      Vs[r * HD + c] = in ? vb[(int64_t)ki * krow + c] : 0.f;
+      Ks[r * LD + c] = ki < S ? kb[(int64_t)ki * krow + c] : 0.f;
+    }
+    for (int e = tid; e < BK * HDV; e += THREADS) {
+      const int r = e / HDV, c = e - r * HDV;
+      const int ki = k0 + r;
+      Vs[r * HDV + c] = ki < S ? vb[(int64_t)ki * vrow + c] : 0.f;
     }
     __syncthreads();
 
@@ -149,7 +169,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < HDQK; ++d) {
       float qa[4], ka[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qa[i] = Qs[(4 * ty + i) * LD + d];
@@ -212,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int col = tx + 16 * cc;
-        va[cc] = col < HD ? Vs[c * HD + col] : 0.f;
+        va[cc] = col < HDV ? Vs[c * HDV + col] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -230,23 +250,23 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int col = tx + 16 * cc;
-      if (col < HD) ob[(int64_t)qi * qrow + col] = acc[i][cc] / denom;
+      if (col < HDV) ob[(int64_t)qi * orow + col] = acc[i][cc] / denom;
     }
   }
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
                       int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
                       int window, float scale, cudaStream_t st) {
-  const size_t smem = smem_floats<HD>() * sizeof(float);
+  const size_t smem = smem_floats<HDQK, HDV>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<HDQK, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (int)((S + BQ - 1) / BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, st>>>(
+  flash_fwd_kernel<HDQK, HDV><<<grid, THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)S,
       (int)H, (int)KV, causal, window, scale, n_qt);
   return (int)cudaGetLastError();
@@ -267,12 +287,12 @@ constexpr int STAGES = 4;     // K/V ring depth
 constexpr int THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
 constexpr int ROWB = 128;     // bytes per smem row: 64 bf16, one swizzle span
 
-template <int HD>
+template <int HDQK, int HDV>
 constexpr int smem_bytes() {
-  // 1,024 of slack to align the tiles, the Q tile, the K and V rings, and
-  // 2 * STAGES + 1 mbarriers
-  return 1024 + ((HD + 63) / 64) * ROWB * (BQ + 2 * STAGES * BK) +
-         8 * (2 * STAGES + 1);
+  // 1,024 of slack to align the tiles, the Q tile and the K ring (HDQK
+  // wide), the V ring (HDV wide), and 2 * STAGES + 1 mbarriers
+  return 1024 + ((HDQK + 63) / 64) * ROWB * (BQ + STAGES * BK) +
+         ((HDV + 63) / 64) * ROWB * STAGES * BK + 8 * (2 * STAGES + 1);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -568,7 +588,7 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 
 }  // namespace tc
 
-template <int HD>
+template <int HDQK, int HDV>
 __global__ void __launch_bounds__(tc::THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -576,16 +596,18 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
                         __nv_bfloat16* __restrict__ o, int S, int H, int KV,
                         int causal, int window, float c2, int n_qt) {
   using namespace tc;
-  constexpr int ND = (HD + 63) / 64;        // 64-column blocks of a row
-  constexpr int QBYTES = ND * BQ * ROWB;    // the Q tile
-  constexpr int TBYTES = ND * BK * ROWB;    // one K or one V tile
-  constexpr int NO = ND * 32;               // accumulator registers
+  constexpr int NQK = (HDQK + 63) / 64;     // 64-column blocks of a q/k row
+  constexpr int NV = (HDV + 63) / 64;       // ... of a v/o row
+  constexpr int QBYTES = NQK * BQ * ROWB;   // the Q tile
+  constexpr int KBYTES = NQK * BK * ROWB;   // one K tile
+  constexpr int VBYTES = NV * BK * ROWB;    // one V tile
+  constexpr int NO = NV * 32;               // accumulator registers
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  uint8_t* Ks = Qs + QBYTES;                // STAGES x TBYTES
-  uint8_t* Vs = Ks + STAGES * TBYTES;       // STAGES x TBYTES
-  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * TBYTES);
+  uint8_t* Ks = Qs + QBYTES;                // STAGES x KBYTES
+  uint8_t* Vs = Ks + STAGES * KBYTES;       // STAGES x VBYTES
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * VBYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
 
@@ -615,19 +637,19 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   if (warp == 8) {                          // the producer warp
     if (lane == 0) {
       mbar_expect_tx(qbar, QBYTES);
-      for (int db = 0; db < ND; ++db)
+      for (int db = 0; db < NQK; ++db)
         tma_load(Qs + db * BQ * ROWB, &tq, qbar, db * 64, h, q0, b);
       for (int it = 0; it < n_kt; ++it) {
         const int st = it % STAGES;
         mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[st], 2 * TBYTES);
+        mbar_expect_tx(&full[st], KBYTES + VBYTES);
         const int k0 = (kt_lo + it) * BK;
-        for (int db = 0; db < ND; ++db) {
-          tma_load(Ks + st * TBYTES + db * BK * ROWB, &tk, &full[st],
+        for (int db = 0; db < NQK; ++db)
+          tma_load(Ks + st * KBYTES + db * BK * ROWB, &tk, &full[st],
                    db * 64, kvh, k0, b);
-          tma_load(Vs + st * TBYTES + db * BK * ROWB, &tv, &full[st],
+        for (int db = 0; db < NV; ++db)
+          tma_load(Vs + st * VBYTES + db * BK * ROWB, &tv, &full[st],
                    db * 64, kvh, k0, b);
-        }
       }
     }
     return;
@@ -650,8 +672,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     return (causal && k0 + BK - 1 > qw) ||
            (window > 0 && k0 <= qw + 63 - window) || k0 + BK > S;
   };
-  auto kaddr = [&](int it) { return smem_u32(Ks + (it % STAGES) * TBYTES); };
-  auto vaddr = [&](int it) { return smem_u32(Vs + (it % STAGES) * TBYTES); };
+  auto kaddr = [&](int it) { return smem_u32(Ks + (it % STAGES) * KBYTES); };
+  auto vaddr = [&](int it) { return smem_u32(Vs + (it % STAGES) * VBYTES); };
   auto wait_full = [&](int it) {
     mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
   };
@@ -676,7 +698,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     wait_full(it);
     reg_fence(s);
     wg_fence();
-    start_qk<ND>(s, qaddr, kaddr(it));
+    start_qk<NQK>(s, qaddr, kaddr(it));
     wg_commit();
     wg_wait<0>();
     reg_fence(s);
@@ -687,7 +709,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     reg_fence(phi);
     reg_fence(plo);
     wg_fence();
-    start_pv<ND>(acc, phi, plo, vaddr(it));
+    start_pv<NV>(acc, phi, plo, vaddr(it));
     wg_commit();
     wg_wait<0>();
     reg_fence(acc);
@@ -700,9 +722,9 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     release(&empty[it % STAGES], lane);
   }
 
-  // the quad's shares of l, then the stores (rows < S, columns < HD)
-  const int64_t qrow = (int64_t)H * HD;
-  __nv_bfloat16* ob = o + (int64_t)b * S * qrow + (int64_t)h * HD;
+  // the quad's shares of l, then the stores (rows < S, columns < HDV)
+  const int64_t orow = (int64_t)H * HDV;
+  __nv_bfloat16* ob = o + (int64_t)b * S * orow + (int64_t)h * HDV;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -713,8 +735,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int col = 8 * j + rows.cq;
-      if (col < HD)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qi * qrow + col) =
+      if (col < HDV)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qi * orow + col) =
             __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom,
                                   acc[4 * j + 2 * i + 1] / denom);
     }
@@ -772,7 +794,7 @@ static bool make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
                      int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
                      int window, float scale, cudaStream_t st) {
@@ -780,78 +802,95 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, HD, tc::BQ) ||
-      !make_map(&tk, k, B, S, KV, HD, tc::BK) ||
-      !make_map(&tv, v, B, S, KV, HD, tc::BK))
+  if (!make_map(&tq, q, B, S, H, HDQK, tc::BQ) ||
+      !make_map(&tk, k, B, S, KV, HDQK, tc::BK) ||
+      !make_map(&tv, v, B, S, KV, HDV, tc::BK))
     return (int)cudaErrorInvalidValue;
-  const int smem = tc::smem_bytes<HD>();
+  const int smem = tc::smem_bytes<HDQK, HDV>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tc_kernel<HDQK, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_qt = (int)((S + tc::BQ - 1) / tc::BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
   const float log2e = 1.4426950408889634f;
-  flash_fwd_tc_kernel<HD><<<grid, tc::THREADS, smem, st>>>(
+  flash_fwd_tc_kernel<HDQK, HDV><<<grid, tc::THREADS, smem, st>>>(
       tq, tk, tv, (__nv_bfloat16*)o, (int)S, (int)H, (int)KV, causal, window,
       scale * log2e, n_qt);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 static int launch(const void* q, const void* k, const void* v, void* o,
                   int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
                   int window, float scale, bool bf16, cudaStream_t st) {
-  return bf16 ? launch_tc<HD>(q, k, v, o, B, S, H, KV, causal, window, scale,
-                              st)
-              : launch_f32<HD>(q, k, v, o, B, S, H, KV, causal, window,
-                               scale, st);
+  return bf16 ? launch_tc<HDQK, HDV>(q, k, v, o, B, S, H, KV, causal, window,
+                                     scale, st)
+              : launch_f32<HDQK, HDV>(q, k, v, o, B, S, H, KV, causal, window,
+                                      scale, st);
 }
 
-// q/o (B, S, H, hd), k/v (B, S, KV, hd), contiguous, one dtype: bf16 when
-// is_bf16 (the tensor-core kernel), else float32 (the CUDA-core kernel).
-// hd in {64, 120, 128}; H % KV == 0; window <= 0 means none.  Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// the instantiated (q/k head_dim, v head_dim) pairs, one switch key each
+constexpr int64_t pair_key(int64_t hd, int64_t hdv) {
+  return hd * 4096 + hdv;
+}
+
+// q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hdv), o (B, S, H, hdv),
+// contiguous, one dtype: bf16 when is_bf16 (the tensor-core kernel), else
+// float32 (the CUDA-core kernel).  (hd, hdv) in {(64, 64), (120, 120),
+// (128, 128), (192, 128)}; H % KV == 0; window <= 0 means none; scores
+// are scaled by `scale`.  Launches on `stream`, allocates nothing, does
+// not synchronise; returns cudaGetLastError().
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int64_t B, int64_t S, int64_t H,
-                              int64_t KV, int64_t hd, int64_t causal,
-                              int64_t window, double scale, int64_t is_bf16,
-                              void* stream) {
+                              int64_t KV, int64_t hd, int64_t hdv,
+                              int64_t causal, int64_t window, double scale,
+                              int64_t is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || B * H > 65535 || S > (int64_t)1 << 30)
+  if (KV <= 0 || H % KV != 0 || B * H > 65535 || S > (int64_t)1 << 30 ||
+      hd <= 0 || hdv <= 0 || hd >= 4096 || hdv >= 4096)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int w = window > 0 ? (int)window : 0;
+  const int c = (int)causal;
+  const float sc = (float)scale;
   const bool bf16 = is_bf16 != 0;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k, v, o, B, S, H, KV, (int)causal, w,
-                        (float)scale, bf16, st);
-    case 120:
-      return launch<120>(q, k, v, o, B, S, H, KV, (int)causal, w,
-                         (float)scale, bf16, st);
-    case 128:
-      return launch<128>(q, k, v, o, B, S, H, KV, (int)causal, w,
-                         (float)scale, bf16, st);
+  switch (pair_key(hd, hdv)) {
+    case pair_key(64, 64):
+      return launch<64, 64>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
+    case pair_key(120, 120):
+      return launch<120, 120>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
+    case pair_key(128, 128):
+      return launch<128, 128>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
+    case pair_key(192, 128):
+      return launch<192, 128>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <int HDQK, int HDV>
+static int smem_of(bool bf16) {
+  return bf16 ? tc::smem_bytes<HDQK, HDV>()
+              : (int)(smem_floats<HDQK, HDV>() * sizeof(float));
+}
+
 // Dynamic shared memory of one block of the kernel that flash_attn_fwd
-// launches for this head_dim and dtype, in bytes (0 for an unknown hd).
-extern "C" int flash_attn_smem_bytes(int64_t hd, int64_t is_bf16) {
-  switch (hd) {
-    case 64:
-      return is_bf16 ? tc::smem_bytes<64>()
-                     : (int)(smem_floats<64>() * sizeof(float));
-    case 120:
-      return is_bf16 ? tc::smem_bytes<120>()
-                     : (int)(smem_floats<120>() * sizeof(float));
-    case 128:
-      return is_bf16 ? tc::smem_bytes<128>()
-                     : (int)(smem_floats<128>() * sizeof(float));
+// launches for this (hd, hdv) pair and dtype, in bytes (0 for a pair it
+// does not take).
+extern "C" int flash_attn_smem_bytes(int64_t hd, int64_t hdv,
+                                     int64_t is_bf16) {
+  const bool bf16 = is_bf16 != 0;
+  if (hd <= 0 || hdv <= 0 || hd >= 4096 || hdv >= 4096) return 0;
+  switch (pair_key(hd, hdv)) {
+    case pair_key(64, 64):
+      return smem_of<64, 64>(bf16);
+    case pair_key(120, 120):
+      return smem_of<120, 120>(bf16);
+    case pair_key(128, 128):
+      return smem_of<128, 128>(bf16);
+    case pair_key(192, 128):
+      return smem_of<192, 128>(bf16);
     default:
       return 0;
   }

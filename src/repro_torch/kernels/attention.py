@@ -1,18 +1,21 @@
 """Flash attention: causal / sliding-window / full, online softmax.
 
 Replaces ``repro/kernels/attention.py::_flash_kernel`` (Pallas, TPU).  For
-each query row it computes ``softmax(q.k^T * d^-1/2 + mask) . v`` with the
+each query row it computes ``softmax(q.k^T * scale + mask) . v`` with the
 softmax state (running max m, sum l, accumulator acc) in float32 and the
-output ``acc / max(l, 1e-30)``.  The plain version and the float32 kernel
-cast q to float32 and scale it before the dot, as the reference does; the
-bf16 kernel scales the float32 dot instead (f32 rounding apart, the same).
-The mask is causal (``q_pos >= k_pos``) with an optional window
-(``q_pos - k_pos < window``), or full.
+output ``acc / max(l, 1e-30)``.  ``scale`` is the caller's, ``d^-1/2`` by
+default; v may have its own head_dim ``dv`` (MLA's prefill: d = 192 =
+nope + rope, dv = 128, scale ``192^-1/2``).  The plain version and the
+float32 kernel cast q to float32 and scale it before the dot, as the
+reference does; the bf16 kernel scales the float32 dot instead (f32
+rounding apart, the same).  The mask is causal (``q_pos >= k_pos``) with
+an optional window (``q_pos - k_pos < window``), or full.
 
-Layout: the model's own, q (B, S, H, d) and k/v (B, S, KV, d) with
-``H % KV == 0``; query head h reads KV head ``h // (H // KV)`` in place,
-where the reference's ``ops.flash_attention_op`` materialised a
-``jnp.repeat`` of k and v.  Positions are the row numbers 0..S-1.
+Layout: the model's own, q (B, S, H, d), k (B, S, KV, d) and v (B, S,
+KV, dv) with ``H % KV == 0``; query head h reads KV head ``h // (H //
+KV)`` in place, where the reference's ``ops.flash_attention_op``
+materialised a ``jnp.repeat`` of k and v.  Positions are the row numbers
+0..S-1.
 
 On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attn.cu``
 and raises on what it does not take.  bfloat16 runs on the tensor cores
@@ -20,11 +23,12 @@ and raises on what it does not take.  bfloat16 runs on the tensor cores
 parts for P.V, so the output stays within one bf16 ulp of the plain
 version); float32 runs on the CUDA cores (64-row query tiles, float32
 FMAs).  Both skip KV tiles wholly above the diagonal or outside the
-window.  What the kernel does not take: a head_dim other than 64, 120
-or 128, mixed dtypes, a non-contiguous tensor.  On a CPU tensor it runs
-:func:`flash_attention_plain`, the port of the reference model's chunked
-online-softmax scan (``repro/models/attention.py::chunked_attention``),
-whose general form :func:`chunked_scan` is also the CPU path of
+window.  What the kernel does not take: a (d, dv) pair other than (64,
+64), (120, 120), (128, 128) or (192, 128), mixed dtypes, a non-contiguous
+tensor.  On a CPU tensor it runs :func:`flash_attention_plain`, the port
+of the reference model's chunked online-softmax scan
+(``repro/models/attention.py::chunked_attention``), whose general form
+:func:`chunked_scan` is also the CPU path of
 ``repro_torch.models.attention.chunked_attention``.
 """
 from __future__ import annotations
@@ -37,15 +41,16 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38            # the reference scan's masked score
-HEAD_DIMS = (64, 120, 128)   # the kernel's instantiations
+# the kernel's instantiations, (q/k head_dim, v head_dim)
+HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128))
 # the plain version's KV chunk, the reference's: its (B, S, KV, g, chunk)
 # float32 score block is 1.6 GB at S = 32,768
 PLAIN_CHUNK = 1024
 launches = 0
 
-_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 7
+_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 8
         + (_build.F64, _build.I64, _build.P),
-        "flash_attn_smem_bytes": (_build.I64, _build.I64)}
+        "flash_attn_smem_bytes": (_build.I64,) * 3}
 
 
 def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):
@@ -105,23 +110,24 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     return o.reshape(B, Sq, H, hdv).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Plain torch version of the kernel: the chunked scan over positions
     0..S-1 (any device), ``PLAIN_CHUNK`` keys at a time."""
     S = q.shape[1]
     pos = torch.arange(S, device=q.device)
     return chunked_scan(q, k, v, pos, pos, causal=causal, window=window,
-                        chunk=PLAIN_CHUNK)
+                        chunk=PLAIN_CHUNK, scale=scale)
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention: q (B, S, H, d), k and v "
-                         "(B, S, KV, d) of one shape")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError("flash_attention: q (B, S, H, d), k (B, S, KV, d) "
+                         "and v (B, S, KV, dv)")
     B, S, H, d = q.shape
     if k.shape[:2] != (B, S) or k.shape[3] != d:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
                          f"match q {tuple(q.shape)} (self-attention only)")
     KV = k.shape[2]
     if KV < 1 or H % KV:
@@ -130,9 +136,10 @@ def _check(q, k, v) -> None:
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H={B * H} exceeds the "
                          "kernel's grid (65535)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    if (d, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention kernel takes (q/k head_dim, v "
+                         f"head_dim) in {HEAD_DIM_PAIRS}, got "
+                         f"{(d, v.shape[3])}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype, "
@@ -144,23 +151,27 @@ def _check(q, k, v) -> None:
                              f"on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Attention of q (B, S, H, d) over k, v (B, S, KV, d); (B, S, H, d)."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q (B, S, H, d) over k (B, S, KV, d) and v (B, S, KV,
+    dv), scores scaled by ``scale`` (``d^-1/2`` when None); (B, S, H,
+    dv)."""
     global launches
     if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
     _check(q, k, v)
     B, S, H, d = q.shape
-    o = torch.empty_like(q)
+    dv = v.shape[3]
+    o = q.new_empty((B, S, H, dv))
     if o.numel() == 0:
         return o
     lib = _build.load("flash_attn", _SIG)
     err = lib.flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-        k.shape[2], d, int(bool(causal)), max(int(window), 0),
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        k.shape[2], d, dv, int(bool(causal)), max(int(window), 0),
+        1.0 / math.sqrt(d) if scale is None else float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     launches += 1
     return o

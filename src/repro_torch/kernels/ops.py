@@ -12,15 +12,18 @@ from __future__ import annotations
 from repro_torch.kernels.attention import flash_attention
 
 
-def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, d); k/v: (B, S, KV, d) -> (B, S, H, d).
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
+                       scale=None):
+    """q: (B, S, H, d); k: (B, S, KV, d); v: (B, S, KV, dv) -> (B, S, H,
+    dv), scores scaled by ``scale`` (``d^-1/2`` when None).
 
     The GQA entry: the kernel maps query head h to KV head h // (H // KV)
-    in place, so nothing is expanded.  The reference's ``block_q`` /
-    ``block_k`` are TPU tile sizes; the CUDA kernel's tiles are fixed.
+    in place, so nothing is expanded.  MLA's prefill passes d = 192, dv =
+    128 and its own scale.  The reference's ``block_q`` / ``block_k`` are
+    TPU tile sizes; the CUDA kernel's tiles are fixed.
     """
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window)
+                           causal=causal, window=window, scale=scale)
 
 
 __all__ = ["flash_attention_op"]

@@ -4,16 +4,21 @@
         [--device cuda] [--requests 24] [--ticks 6]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mixtral-8x22b-smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --layers 5      # one 80 GB card
 
 The reference's flags, plus ``--device`` (default ``cuda``; the CPU runs
-only with ``--device cpu``).  The model is randomly initialised from a
-seeded ``torch.Generator``.  The HBM budget of the admission query is
-``--hbm-frac`` of the card's memory; on the CPU it is that share of the
-16 GiB the reference assumes.
+only with ``--device cpu``) and ``--layers`` (the model cut to its first
+layers, at full width, where the whole depth does not fit the card: a
+``first_k_dense`` arch keeps at least one layer of its main stack).  The
+model is randomly initialised from a seeded ``torch.Generator``.  The HBM
+budget of the admission query is ``--hbm-frac`` of the card's memory; on
+the CPU it is that share of the 16 GiB the reference assumes.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -35,10 +40,16 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--hbm-frac", type=float, default=0.05)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        if not cfg.first_k_dense < args.layers <= cfg.num_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} takes "
+                             f"{cfg.first_k_dense + 1}..{cfg.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = Model(cfg, device=dev).init(seed=0)
     print(f"[serve] arch={cfg.name} params={model.param_count()/1e6:.2f}M "
           f"device={dev}")

@@ -1,34 +1,37 @@
-"""Attention, GQA part (port of ``repro.models.attention``): full,
-sliding-window and prefix-LM masks, full-sequence and one-token decode.
+"""Attention (port of ``repro.models.attention``): GQA with full,
+sliding-window and prefix-LM masks, and DeepSeek's MLA; full-sequence and
+one-token decode.
 
 Full-sequence attention is ``chunked_attention``.  On a CUDA tensor it
 launches the hand-written flash kernel through its one entry,
 ``kernels.ops.flash_attention_op``, which covers causal or full
-self-attention with an optional window, the default scale and
-``hd == hdv``: everything dense GQA prefill gives it.
-For any other argument on a CUDA tensor (prefix-LM, cross-attention,
-MLA's scale) it raises ``NotImplementedError`` naming the ROADMAP item;
-it does not quietly run the plain scan there.  On a CPU tensor it runs the
-plain chunked online-softmax scan, the reference's algorithm, which lives
-with its mask (the reference's ``_mask``) beside the kernel as the
-kernel's plain version (``kernels.attention.chunked_scan``, ``mask``).
+self-attention with an optional window and the caller's scale, at the
+kernel's (q/k head_dim, v head_dim) pairs: everything dense GQA prefill
+gives it, and MLA's prefill (192, 128) at scale ``1/sqrt(192)``.  For
+prefix-LM or cross-attention on a CUDA tensor it raises
+``NotImplementedError`` naming the ROADMAP item; it does not quietly run
+the plain scan there.  On a CPU tensor it runs the plain chunked
+online-softmax scan, the reference's algorithm, which lives with its mask
+(the reference's ``_mask``) beside the kernel as the kernel's plain
+version (``kernels.attention.chunked_scan``, ``mask``).
 
 Decode attends one query over the cache in plain torch, as the reference
-does outside Pallas.  The port updates the caches in place (the reference
-returns new arrays) and takes the token's position as a host int, so a
-decode step issues no device-to-host read.  MLA waits for its slice.
+does outside Pallas; MLA decodes in the absorbed form (scores against the
+latent cache, never per-head K/V).  The port updates the caches in place
+(the reference returns new arrays) and takes the token's position as a
+host int, so a decode step issues no device-to-host read.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import NEG_INF, chunked_scan
 from repro_torch.kernels.ops import flash_attention_op
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import apply_norm, rope
 from repro_torch.models.param import ParamInfo
 
 
@@ -61,8 +64,8 @@ def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
                       window: int = 0, prefix_len=None, chunk: int = 1024,
                       scale: Optional[float] = None) -> torch.Tensor:
-    """Online-softmax attention.  q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).
-    Returns (B, Sq, H, hdv).
+    """Online-softmax attention.  q: (B, Sq, H, hd); k: (B, Sk, KV, hd);
+    v: (B, Sk, KV, hdv).  Returns (B, Sq, H, hdv).
 
     On CUDA the flash kernel runs it and takes the positions as 0..S-1:
     pass one position tensor as both ``q_pos`` and ``k_pos`` (the
@@ -81,12 +84,8 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
         raise NotImplementedError(
             "cross-attention on CUDA is not ported yet (ROADMAP queue 1 "
             "item 10e, encoder-decoder/VLM)")
-    hd, hdv = q.shape[-1], v.shape[-1]
-    if hd != hdv or (scale is not None and scale != 1.0 / math.sqrt(hd)):
-        raise NotImplementedError(
-            "attention with a non-default scale or hd != hdv (MLA) on CUDA "
-            "is not ported yet (ROADMAP queue 1 item 10c, MLA)")
-    return flash_attention_op(q, k, v, causal=causal, window=window)
+    return flash_attention_op(q, k, v, causal=causal, window=window,
+                              scale=scale)
 
 
 def gqa_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -162,3 +161,95 @@ def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bkgc,bckh->bkgh", w, v_cache.float())
     o = o.reshape(B, 1, H, hd).to(x.dtype)
     return _out(o, p["wo"]), k_cache, v_cache
+
+
+# ===================================================================== MLA
+
+
+def mla_spec(cfg: ArchConfig) -> Dict[str, Any]:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rp, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamInfo((d, qr), ("embed", "qlora")),
+        "q_norm": {"scale": ParamInfo((qr,), ("qlora",), init="ones")},
+        "wq_b": ParamInfo((qr, h, nope + rp), ("qlora", "heads", "head")),
+        "wkv_a": ParamInfo((d, kvr), ("embed", "kvlora")),
+        "wk_rope": ParamInfo((d, rp), ("embed", "head")),
+        "kv_norm": {"scale": ParamInfo((kvr,), ("kvlora",), init="ones")},
+        "wk_b": ParamInfo((kvr, h, nope), ("kvlora", "heads", "head")),
+        "wv_b": ParamInfo((kvr, h, vh), ("kvlora", "heads", "head")),
+        "wo": ParamInfo((h, vh, d), ("heads", "head", "embed"), init="scaled"),
+    }
+
+
+def _mla_qkr(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Shared q / latent / rope-key computation. x: (B, S, D).  Returns
+    q_nope (B, S, H, nope), roped q_rope (B, S, H, rope), the normed latent
+    c_kv (B, S, kv_lora) and the roped single-head k_rope (B, S, rope)."""
+    nope = cfg.qk_nope_head_dim
+    q_lat = apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+    q = _proj(q_lat, p["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv = apply_norm(p["kv_norm"], x @ p["wkv_a"], cfg.norm_eps)
+    k_rope = (x @ p["wk_rope"])[:, :, None, :]       # one head
+    k_rope = rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Prefill MLA: the latent expanded to per-head K (nope + the one rope
+    key broadcast to every head) and V, then causal ``chunked_attention``
+    at q/k head_dim nope + rope, v head_dim ``v_head_dim`` and scale
+    ``1/sqrt(nope + rope)``: the flash kernel's (192, 128) pair on the
+    card."""
+    nope, rp = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, cfg, x, positions)
+    k_nope = _proj(c_kv, p["wk_b"])
+    v = _proj(c_kv, p["wv_b"])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(k_nope.shape[:-1] + (rp,))],
+        dim=-1)
+    o = chunked_attention(q_full, k_full, v, positions, positions,
+                          causal=True, scale=1.0 / math.sqrt(nope + rp))
+    return _out(o, p["wo"])
+
+
+def mla_decode(p, cfg: ArchConfig, x: torch.Tensor, c_cache: torch.Tensor,
+               r_cache: torch.Tensor, index: int):
+    """Absorbed-form MLA decode.  x: (B, 1, D); c_cache: (B, S_cache,
+    kv_lora) latent cache; r_cache: (B, S_cache, rope) rope-key cache.
+
+    Scores are taken in latent space: q_eff = q_nope @ wk_b per head
+    against the latent cache, plus q_rope against the rope cache; the
+    context is re-projected through wv_b, so per-head K/V never exist.
+    The token goes to slot ``min(index, S_cache - 1)`` (the reference's
+    ``dynamic_update_slice`` clamps its start) while the keys attended are
+    slots ``<= index``; the caches are written in place and returned.  The
+    dtypes follow the reference's: q_eff and the two score products in
+    the parameter dtype, summed, then cast to float32 and scaled; the
+    softmax weights cast to the cache dtype before the context; the output
+    cast to x's dtype before ``wo``.
+    """
+    nope, rp = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    B = x.shape[0]
+    S_cache = c_cache.shape[1]
+    dev = x.device
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
+    q_nope, q_rope, c_new, r_new = _mla_qkr(p, cfg, x, pos)
+    slot = min(index, S_cache - 1)
+    c_cache[:, slot:slot + 1] = c_new.to(c_cache.dtype)
+    r_cache[:, slot:slot + 1] = r_new.to(r_cache.dtype)
+    q_eff = torch.einsum("bsnh,rnh->bsnr", q_nope, p["wk_b"])  # (B,1,H,r)
+    s = (torch.einsum("bsnr,bcr->bnc", q_eff, c_cache.to(q_eff.dtype))
+         + torch.einsum("bsnr,bcr->bnc", q_rope, r_cache.to(q_rope.dtype)))
+    s = s.float() * (1.0 / math.sqrt(nope + rp))
+    valid = torch.arange(S_cache, device=dev) <= index
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bnc,bcr->bnr", w.to(c_cache.dtype), c_cache)
+    o = torch.einsum("bnr,rnh->bnh", ctx, p["wv_b"])[:, None]  # (B,1,H,vh)
+    return _out(o.to(x.dtype), p["wo"]), c_cache, r_cache

@@ -10,11 +10,12 @@ reference's names and layouts (``decoder.layers.attn.wq`` is
 (L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
 the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints.
 
-The port runs the GQA families, dense and mixture of experts; MLA, SSM,
-hybrid, encoder-decoder and VLM raise ``NotImplementedError`` naming
-their ROADMAP item, and the training loss waits for the training slice.
-Decode keeps the cache index as a host int and writes the caches in
-place.
+The port runs the GQA families, dense and mixture of experts, and
+DeepSeek's MLA with its leading dense stack and its multi-token
+prediction (MTP) head's parameters; SSM, hybrid, encoder-decoder and VLM
+raise ``NotImplementedError`` naming their ROADMAP item, and the training
+loss (and with it the MTP loss) waits for the training slice.  Decode
+keeps the cache index as a host int and writes the caches in place.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        embedding_spec, logits_from, norm_spec,
                                        sinusoidal_positions)
-from repro_torch.models.param import init_params, leaves, param_count
+from repro_torch.models.param import ParamInfo, init_params, leaves, \
+    param_count
 
 
 def _module_tree(tree: Dict[str, Any]) -> nn.Module:
@@ -62,8 +64,18 @@ class Model(nn.Module):
     # ------------------------------------------------------------ params
     def spec(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {"embed": embedding_spec(cfg), "ln_f": norm_spec(cfg),
-                "decoder": tfm.decoder_spec(cfg)}
+        s: Dict[str, Any] = {"embed": embedding_spec(cfg),
+                             "ln_f": norm_spec(cfg),
+                             "decoder": tfm.decoder_spec(cfg)}
+        if cfg.mtp_depth:        # DeepSeek-V3's multi-token prediction head
+            s["mtp"] = {
+                "proj": ParamInfo((2 * cfg.d_model, cfg.d_model),
+                                  ("embed", "embed")),
+                "ln": norm_spec(cfg),
+                "block": tfm.attn_block_spec(cfg, use_moe=False,
+                                             d_ff=cfg.d_ff or cfg.moe_d_ff),
+            }
+        return s
 
     def param_count(self) -> int:
         """From the spec alone: nothing is allocated."""
@@ -147,18 +159,27 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ decode
     def init_cache(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
-        """GQA cache: k/v (L, B, kv_len, KV, hd) in the parameter dtype,
-        with kv_len = min(cache_len, window) for a sliding window (a
-        rolling cache), and the host int ``index``."""
+        """Decode state in the parameter dtype, with kv_len = min(cache_len,
+        window) for a sliding window (a rolling cache), and the host int
+        ``index``.  GQA: k/v (L, B, kv_len, KV, hd).  MLA: the latent c
+        (L, B, kv_len, kv_lora_rank) and the rope keys r (L, B, kv_len,
+        rope_dim), the leading dense layers first."""
         cfg = self.cfg
-        tfm._gqa_stacks_only(cfg)
+        tfm._refuse_ssm_and_encoder_stacks(cfg)
         kv_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
-        shape = (cfg.num_layers, batch_size, kv_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"index": 0,
-                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        L, B = cfg.num_layers, batch_size
+        if cfg.attention == "mla":
+            shapes = {"c": (L, B, kv_len, cfg.kv_lora_rank),
+                      "r": (L, B, kv_len, cfg.qk_rope_head_dim)}
+        else:
+            shape = (L, B, kv_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": shape, "v": shape}
+        cache: Dict[str, Any] = {"index": 0}
+        for k, shape in shapes.items():
+            cache[k] = torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device)
+        return cache
 
     def decode_step(self, cache, tokens, index: Optional[int] = None):
         """tokens: (B, 1) ints.  Returns (logits (B, V) float32, cache); the
@@ -171,34 +192,49 @@ class Model(nn.Module):
             pe = sinusoidal_positions(index + 1, cfg.d_model, x.dtype,
                                       self.device)
             x = x + pe[index:index + 1][None]
-        x = self._decode_gqa(params, cache, x, index)
+        x = self._decode_layers(params, cache, x, index)
         cache["index"] = index + 1
         h = apply_norm(params["ln_f"], x, cfg.norm_eps)
         logits = logits_from(params["embed"], h)[:, 0].float()
         return logits, cache
 
-    def _decode_gqa(self, params, cache, x, index: int) -> torch.Tensor:
+    def _decode_layers(self, params, cache, x, index: int) -> torch.Tensor:
+        """One token through the ``first_k_dense`` dense layers, then the
+        main stack: layer i of the cache is layer i of that order.  GQA
+        attends its k/v cache (and, as the reference's GQA body at
+        ``model.py:245-246``, has no leading dense stack); MLA its latent
+        c/r cache, in the absorbed form."""
         cfg = self.cfg
         dec = params["decoder"]
-        if "dense_layers" in dec:
-            # as the reference (``model.py:245-246``): its GQA decode body
-            # has no leading dense stack
+        mla = cfg.attention == "mla"
+        if "dense_layers" in dec and not mla:
             raise NotImplementedError("GQA decode with first_k_dense "
                                       "leading dense layers")
-        layers = dec["layers"]
-        for i in range(cfg.num_layers):
-            lp = tfm.layer(layers, i)
-            a = apply_norm(lp["ln1"], x, cfg.norm_eps)
-            a, _, _ = attn.gqa_decode(lp["attn"], cfg, a, cache["k"][i],
-                                      cache["v"][i], index,
-                                      window=cfg.sliding_window)
-            x = x + a
-            f = apply_norm(lp["ln2"], x, cfg.norm_eps)
-            if "router" in lp["ffn"]:
-                f, _ = moe_lib.apply_moe(lp["ffn"], cfg, f)
-            else:
-                f = apply_mlp(lp["ffn"], f, cfg.act)
-            x = x + f
+        i = 0
+        for name in ("dense_layers", "layers"):
+            if name not in dec:
+                continue
+            stack = dec[name]
+            for j in range(len(stack["ln1"]["scale"])):   # the stack's depth
+                lp = tfm.layer(stack, j)
+                a = apply_norm(lp["ln1"], x, cfg.norm_eps)
+                if mla:
+                    a, _, _ = attn.mla_decode(lp["attn"], cfg, a,
+                                              cache["c"][i], cache["r"][i],
+                                              index)
+                else:
+                    a, _, _ = attn.gqa_decode(lp["attn"], cfg, a,
+                                              cache["k"][i], cache["v"][i],
+                                              index,
+                                              window=cfg.sliding_window)
+                x = x + a
+                f = apply_norm(lp["ln2"], x, cfg.norm_eps)
+                if "router" in lp["ffn"]:
+                    f, _ = moe_lib.apply_moe(lp["ffn"], cfg, f)
+                else:
+                    f = apply_mlp(lp["ffn"], f, cfg.act)
+                x = x + f
+                i += 1
         return x
 
     # -------------------------------------------- cache-filling prefill

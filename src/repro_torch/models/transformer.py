@@ -1,6 +1,6 @@
-"""Layer stacks, GQA part (port of ``repro.models.transformer``): dense
-and mixture-of-experts blocks, and the leading dense stack
-(``first_k_dense``) in front of the main one.
+"""Layer stacks (port of ``repro.models.transformer``): dense and
+mixture-of-experts blocks with GQA or MLA attention, and the leading
+dense stack (``first_k_dense``) in front of the main one.
 
 The reference scans over layers with parameters stacked on a leading
 'layers' axis; the port keeps that layout (so parameters carry across
@@ -8,8 +8,8 @@ The reference scans over layers with parameters stacked on a leading
 Remat is a training concern and waits for the training slice.  The
 reference's ``constrain`` calls (``distributed/context.py``) are sharding
 hints with no effect on one card and are left out, as is its
-sequence-parallel attention branch.  MLA, SSM, hybrid and
-encoder-decoder stacks wait for their slices.
+sequence-parallel attention branch.  SSM, hybrid and encoder-decoder
+stacks wait for their slices.
 """
 from __future__ import annotations
 
@@ -25,17 +25,12 @@ from repro_torch.models.layers import apply_mlp, apply_norm, mlp_spec, \
 from repro_torch.models.param import stacked
 
 
-def _gqa_stacks_only(cfg: ArchConfig) -> None:
-    """Raise, naming the ROADMAP item, for a stack the port lacks."""
+def _refuse_ssm_and_encoder_stacks(cfg: ArchConfig) -> None:
+    """Raise, naming the ROADMAP item, for a stack the port lacks: SSM and
+    hybrid (item 10d), encoder-decoder and VLM (item 10e)."""
     if cfg.family in ("ssm", "hybrid") or cfg.is_hybrid:
         raise NotImplementedError("SSM and hybrid stacks are not ported yet "
                                   "(ROADMAP queue 1 item 10d)")
-    if cfg.attention != "gqa":
-        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1 "
-                                  "item 10c)")
-    if cfg.mtp_depth:
-        raise NotImplementedError("multi-token prediction is not ported yet "
-                                  "(ROADMAP queue 1 item 10c)")
     if cfg.is_encoder_decoder or cfg.num_prefix_tokens:
         raise NotImplementedError("encoder-decoder and VLM stacks are not "
                                   "ported yet (ROADMAP queue 1 item 10e)")
@@ -51,9 +46,10 @@ def layer(tree, i: int):
 
 
 def attn_block_spec(cfg: ArchConfig, use_moe: bool, d_ff: int) -> Dict:
+    a = attn.mla_spec(cfg) if cfg.attention == "mla" else attn.gqa_spec(cfg)
     ffn = moe_lib.moe_spec(cfg) if use_moe else mlp_spec(cfg, d_ff)
-    return {"ln1": norm_spec(cfg), "attn": attn.gqa_spec(cfg),
-            "ln2": norm_spec(cfg), "ffn": ffn}
+    return {"ln1": norm_spec(cfg), "attn": a, "ln2": norm_spec(cfg),
+            "ffn": ffn}
 
 
 def apply_attn_block(p, cfg: ArchConfig, x: torch.Tensor,
@@ -61,8 +57,11 @@ def apply_attn_block(p, cfg: ArchConfig, x: torch.Tensor,
                      prefix_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm block: (x, the router's aux loss; 0 for a dense FFN)."""
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
-    h = attn.gqa_forward(p["attn"], cfg, h, positions, causal=True,
-                         prefix_len=prefix_len)
+    if cfg.attention == "mla":
+        h = attn.mla_forward(p["attn"], cfg, h, positions)
+    else:
+        h = attn.gqa_forward(p["attn"], cfg, h, positions, causal=True,
+                             prefix_len=prefix_len)
     x = x + h
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
     if use_moe:
@@ -79,7 +78,7 @@ def apply_attn_block(p, cfg: ArchConfig, x: torch.Tensor,
 def decoder_spec(cfg: ArchConfig) -> Dict[str, Any]:
     """Spec of the decoder stack: ``first_k_dense`` leading dense layers
     (``dense_layers``) of a MoE arch, then the main ``layers``."""
-    _gqa_stacks_only(cfg)
+    _refuse_ssm_and_encoder_stacks(cfg)
     spec: Dict[str, Any] = {}
     n_dense = cfg.first_k_dense if cfg.uses_moe else 0
     if n_dense:

@@ -87,6 +87,31 @@ def test_chunked_attention_matches_reference_scan(S, chunk, window, prefix):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("S,H", [(96, 4), (130, 2)])
+def test_flash_plain_takes_hdv_and_scale(S, H, dtype):
+    """MLA's call shape: q/k head_dim 192, v head_dim 128, and a scale
+    given by the caller (0.9 / sqrt(192) here, not the default 1/sqrt(192),
+    so a dropped scale shows).  ``flash_attention_op`` on CPU tensors (the
+    plain version) against the reference's ``chunked_attention`` with the
+    same ``scale``, at the reference's tolerances."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(S + H)
+    q, k = rng.normal(size=(2, 1, S, H, 192))
+    v = rng.normal(size=(1, S, H, 128))
+    scale = 0.9 / float(np.sqrt(192))
+    pos = jnp.arange(S)
+    want = jax_chunked(*(jnp.asarray(a, jdt) for a in (q, k, v)), pos, pos,
+                       causal=True, scale=scale)
+    got = flash_attention_op(*(torch.as_tensor(a, dtype=torch.float32)
+                               .to(tdt) for a in (q, k, v)), scale=scale)
+    assert got.shape == (1, S, H, 128) and got.dtype == tdt
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+    default = flash_attention_op(*(torch.as_tensor(a, dtype=torch.float32)
+                                   for a in (q, k, v)))
+    assert not np.allclose(default.numpy(), _np32(got), rtol=tol, atol=tol)
+
+
 def test_cpu_tensors_launch_nothing():
     before = port_attn.launches
     q, k, v = (torch.as_tensor(a, dtype=torch.float32) for a in
@@ -98,17 +123,29 @@ def test_cpu_tensors_launch_nothing():
     assert port_attn.launches == before == 0
 
 
-@pytest.mark.parametrize("case", ["head_dim", "groups", "dtype", "cross",
-                                  "strided"])
+@pytest.mark.parametrize("case", ["head_dim", "pair_square_192",
+                                  "pair_v_wider", "pair_k_not_q", "groups",
+                                  "dtype", "cross", "strided"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
     """The checks the wrapper makes before a launch (run here on CPU
-    tensors; on the card the same checks guard the kernel)."""
+    tensors; on the card the same checks guard the kernel): (q/k head_dim,
+    v head_dim) outside the instantiated pairs, k's head_dim not q's, ...
+    Each instantiated pair passes."""
     q = torch.zeros(1, 64, 4, 64)
     k = v = torch.zeros(1, 64, 2, 64)
     if case == "head_dim":
         q, k, v = q[..., :32], k[..., :32].contiguous(), \
             v[..., :32].contiguous()
         q = q.contiguous()
+    elif case == "pair_square_192":
+        q, k, v = torch.zeros(1, 64, 4, 192), torch.zeros(1, 64, 2, 192), \
+            torch.zeros(1, 64, 2, 192)
+    elif case == "pair_v_wider":
+        q, k, v = torch.zeros(1, 64, 4, 128), torch.zeros(1, 64, 2, 128), \
+            torch.zeros(1, 64, 2, 192)
+    elif case == "pair_k_not_q":
+        k = torch.zeros(1, 64, 2, 192)
+        q, v = torch.zeros(1, 64, 4, 128), torch.zeros(1, 64, 2, 128)
     elif case == "groups":
         k = v = torch.zeros(1, 64, 3, 64)
     elif case == "dtype":
@@ -117,10 +154,12 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
         k = v = torch.zeros(1, 32, 2, 64)
     else:
         q = torch.zeros(1, 4, 64, 64).transpose(1, 2)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="flash_attention"):
         port_attn._check(q, k, v)
-    port_attn._check(torch.zeros(1, 64, 4, 64), torch.zeros(1, 64, 2, 64),
-                     torch.zeros(1, 64, 2, 64))
+    for d, dv in port_attn.HEAD_DIM_PAIRS:
+        port_attn._check(torch.zeros(1, 64, 4, d), torch.zeros(1, 64, 2, d),
+                         torch.zeros(1, 64, 2, dv))
+    assert (192, 128) in port_attn.HEAD_DIM_PAIRS
 
 
 def _chip_smoke():

@@ -722,19 +722,103 @@ def test_flash_attention_kernel(dev, S, H, KV, d, causal, window, dtype):
 
 
 def test_chunked_attention_outside_the_kernel_raises(dev):
+    """Prefix-LM and cross-attention raise naming their ROADMAP item; a
+    (q/k, v) head_dim pair the kernel lacks raises ``ValueError``; a
+    caller's scale reaches the kernel (MLA's), nothing falls back."""
     from repro_torch.models.attention import chunked_attention
     q = torch.zeros(1, 64, 4, 64, device=dev)
     k = v = torch.zeros(1, 64, 2, 64, device=dev)
     pos = torch.arange(64, device=dev)
-    for kw in (dict(prefix_len=8), dict(scale=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            chunked_attention(q, k, v, pos, pos, causal=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        chunked_attention(q, k, v, pos, pos, causal=True, prefix_len=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         chunked_attention(q, k, v, pos, pos.clone(), causal=False)
     with pytest.raises(ValueError):
         attention.flash_attention(q[..., :32].contiguous(),
                                   k[..., :32].contiguous(),
                                   v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        chunked_attention(torch.zeros(1, 64, 4, 192, device=dev),
+                          torch.zeros(1, 64, 2, 192, device=dev),
+                          torch.zeros(1, 64, 2, 192, device=dev), pos, pos,
+                          causal=True)
+    before = attention.launches
+    chunked_attention(q, k, v, pos, pos, causal=True, scale=0.5)
+    assert attention.launches == before + 1
+
+
+@pytest.mark.parametrize("S", [128, 1000, 4096])
+@pytest.mark.parametrize("H", [4, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_mla(dev, S, H, dtype):
+    """MLA's instantiation: q/k head_dim 192 (nope 128 + rope 64), v
+    head_dim 128, H = KV heads, causal, the caller's scale 1/sqrt(192),
+    against the plain version with that scale, at a few heads and at
+    deepseek's 128, S across tiles and ragged (1,000), held to the card
+    check's bar."""
+    rng = np.random.default_rng(S + H)
+    q, k = (_t(rng.normal(size=(1, S, H, 192)), dev, torch.float32).to(dtype)
+            for _ in range(2))
+    v = _t(rng.normal(size=(1, S, H, 128)), dev, torch.float32).to(dtype)
+    scale = 1.0 / np.sqrt(192.0)
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    assert got.shape == (1, S, H, 128) and got.dtype == dtype
+    want = attention.flash_attention_plain(q, k, v, causal=True, scale=scale)
+    assert bool(torch.isfinite(got).all())
+    err, over, rel, ok = _flash_agreement()(got, want)
+    assert ok, (f"max abs err {err}, {over} of the elementwise limit, "
+                f"relative norm {rel}")
+
+
+def _mla_cfg(**changes):
+    """deepseek-smoke in float32 at capacity 8.0 (no copy drops), with
+    the changes."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v3-671b").smoke(),
+                               param_dtype="float32", capacity_factor=8.0,
+                               **changes)
+
+
+def test_mla_prefill_goes_through_the_kernel(dev):
+    """deepseek-smoke widened to MLA's head dims (nope 128, rope 64, v
+    128): prefill on the card launches the (192, 128) kernel once per
+    layer (dense and MoE) and agrees with 12 absorbed decode steps
+    (2e-3, the reference's bar)."""
+    from repro_torch.models import Model
+    cfg = _mla_cfg(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                   v_head_dim=128)
+    model = Model(cfg, device=dev).init(seed=0)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (1, 12)), device=dev)
+    before = attention.launches
+    full = model.prefill_logits({"tokens": toks})
+    assert attention.launches == before + cfg.num_layers
+    cache = model.init_cache(1, 16)
+    for t in range(12):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1])
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)
+
+
+def test_mla_greedy_tokens_on_the_card_equal_the_cpus(dev):
+    """deepseek-smoke in float32 at its default capacity, the same seeded
+    parameters on the card and on the CPU: ``generate_batch`` gives the
+    same greedy tokens (decode steps only, absorbed MLA over the latent
+    cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").smoke(),
+                              param_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    card = Model(cfg, device=dev).load_params(cpu.params)
+    prompts = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (4, 10)).astype(np.int32)
+    want = ServingEngine(cpu, cache_len=32).generate_batch(prompts, 8)
+    got = ServingEngine(card, cache_len=32).generate_batch(prompts, 8)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_model_prefill_goes_through_the_kernel(dev):

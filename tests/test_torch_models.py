@@ -143,12 +143,15 @@ def test_init_follows_the_reference_rules():
 
 
 def test_unported_archs_name_their_roadmap_item():
+    """The archs still pending raise naming their ROADMAP item (MLA's
+    deepseek is ported: ``tests/test_torch_mla.py``)."""
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("mamba2-1.3b")
-    with pytest.raises(KeyError, match=r"item 10c \(MLA\)"):
-        get_config("deepseek-v3-671b-smoke")
-    with pytest.raises(KeyError, match=r"item 10c \(MLA\)"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(KeyError, match=r"item 10d \(SSM/hybrid\)"):
+        get_config("jamba-1.5-large-398b-smoke")
+    with pytest.raises(KeyError, match=r"item 10e"):
+        get_config("whisper-base")
+    assert get_config("deepseek-v3-671b-smoke").attention == "mla"
     assert get_config("mixtral-8x22b").num_experts == 8
     assert get_config("mixtral-8x22b-smoke").num_experts == 4
     with pytest.raises(ValueError, match="missing"):

@@ -18,7 +18,6 @@ from repro.configs import get_config as ref_config
 from repro.models import moe as ref_moe_lib
 from repro.models.param import init_params as ref_init_params
 from repro_torch.configs import get_config
-from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK
 from repro_torch.models import moe
 from repro_torch.models.convert import _convert
 
@@ -27,10 +26,10 @@ TOL = 2e-4
 
 def _cfgs(arch, **changes):
     """(reference config, port config): the smoke config in float32."""
-    base = DEEPSEEK if arch == "deepseek-v3-671b" else get_config(arch)
     ref = dataclasses.replace(ref_config(arch).smoke(), param_dtype="float32",
                               **changes)
-    port = dataclasses.replace(base.smoke(), param_dtype="float32", **changes)
+    port = dataclasses.replace(get_config(arch).smoke(), param_dtype="float32",
+                               **changes)
     return ref, port
 
 
