@@ -201,13 +201,13 @@ fails to start):
     pivots' pricing and histogram calls and every sharded segment stats
     call held against the plain versions ("main-path dist ...").
 
-The MoE slice (mixtral-8x22b at full width cut to 8 of its 56 layers,
+The MoE slice (mixtral-8x22b at full width cut to 4 of its 56 layers,
 bf16, random init from a seeded ``torch.Generator``; the qwen2 model is
 freed before phase 15):
 
 16. moe prefill: ``Model.prefill_logits`` on B = 1 x S = 8,192 tokens
     (the 4,096-token window masks keys) with every launch count read
-    around it (8 flash launches): first and warm walls, tokens/s, peak
+    around it (4 flash launches): first and warm walls, tokens/s, peak
     memory, then profiled; then one more prefill logging each layer's
     routing (copies per expert, copies dropped, "moe prefill routing
     layer i");
@@ -249,6 +249,39 @@ first):
     parameters) drawn from a seeded generator, capacity factor 8.0,
     prefill logits at S = 64 (the float32 flash kernel at (192, 128))
     against 64 absorbed ``decode_step``s (2e-3).
+
+The SSM slice (the deepseek models are freed first):
+
+26. ssm prefill: mamba2-1.3b, uncut (48 layers, bf16, 1.344e9
+    parameters, random init from a seeded ``torch.Generator``),
+    ``Model.prefill_logits`` on B = 2 x S = 4,096 tokens (16 chunks a
+    row) with every launch count read around it (no flash launch: the
+    stack has no attention), first and warm walls, tokens/s, peak
+    memory, then profiled (top ops, idle share);
+27. ssm scan: layer 0 of a float32 copy at full width, ``ssd_forward``
+    against the token-by-token ``ssd_reference`` at B = 1, S = 512 (2
+    chunks; 2e-3, the reference's bar), then the bf16 layer twice
+    (bit-identical);
+28. ssm agreement: a float32 copy of the whole model, prefill logits at
+    S = 512 against 512 ``decode_step``s (2e-3);
+29. ssm serve: phase 13 on mamba2 (``kv_bytes`` is 0, so the admission's
+    HBM row binds nothing; admissions equal to a CPU scheduler's, tick 0
+    rerun identical);
+30. hybrid prefill: jamba-1.5-large-398b at full width with its period
+    of 8 sublayers cut to one of 4 (SSM + dense FFN, SSM + MoE,
+    attention + dense, SSM + MoE: 22.98e9 parameters, 45.96 GB in bf16;
+    a whole period is 90.3 GB), ``Model.prefill_logits`` on B = 1 x
+    S = 8,192 tokens with every launch count read around it (exactly 1
+    flash launch), walls, tokens/s, peak memory, profiled; each MoE
+    sublayer's routing ("hybrid prefill routing sub i");
+31. hybrid flash: that flash call held against its plain version (the
+    one-ulp bar) and timed beside ``scaled_dot_product_attention``;
+32. hybrid serve: phase 13 on the hybrid model;
+33. hybrid agreement (last: the bf16 model is freed first): a float32
+    jamba of one period of 2 (SSM + dense FFN, attention + MoE; 11.90e9
+    parameters) drawn from a seeded generator, capacity factor 8.0,
+    prefill logits at S = 512 (the float32 flash kernel at (128, 128))
+    against 512 ``decode_step``s (2e-3).
 
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
@@ -3353,11 +3386,21 @@ def lm_model(dev):
     return model
 
 
+def flash_layers(cfg) -> int:
+    """The flash launches of one prefill: one an attention layer, so one a
+    hybrid period and none in an SSM stack."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.is_hybrid:
+        return cfg.num_layers // cfg.attn_period
+    return cfg.num_layers
+
+
 def phase_lm_prefill(model, B: int = 2, S: int = 4096,
                      label: str = "lm prefill"):
     """The prefill path: launch counts reset just before and read just
-    after one ``prefill_logits`` (one flash launch a layer); then a warm
-    run and a profiled run."""
+    after one ``prefill_logits`` (one flash launch an attention layer,
+    ``flash_layers``); then a warm run and a profiled run."""
     import torch
     from repro_torch import kernels
     cfg = model.cfg
@@ -3375,9 +3418,9 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096,
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
           and logits.dtype == torch.float32, f"{label}: logits shape")
     check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
-    check(counts["flash_attention"] == cfg.num_layers,
+    check(counts["flash_attention"] == flash_layers(cfg),
           f"{label}: {counts['flash_attention']} flash launches, "
-          f"expected {cfg.num_layers}")
+          f"expected {flash_layers(cfg)}")
     peak = torch.cuda.max_memory_allocated()
     del logits
     t0 = time.perf_counter()
@@ -3568,7 +3611,7 @@ def phase_lm_main_inputs(model, batch, counts,
     torch.cuda.synchronize()
     again = kernels.launch_counts()
     kept = calls["flash_attention"]
-    check(len(kept) == model.cfg.num_layers,
+    check(len(kept) == flash_layers(model.cfg),
           f"{label}: {len(kept)} flash calls kept")
     t0 = time.perf_counter()
     errs, overs, rels = zip(*(flash_check(*a, **kw) for a, kw in kept))
@@ -3591,9 +3634,11 @@ def phase_lm_main_inputs(model, batch, counts,
 
 MOE_ARCH = "mixtral-8x22b"
 # of its 56 layers: one full-width layer holds 2.50e9 parameters (5.0 GB
-# in bf16), 8 hold 40.9 GB with the embeddings; every decode step of the
-# capacity dispatch reads every expert's weights (~38.7 GB at 8 layers)
-MOE_LAYERS = 8
+# in bf16), 4 hold 20.8 GB with the embeddings (8 would hold 40.9); every
+# decode step of the capacity dispatch reads every expert's weights.  4,
+# not 8: the serve phase's decode is host-bound, ~150 device ops a layer
+# and step, and the whole script must stay well inside its time limit
+MOE_LAYERS = 4
 MOE_PREFILL = dict(B=1, S=8192)   # twice the 4,096-token window
 MOE_LAYER_TOKENS = 512            # phase "moe layer"
 MOE_TOL = 2e-4                    # the reference's MoE bar, float32
@@ -3649,13 +3694,24 @@ def routing_log():
 def phase_moe_prefill(model, label: str = "moe prefill", sizes=MOE_PREFILL):
     """Phase "lm prefill" on a MoE model (mixtral: B = 1, S = 8,192, the
     window masks keys), then one more prefill logging each MoE layer's
-    routing (``decoder_layer`` counts the leading dense layers too)."""
+    routing (``decoder_layer`` counts the leading dense layers too; a
+    hybrid's lines name the MoE sublayer, counted over its periods)."""
     counts, batch = phase_lm_prefill(model, label=label, **sizes)
     with routing_log() as log:
         model.prefill_logits(batch)
-    first = model.cfg.first_k_dense if model.cfg.uses_moe else 0
+    cfg = model.cfg
+    if cfg.is_hybrid:
+        P, mp = cfg.attn_period, cfg.moe_period
+        where = [f"sub {j * P + i}" for j in range(cfg.num_layers // P)
+                 for i in range(P) if mp and i % mp == mp - 1]
+    else:
+        first = cfg.first_k_dense if cfg.uses_moe else 0
+        where = [f"layer {i}" for i in range(len(log))]
+    check(len(log) == len(where), f"{label}: {len(log)} MoE calls, "
+                                  f"expected {len(where)}")
     for i, (copies, dropped, g, C) in enumerate(log):
-        say(f"{label} routing layer {i}", decoder_layer=first + i,
+        say(f"{label} routing {where[i]}",
+            **({} if cfg.is_hybrid else {"decoder_layer": first + i}),
             tokens_a_group=g,
             slots_an_expert=C, copies=json.dumps(copies.tolist()),
             dropped=json.dumps(dropped.tolist()),
@@ -3774,11 +3830,11 @@ def mla_model(dev):
     return model
 
 
-def phase_mla_flash(model, batch):
-    """The prefill's first flash call (all five share its shape, so it is
-    the largest) kept and held against the plain version (the one-ulp
+def phase_first_flash(model, batch, label: str = "mla flash"):
+    """The prefill's first flash call (all of them share its shape, so it
+    is the largest) kept and held against the plain version (the one-ulp
     bar), then timed beside the plain scan and the library call on the
-    same inputs ("mla flash")."""
+    same inputs."""
     import torch
     with capturing(("flash_attention",), limit=1) as calls:
         model.prefill_logits(batch)
@@ -3786,26 +3842,30 @@ def phase_mla_flash(model, batch):
     (a, kw), = calls["flash_attention"]
     err, over, rel = flash_check(*a, **kw)
     nums = flash_times(*a, **kw)
-    say("mla flash", max_abs_err=err, err_over_limit=over,
+    say(label, max_abs_err=err, err_over_limit=over,
         rel_norm_err=rel, scale=kw.get("scale"), **nums)
     del calls, a
     torch.cuda.empty_cache()
     return err, nums
 
 
-def phase_mla_agreement(dev, S: int = 64, tol: float = 2e-3) -> float:
-    """A float32 deepseek of ``MLA_AGREEMENT`` at full width, drawn from a
-    seeded generator: prefill logits (the float32 flash kernel at (192,
-    128)) against S absorbed decode steps, 2e-3."""
+def phase_fresh_agreement(dev, arch: str = MLA_ARCH, changes=MLA_AGREEMENT,
+                          label: str = "mla agreement", S: int = 64,
+                          tol: float = 2e-3) -> float:
+    """A float32 ``arch`` with ``changes`` at full width, drawn from a
+    seeded generator: prefill logits (the float32 flash kernel: at (192,
+    128) for deepseek) against S decode steps (absorbed for MLA), 2e-3."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = dataclasses.replace(get_config(MLA_ARCH), param_dtype="float32",
-                              **MLA_AGREEMENT)
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                              **changes)
     m32 = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(1))
-    worst = prefill_decode_agreement(m32, S, tol, "mla agreement")
+    say(f"{label} model", params=m32.param_count(), layers=cfg.num_layers,
+        param_gib=torch.cuda.memory_allocated() / 2**30)
+    worst = prefill_decode_agreement(m32, S, tol, label)
     del m32
     torch.cuda.empty_cache()
     return worst
@@ -3821,15 +3881,145 @@ def mla_phases(phase, dev):
     model = phase("mla model", mla_model, dev)
     counts, batch = phase("mla prefill", phase_moe_prefill, model,
                           "mla prefill", MLA_PREFILL)
-    flash_err, nums = phase("mla flash", phase_mla_flash, model, batch)
+    flash_err, nums = phase("mla flash", phase_first_flash, model, batch)
     serve = phase("mla serve", phase_lm_serve, model, "mla serve")
     held_err, _ = phase("mla main-path inputs", phase_lm_main_inputs, model,
                         batch, counts, "main-path flash_attention mla",
                         False)
     del model, batch
     torch.cuda.empty_cache()
-    phase("mla agreement", phase_mla_agreement, dev)
+    phase("mla agreement", phase_fresh_agreement, dev)
     return counts, (max(flash_err, held_err), nums), serve
+
+
+# ----------------------------- the SSM slice: mamba2-1.3b and jamba's hybrid
+
+SSM_ARCH = "mamba2-1.3b"          # uncut: 48 layers, 1.344e9 parameters
+SSM_PREFILL = dict(B=2, S=4096)   # 16 chunks of 256 a row
+SSM_SCAN_S = 512                  # phase "ssm scan": 2 chunks
+SSM_AGREEMENT_S = 512             # phases "ssm/hybrid agreement"
+SSM_TOL = 2e-3                    # the reference's chunked-vs-sequential bar
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# one period of 8 sublayers holds 45.14e9 parameters (90.3 GB in bf16),
+# more than the card: the period itself is cut to 4 sublayers (SSM +
+# dense FFN, SSM + MoE, attention + dense, SSM + MoE): 22.98e9
+# parameters, 45.96 GB.  The same three sublayer kinds as Jamba's period;
+# attention to SSM 1:3 where Jamba has 1:7
+HYBRID_CUT = dict(num_layers=4, attn_period=4)
+HYBRID_PREFILL = dict(B=1, S=8192)
+# phase "hybrid agreement": a float32 period of 2 (SSM + dense FFN, then
+# attention + MoE; 11.90e9 parameters, 47.6 GB), drawn once the bf16
+# model is freed, capacity 8.0
+HYBRID_AGREEMENT = dict(num_layers=2, attn_period=2, capacity_factor=8.0)
+
+
+def slice_model(dev, arch: str, label: str, **changes):
+    """``arch`` at full width with ``changes`` (a cut), bf16, random init
+    from a seeded generator."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say(label, arch=arch, params=model.param_count(),
+        active_params=cfg.active_param_count(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0, layers=cfg.num_layers,
+        attn_period=cfg.attn_period, moe_period=cfg.moe_period,
+        d_model=cfg.d_model, d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads,
+        ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+        ssm_chunk=cfg.ssm_chunk, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff, experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_tok, vocab=cfg.padded_vocab,
+        param_gib=torch.cuda.memory_allocated() / 2**30,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return model
+
+
+def phase_ssm_scan(model, S: int = SSM_SCAN_S, tol: float = SSM_TOL):
+    """Layer 0's SSD at full width: a float32 copy's chunked scan
+    ``ssd_forward`` against the token-by-token oracle ``ssd_reference``
+    (B = 1, S tokens: 2 chunks; 2e-3 abs + 2e-3 rel, the reference's
+    bar); then the bf16 layer twice on the same input, bit-identical.
+    Times by CUDA events."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer
+    cfg = model.cfg
+    p = layer(model.params["decoder"]["layers"], 0)["ssm"]
+    p32 = {k: v.float() for k, v in p.items()}
+    g = torch.Generator(device=model.device).manual_seed(4)
+    x = 0.3 * torch.randn((1, S, cfg.d_model), generator=g,
+                          device=model.device)
+    par = ssm.ssd_forward(p32, cfg, x)
+    seq = ssm.ssd_reference(p32, cfg, x)
+    check(bool(torch.isfinite(par).all()), "ssm scan: non-finite output")
+    diff = (par - seq).abs()
+    err = float(diff.max())
+    over = float((diff / (tol + tol * seq.abs())).max())
+    check(over <= 1.0, f"ssm scan: chunked and sequential differ by {err} "
+                       f"(bar {tol} abs + {tol} rel)")
+    ms32 = timed_ms(lambda: ssm.ssd_forward(p32, cfg, x), 3)
+    seq_ms = timed_ms(lambda: ssm.ssd_reference(p32, cfg, x), 1, warm=0)
+    del p32, par, seq, diff
+    xb = x.bfloat16()
+    a = ssm.ssd_forward(p, cfg, xb)
+    b = ssm.ssd_forward(p, cfg, xb)
+    check(torch.equal(a, b), "ssm scan: two bf16 runs differ")
+    ms16 = timed_ms(lambda: ssm.ssd_forward(p, cfg, xb), 5)
+    say("ssm scan", S=S, chunks=S // min(cfg.ssm_chunk, S),
+        float32_max_abs_err=err, float32_err_over_bar=over,
+        out_absmax=float(a.float().abs().max()), float32_ms=ms32,
+        ssd_reference_ms=seq_ms, bf16_rerun="identical", bf16_ms=ms16)
+    torch.cuda.empty_cache()
+    return err
+
+
+def ssm_phases(phase, dev):
+    """Phases 26-29 on mamba2-1.3b, uncut: "ssm prefill" (no flash launch:
+    the stack has no attention), "ssm scan", "ssm agreement" (a float32
+    copy of the whole model), "ssm serve"; the model is freed at the end.
+    Returns (the prefill's launch counts, the serve phase's (lp_batch
+    launches, max lane error))."""
+    import torch
+    model = phase("ssm model", slice_model, dev, SSM_ARCH, "ssm model")
+    counts, _ = phase("ssm prefill", phase_lm_prefill, model,
+                      SSM_PREFILL["B"], SSM_PREFILL["S"], "ssm prefill")
+    phase("ssm scan", phase_ssm_scan, model)
+    phase("ssm agreement", functools.partial(
+        phase_lm_agreement, S=SSM_AGREEMENT_S, label="ssm agreement"),
+        model)
+    serve = phase("ssm serve", phase_lm_serve, model, "ssm serve")
+    del model
+    torch.cuda.empty_cache()
+    return counts, serve
+
+
+def hybrid_phases(phase, dev):
+    """Phases 30-33 on jamba-1.5-large-398b at full width, one period cut
+    to 4 sublayers (``HYBRID_CUT``): "hybrid prefill" (one flash launch,
+    the routing of both MoE sublayers), "hybrid flash" (that call held
+    and timed), "hybrid serve", then, the bf16 model freed, "hybrid
+    agreement".  Returns (the prefill's launch counts, (the flash call's
+    max abs error, its numbers), the serve phase's (lp_batch launches,
+    max lane error))."""
+    import torch
+    model = phase("hybrid model", functools.partial(
+        slice_model, dev, HYBRID_ARCH, "hybrid model", **HYBRID_CUT))
+    counts, batch = phase("hybrid prefill", phase_moe_prefill, model,
+                          "hybrid prefill", HYBRID_PREFILL)
+    flash = phase("hybrid flash", phase_first_flash, model, batch,
+                  "hybrid flash")
+    serve = phase("hybrid serve", phase_lm_serve, model, "hybrid serve")
+    del model, batch
+    torch.cuda.empty_cache()
+    phase("hybrid agreement", phase_fresh_agreement, dev, HYBRID_ARCH,
+          HYBRID_AGREEMENT, "hybrid agreement", SSM_AGREEMENT_S)
+    return counts, flash, serve
 
 
 # ------------------------------------------------------------------ main
@@ -4140,28 +4330,34 @@ def main() -> None:
 
     moe_counts, moe_main, moe_serve_lp = moe_phases(phase, dev)
     mla_counts, mla_main, mla_serve_lp = mla_phases(phase, dev)
+    ssm_counts, ssm_serve_lp = ssm_phases(phase, dev)
+    hybrid_counts, hybrid_flash, hybrid_serve_lp = hybrid_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
-    # flash's main paths: the three prefills, numbers at the largest call
-    # (MLA's, at (192, 128))
+    # flash's main paths: the five prefills (mamba2's launches none),
+    # numbers at the largest call (MLA's, at (192, 128))
     prefills = {"lm prefill": lm_counts, "moe prefill": moe_counts,
-                "mla prefill": mla_counts}
+                "mla prefill": mla_counts, "ssm prefill": ssm_counts,
+                "hybrid prefill": hybrid_counts}
     counts["flash_attention"] = sum(c["flash_attention"]
                                     for c in prefills.values())
     main_nums["flash_attention"] = (max(lm_main[0], moe_main[0],
-                                        mla_main[0]), mla_main[1])
+                                        mla_main[0], hybrid_flash[0]),
+                                    mla_main[1])
 
     # the batched LP engine: its main path is phase "lp batch"'s B&B;
     # its launches on every other path that batches LP flights
     fixed["lp_batch"] = (lp["err"], lp["fixed"])
-    main_nums["lp_batch"] = (max(lp["err"], parity_lp[1], serve_lp[1],
-                                 moe_serve_lp[1], mla_serve_lp[1]),
+    serves = {"lm serve": serve_lp, "moe serve": moe_serve_lp,
+              "mla serve": mla_serve_lp, "ssm serve": ssm_serve_lp,
+              "hybrid serve": hybrid_serve_lp}
+    main_nums["lp_batch"] = (max([lp["err"], parity_lp[1]]
+                                 + [v[1] for v in serves.values()]),
                              lp["main"])
     counts["lp_batch"] = lp["launches"]
     lp_paths = {**lp["paths"], "parity W=8": parity_lp[0],
-                "lm serve": serve_lp[0], "moe serve": moe_serve_lp[0],
-                "mla serve": mla_serve_lp[0]}
+                **{k: v[0] for k, v in serves.items()}}
     # the descent's main path is the append; the build and the solves
     # (phase "full", the cache flight) never descend
     main_nums["split_tree_descent"] = (float(append_err), append_nums)
@@ -4196,7 +4392,8 @@ def main() -> None:
             from repro_torch.kernels.attention import HEAD_DIM_PAIRS
             extra.update(head_dim_pairs=[list(p) for p in HEAD_DIM_PAIRS],
                          lm_prefill_largest_call=lm_main[1],
-                         moe_prefill_largest_call=moe_main[1])
+                         moe_prefill_largest_call=moe_main[1],
+                         hybrid_prefill_call=hybrid_flash[1])
         if name in dist_nums:
             paths.update({p: n[name] for p, n in dist_counts.items()})
             err_m = max(err_m, dist_nums[name][0])

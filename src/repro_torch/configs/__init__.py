@@ -2,8 +2,9 @@
 
 The port registers the archs that its model stack runs today: the dense
 GQA ones (qwen2, danube, smollm and glm4), the GQA mixture of experts
-(mixtral) and DeepSeek-V3 (MLA, a leading dense stack, shared and routed
-experts, the MTP head).  The other archs of the reference's registry join
+(mixtral), DeepSeek-V3 (MLA, a leading dense stack, shared and routed
+experts, the MTP head), the attention-free Mamba2 SSM stack (mamba2) and
+Jamba's hybrid of SSM, attention and MoE sublayers (jamba).  The other archs of the reference's registry join
 with the slices that port their families; asking for one raises
 ``KeyError`` naming the ROADMAP item that brings it.
 """
@@ -20,12 +21,12 @@ _ARCH_MODULES = {
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 # archs of the reference's registry whose family is not ported yet
 _PENDING = {
-    "jamba-1.5-large-398b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
-    "mamba2-1.3b": "ROADMAP queue 1 item 10d (SSM/hybrid)",
     "whisper-base": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
     "paligemma-3b": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
 }

@@ -6,11 +6,16 @@
         --arch mixtral-8x22b-smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --layers 5      # one 80 GB card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --layers 4  # one period of 4 sublayers
 
 The reference's flags, plus ``--device`` (default ``cuda``; the CPU runs
 only with ``--device cpu``) and ``--layers`` (the model cut to its first
 layers, at full width, where the whole depth does not fit the card: a
-``first_k_dense`` arch keeps at least one layer of its main stack).  The
+``first_k_dense`` arch keeps at least one layer of its main stack; a
+hybrid arch takes whole periods, or one period cut to ``--layers``
+sublayers where that keeps the attention sublayer on a dense FFN, see
+``cut_layers``).  The
 model is randomly initialised from a seeded ``torch.Generator``.  The HBM
 budget of the admission query is ``--hbm-frac`` of the card's memory; on
 the CPU it is that share of the 16 GiB the reference assumes.
@@ -32,6 +37,26 @@ from repro_torch.serving import PackageScheduler, Request, ServingEngine
 CPU_MEMORY_BYTES = 16 * 2**30     # the reference's figure
 
 
+def cut_layers(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers at full width.  A hybrid arch
+    keeps its layout when n is a multiple of ``attn_period``; below the
+    period, n becomes the period (attention at sublayer n // 2) where that
+    sublayer keeps a dense FFN.  Any other n raises ``ValueError``."""
+    if not cfg.first_k_dense < n <= cfg.num_layers:
+        raise ValueError(f"--layers {n}: {cfg.name} takes "
+                         f"{cfg.first_k_dense + 1}..{cfg.num_layers}")
+    if not cfg.is_hybrid or n % cfg.attn_period == 0:
+        return dataclasses.replace(cfg, num_layers=n)
+    attn_moe = bool(cfg.moe_period) and \
+        (n // 2) % cfg.moe_period == cfg.moe_period - 1
+    if n > cfg.attn_period or attn_moe:
+        raise ValueError(
+            f"--layers {n}: {cfg.name} takes a multiple of its period "
+            f"{cfg.attn_period}, or one period of fewer sublayers whose "
+            f"attention sublayer (index n // 2) has a dense FFN")
+    return dataclasses.replace(cfg, num_layers=n, attn_period=n)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b-smoke")
@@ -46,10 +71,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.layers is not None:
-        if not cfg.first_k_dense < args.layers <= cfg.num_layers:
-            raise ValueError(f"--layers {args.layers}: {cfg.name} takes "
-                             f"{cfg.first_k_dense + 1}..{cfg.num_layers}")
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     model = Model(cfg, device=dev).init(seed=0)
     print(f"[serve] arch={cfg.name} params={model.param_count()/1e6:.2f}M "
           f"device={dev}")

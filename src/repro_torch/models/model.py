@@ -10,12 +10,13 @@ reference's names and layouts (``decoder.layers.attn.wq`` is
 (L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
 the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints.
 
-The port runs the GQA families, dense and mixture of experts, and
+The port runs the GQA families, dense and mixture of experts,
 DeepSeek's MLA with its leading dense stack and its multi-token
-prediction (MTP) head's parameters; SSM, hybrid, encoder-decoder and VLM
-raise ``NotImplementedError`` naming their ROADMAP item, and the training
-loss (and with it the MTP loss) waits for the training slice.  Decode
-keeps the cache index as a host int and writes the caches in place.
+prediction (MTP) head's parameters, the Mamba2 SSM stack and Jamba's
+hybrid periods; encoder-decoder and VLM raise ``NotImplementedError``
+naming their ROADMAP item, and the training loss (and with it the MTP
+loss) waits for the training slice.  Decode keeps the cache index as a
+host int and writes the caches in place.
 """
 from __future__ import annotations
 
@@ -28,9 +29,9 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        embedding_spec, logits_from, norm_spec,
                                        sinusoidal_positions)
 from repro_torch.models.param import ParamInfo, init_params, leaves, \
@@ -163,22 +164,39 @@ class Model(nn.Module):
         window) for a sliding window (a rolling cache), and the host int
         ``index``.  GQA: k/v (L, B, kv_len, KV, hd).  MLA: the latent c
         (L, B, kv_len, kv_lora_rank) and the rope keys r (L, B, kv_len,
-        rope_dim), the leading dense layers first."""
+        rope_dim), the leading dense layers first.  SSM: the state
+        (L, B, nh, N, hp) in float32 and the conv window (L, B, ck-1,
+        d_inner + 2N).  Hybrid: k/v (n_periods, B, kv_len, KV, hd) and a
+        ``state{i}``/``conv{i}`` pair for each SSM sublayer i of a
+        period."""
         cfg = self.cfg
-        tfm._refuse_ssm_and_encoder_stacks(cfg)
+        tfm._refuse_encoder_stacks(cfg)
         kv_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
         L, B = cfg.num_layers, batch_size
-        if cfg.attention == "mla":
+        ssm_state = (B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+        ssm_conv = (B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+        if cfg.family == "ssm":
+            shapes = {"state": (L,) + ssm_state, "conv": (L,) + ssm_conv}
+        elif cfg.is_hybrid:
+            nb = cfg.num_layers // cfg.attn_period
+            shape = (nb, B, kv_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": shape, "v": shape}
+            for i in range(cfg.attn_period):
+                if i != cfg.attn_period // 2:
+                    shapes[f"state{i}"] = (nb,) + ssm_state
+                    shapes[f"conv{i}"] = (nb,) + ssm_conv
+        elif cfg.attention == "mla":
             shapes = {"c": (L, B, kv_len, cfg.kv_lora_rank),
                       "r": (L, B, kv_len, cfg.qk_rope_head_dim)}
         else:
             shape = (L, B, kv_len, cfg.num_kv_heads, cfg.resolved_head_dim)
             shapes = {"k": shape, "v": shape}
         cache: Dict[str, Any] = {"index": 0}
-        for k, shape in shapes.items():
-            cache[k] = torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device)
+        for k, shape in shapes.items():       # SSM states are float32
+            cache[k] = torch.zeros(
+                shape, dtype=torch.float32 if k.startswith("state")
+                else self.dtype, device=self.device)
         return cache
 
     def decode_step(self, cache, tokens, index: Optional[int] = None):
@@ -203,9 +221,29 @@ class Model(nn.Module):
         main stack: layer i of the cache is layer i of that order.  GQA
         attends its k/v cache (and, as the reference's GQA body at
         ``model.py:245-246``, has no leading dense stack); MLA its latent
-        c/r cache, in the absorbed form."""
+        c/r cache, in the absorbed form.  An SSM layer steps its state and
+        conv window; a hybrid period runs its sublayers in order, the
+        attention one on the period's k/v, SSM sublayer i on
+        ``state{i}``/``conv{i}``."""
         cfg = self.cfg
         dec = params["decoder"]
+        if cfg.family == "ssm":
+            stack = dec["layers"]
+            for i in range(tfm.depth(stack)):
+                lp = tfm.layer(stack, i)
+                a = apply_norm(lp["ln"], x, cfg.norm_eps)
+                a, _ = ssm_lib.ssm_decode(lp["ssm"], cfg, a, {
+                    "state": cache["state"][i], "conv": cache["conv"][i]})
+                x = x + a
+            return x
+        if cfg.is_hybrid:
+            stack = dec["layers"]
+            for j in range(tfm.depth(stack)):
+                lp = tfm.layer(stack, j)
+                for i in range(cfg.attn_period):
+                    x = self._sublayer_decode(lp[f"sub{i}"], cache, x, index,
+                                              j, i)
+            return x
         mla = cfg.attention == "mla"
         if "dense_layers" in dec and not mla:
             raise NotImplementedError("GQA decode with first_k_dense "
@@ -215,7 +253,7 @@ class Model(nn.Module):
             if name not in dec:
                 continue
             stack = dec[name]
-            for j in range(len(stack["ln1"]["scale"])):   # the stack's depth
+            for j in range(tfm.depth(stack)):
                 lp = tfm.layer(stack, j)
                 a = apply_norm(lp["ln1"], x, cfg.norm_eps)
                 if mla:
@@ -227,14 +265,23 @@ class Model(nn.Module):
                                               cache["k"][i], cache["v"][i],
                                               index,
                                               window=cfg.sliding_window)
-                x = x + a
-                f = apply_norm(lp["ln2"], x, cfg.norm_eps)
-                if "router" in lp["ffn"]:
-                    f, _ = moe_lib.apply_moe(lp["ffn"], cfg, f)
-                else:
-                    f = apply_mlp(lp["ffn"], f, cfg.act)
-                x = x + f
+                x, _ = tfm.ffn_residual(lp, cfg, x + a)
                 i += 1
+        return x
+
+    def _sublayer_decode(self, sub, cache, x, index: int, j: int,
+                         i: int) -> torch.Tensor:
+        """Sublayer i of hybrid period j, one token."""
+        cfg = self.cfg
+        a = apply_norm(sub["ln1"], x, cfg.norm_eps)
+        if "attn" in sub:
+            a, _, _ = attn.gqa_decode(sub["attn"], cfg, a, cache["k"][j],
+                                      cache["v"][j], index,
+                                      window=cfg.sliding_window)
+        else:
+            a, _ = ssm_lib.ssm_decode(sub["ssm"], cfg, a, {
+                "state": cache[f"state{i}"][j], "conv": cache[f"conv{i}"][j]})
+        x, _ = tfm.ffn_residual(sub, cfg, x + a)
         return x
 
     # -------------------------------------------- cache-filling prefill

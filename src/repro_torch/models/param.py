@@ -8,9 +8,10 @@ port does not read them.
 
 ``init_params`` draws from one explicit ``torch.Generator``, leaf by leaf in
 the reference's flatten order (sorted keys).  The rules are the
-reference's -- normal(0, scale), zeros, ones, and fan-in "scaled" normals
-(scale ``1/sqrt(prod(shape[:-1]))`` of the stacked shape) -- drawn in
-float32 and cast to the parameter dtype.  A leaf of more than
+reference's -- normal(0, scale), zeros, ones, fan-in "scaled" normals
+(scale ``1/sqrt(prod(shape[:-1]))`` of the stacked shape), and Mamba's
+"a_log" (A uniform in [1, 16), stored as its log) -- drawn in float32 and
+cast to the parameter dtype.  A leaf of more than
 ``DRAW_WHOLE_MAX`` elements is drawn one index of its leading (layers)
 axis at a time into the cast result, so no whole-leaf float32 temporary
 exists; its fan-in is still that of the stacked shape.  The numbers
@@ -40,7 +41,7 @@ DRAW_WHOLE_MAX = 2 ** 32
 class ParamInfo:
     shape: Tuple[int, ...]
     axes: Axes
-    init: str = "normal"       # normal | zeros | ones | scaled
+    init: str = "normal"       # normal | zeros | ones | scaled | a_log
     scale: float = 0.02
 
     def __post_init__(self):
@@ -81,6 +82,10 @@ def _init_one(info: ParamInfo, generator: torch.Generator, dtype,
         return torch.zeros(info.shape, dtype=dtype, device=device)
     if info.init == "ones":
         return torch.ones(info.shape, dtype=dtype, device=device)
+    if info.init == "a_log":           # Mamba's A in [1, 16), stored as log
+        u = torch.rand(info.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        return u.mul_(15.0).add_(1.0).log_().to(dtype)
     if info.init not in ("normal", "scaled"):
         raise ValueError(f"init rule {info.init!r} is not ported")
     scale = info.scale

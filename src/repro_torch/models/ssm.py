@@ -1,0 +1,196 @@
+"""Mamba2 SSD (state-space duality) layer (port of ``repro.models.ssm``):
+the chunked scan over a whole sequence and the one-token decode step, per
+arXiv:2405.21060.
+
+Shapes: d_inner = expand * d_model, heads nh = d_inner / head_dim (hp),
+state size N.  B/C are shared across heads (MQA-like); dt and A are per
+head; a depthwise causal conv (width ssm_conv) runs over [x, B, C].
+
+The reference computes every product here outside Pallas, so the port
+keeps them as torch products.  Its ``lax.scan`` over the S/Q chunks is a
+Python loop of two ops a chunk, in the reference's order: the state
+*before* a chunk is emitted, then ``h * decay + S_chunk``.  The quadratic
+intra-chunk tensors (decay, L, W) are built once, in place, in the
+(B, nC, nh, Q, Q) layout that the batched products take; the reference's
+``(B, nC, Q, Q, nh)`` einsums contract the same sums.  Decode writes both
+caches in place (the reference returns new arrays): the state (B, nh, N,
+hp) in float32 and the conv window (B, ck-1, d_inner + 2N) in the
+parameter dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.param import ParamInfo
+
+
+def ssm_spec(cfg: ArchConfig) -> Dict:
+    d, di, N, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    ck = cfg.ssm_conv
+    return {
+        "wz": ParamInfo((d, di), ("embed", "ssm_inner")),
+        "wx": ParamInfo((d, di), ("embed", "ssm_inner")),
+        "wB": ParamInfo((d, N), ("embed", "ssm_state")),
+        "wC": ParamInfo((d, N), ("embed", "ssm_state")),
+        "wdt": ParamInfo((d, nh), ("embed", "ssm_heads")),
+        "dt_bias": ParamInfo((nh,), ("ssm_heads",), init="zeros"),
+        "conv": ParamInfo((ck, di + 2 * N), ("conv", "ssm_inner")),
+        "A_log": ParamInfo((nh,), ("ssm_heads",), init="a_log"),
+        "D": ParamInfo((nh,), ("ssm_heads",), init="ones"),
+        "norm": ParamInfo((di,), ("ssm_inner",), init="ones"),
+        "wout": ParamInfo((di, d), ("ssm_inner", "embed"), init="scaled"),
+    }
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """RMS norm of y * silu(z), in float32 (the caller casts)."""
+    g = y * F.silu(z.float())
+    ms = g.square().mean(-1, keepdim=True)
+    return g * torch.rsqrt(ms + eps) * scale.float()
+
+
+def _proj_conv(p, cfg: ArchConfig, x: torch.Tensor):
+    """Shared projections. x: (B, S, D) -> z, xBC (pre-conv), dt (float32,
+    softplus'd)."""
+    z = x @ p["wz"]
+    xs = x @ p["wx"]
+    Bv = x @ p["wB"]
+    Cv = x @ p["wC"]
+    dt = F.softplus((x @ p["wdt"] + p["dt_bias"]).float())
+    return z, torch.cat([xs, Bv, Cv], dim=-1), dt
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. xBC: (B, S, Ch), w: (ck, Ch).  The ck shifted
+    slices of the zero-padded input are summed in float32, i = 0..ck-1,
+    then SiLU, then the cast back to the input dtype."""
+    ck, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, ck - 1, 0))
+    w32 = w.float()
+    out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
+    for i in range(ck):
+        out += pad[:, i:i + S].float() * w32[i]
+    return F.silu(out).to(xBC.dtype)
+
+
+def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Chunked SSD scan over the full sequence. x: (B, S, D).  S must be a
+    multiple of the chunk Q = min(ssm_chunk, S)."""
+    B, S, D = x.shape
+    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"SSD scan: sequence length S={S} is not a multiple "
+                         f"of the chunk Q={Q}")
+    nC = S // Q
+
+    z, xBC, dt = _proj_conv(p, cfg, x)
+    xBC = _causal_conv(xBC, p["conv"])
+    xs, Bv, Cv = torch.split(xBC, [di, N, N], dim=-1)
+    del xBC
+    xh = xs.reshape(B, nC, Q, nh, hp).float()
+    Bc = Bv.reshape(B, nC, Q, N).float()
+    Cc = Cv.reshape(B, nC, Q, N).float()
+    dtc = dt.reshape(B, nC, Q, nh)
+
+    A = -torch.exp(p["A_log"].float())                       # (nh,)
+    cum = torch.cumsum(dtc * A, dim=2)                       # within chunk
+
+    # ---- intra-chunk (quadratic within chunk), as (B, nC, nh, q, k) ----
+    scores = Cc @ Bc.transpose(-1, -2)                       # (B,nC,Q,Q)
+    cum_h = cum.permute(0, 1, 3, 2)                          # (B,nC,nh,Q)
+    L = cum_h[..., :, None] - cum_h[..., None, :]            # q - k
+    # mask BEFORE exp: the future branch (q - k >> 0) overflows to inf, and
+    # inf * 0 would give NaN in W
+    future = torch.ones((Q, Q), dtype=torch.bool,
+                        device=x.device).triu_(1)
+    L.masked_fill_(future, -1e30).exp_()
+    W = L.mul_(scores[:, :, None]).mul_(dtc.permute(0, 1, 3, 2)[:, :, :, None])
+    del scores
+    y_intra = (W @ xh.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+    del W, L
+
+    # ---- chunk states & inter-chunk recurrence ----
+    last = cum[:, :, -1:, :]                                 # (B,nC,1,nh)
+    w_in = torch.exp(last - cum) * dtc                       # (B,nC,Q,nh)
+    xw = (xh * w_in[..., None]).reshape(B, nC, Q, nh * hp)
+    S_chunk = (Bc.transpose(-1, -2) @ xw).view(B, nC, N, nh, hp)
+    del xw
+    chunk_decay = torch.exp(last[:, :, 0, :])                # (B,nC,nh)
+
+    h = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=x.device)
+    h_prev = torch.empty((B, nC, N, nh, hp), dtype=torch.float32,
+                         device=x.device)
+    for c in range(nC):                       # emit the state *before* chunk
+        h_prev[:, c] = h.transpose(1, 2)
+        h = h * chunk_decay[:, c, :, None, None] \
+            + S_chunk[:, c].transpose(1, 2)
+    del S_chunk, h
+
+    w_out = torch.exp(cum)                                   # (B,nC,Q,nh)
+    y_inter = (Cc @ h_prev.view(B, nC, N, nh * hp)).view(B, nC, Q, nh, hp)
+    y_inter = y_inter * w_out[..., None]
+    del h_prev
+
+    y = y_intra + y_inter + p["D"].float()[:, None] * xh
+    del y_intra, y_inter
+    y = _gated_norm(y.reshape(B, S, di), z, p["norm"], cfg.norm_eps)
+    return y.to(x.dtype) @ p["wout"]
+
+
+# ------------------------------------------------------------- decode
+
+
+def ssm_init_cache(cfg: ArchConfig, batch: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    return {
+        "state": torch.zeros((batch, nh, N, hp), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * N),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_decode(p, cfg: ArchConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """One-token step. x: (B, 1, D).  Writes ``cache["state"]`` and
+    ``cache["conv"]`` in place and returns (out, cache)."""
+    B = x.shape[0]
+    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    z, xBC, dt = _proj_conv(p, cfg, x)                        # (B,1,*)
+    conv = cache["conv"]
+    hist = torch.cat([conv, xBC], dim=1)                      # (B,ck,Ch)
+    conv_out = (hist.float() * p["conv"].float()).sum(1)      # (B,Ch)
+    conv.copy_(hist[:, 1:])          # hist is a new tensor: no overlap
+    xs, Bv, Cv = torch.split(F.silu(conv_out), [di, N, N], dim=-1)
+    xhead = xs.reshape(B, nh, hp)
+    dt1 = dt[:, 0]                                            # (B,nh)
+    A = -torch.exp(p["A_log"].float())
+    decay = torch.exp(dt1 * A)                                # (B,nh)
+    upd = Bv[:, None, :, None] * (dt1[..., None] * xhead)[:, :, None, :]
+    state = cache["state"]                                    # (B,nh,N,hp)
+    state.mul_(decay[..., None, None]).add_(upd)
+    y = (Cv[:, None, None, :] @ state)[:, :, 0]               # (B,nh,hp)
+    y = y + p["D"].float()[:, None] * xhead
+    y = _gated_norm(y.reshape(B, 1, di), z, p["norm"], cfg.norm_eps)
+    return y.to(x.dtype) @ p["wout"], cache
+
+
+def ssd_reference(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Sequential-recurrence oracle (token by token) for tests."""
+    B, S, D = x.shape
+    cache = ssm_init_cache(cfg, B, x.dtype, x.device)
+    outs = []
+    for t in range(S):
+        o, cache = ssm_decode(p, cfg, x[:, t:t + 1], cache)
+        outs.append(o)
+    return torch.cat(outs, dim=1)

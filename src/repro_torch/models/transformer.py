@@ -1,6 +1,7 @@
 """Layer stacks (port of ``repro.models.transformer``): dense and
-mixture-of-experts blocks with GQA or MLA attention, and the leading
-dense stack (``first_k_dense``) in front of the main one.
+mixture-of-experts blocks with GQA or MLA attention, the leading dense
+stack (``first_k_dense``) in front of the main one, the attention-free
+Mamba2 stack and Jamba's hybrid periods.
 
 The reference scans over layers with parameters stacked on a leading
 'layers' axis; the port keeps that layout (so parameters carry across
@@ -8,29 +9,27 @@ The reference scans over layers with parameters stacked on a leading
 Remat is a training concern and waits for the training slice.  The
 reference's ``constrain`` calls (``distributed/context.py``) are sharding
 hints with no effect on one card and are left out, as is its
-sequence-parallel attention branch.  SSM, hybrid and encoder-decoder
-stacks wait for their slices.
+sequence-parallel attention branch.  Encoder-decoder and VLM stacks
+wait for their slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_spec, \
     norm_spec
 from repro_torch.models.param import stacked
 
 
-def _refuse_ssm_and_encoder_stacks(cfg: ArchConfig) -> None:
-    """Raise, naming the ROADMAP item, for a stack the port lacks: SSM and
-    hybrid (item 10d), encoder-decoder and VLM (item 10e)."""
-    if cfg.family in ("ssm", "hybrid") or cfg.is_hybrid:
-        raise NotImplementedError("SSM and hybrid stacks are not ported yet "
-                                  "(ROADMAP queue 1 item 10d)")
+def _refuse_encoder_stacks(cfg: ArchConfig) -> None:
+    """Raise, naming the ROADMAP item, for a stack the port lacks:
+    encoder-decoder and VLM (item 10e)."""
     if cfg.is_encoder_decoder or cfg.num_prefix_tokens:
         raise NotImplementedError("encoder-decoder and VLM stacks are not "
                                   "ported yet (ROADMAP queue 1 item 10e)")
@@ -40,6 +39,12 @@ def layer(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def depth(tree) -> int:
+    """The leading (layers) extent of a stacked parameter tree."""
+    v = next(iter(tree.values()))
+    return depth(v) if isinstance(v, dict) else v.shape[0]
 
 
 # ------------------------------------------------------------------ blocks
@@ -72,13 +77,42 @@ def apply_attn_block(p, cfg: ArchConfig, x: torch.Tensor,
     return x + h, aux
 
 
+def ffn_residual(p, cfg: ArchConfig, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN half of a block: (x + FFN(norm(x)), the router's aux loss),
+    a MoE where the block's FFN has a router; a dense FFN's aux is None
+    (no device op for a zero)."""
+    h = apply_norm(p["ln2"], x, cfg.norm_eps)
+    if "router" in p["ffn"]:
+        h, aux = moe_lib.apply_moe(p["ffn"], cfg, h)
+    else:
+        h, aux = apply_mlp(p["ffn"], h, cfg.act), None
+    return x + h, aux
+
+
+def ssm_block_spec(cfg: ArchConfig) -> Dict:
+    return {"ln": norm_spec(cfg), "ssm": ssm_lib.ssm_spec(cfg)}
+
+
+def apply_ssm_block(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(p["ln"], x, cfg.norm_eps)
+    return x + ssm_lib.ssd_forward(p["ssm"], cfg, h)
+
+
 # --------------------------------------------------------- decoder stacks
 
 
 def decoder_spec(cfg: ArchConfig) -> Dict[str, Any]:
-    """Spec of the decoder stack: ``first_k_dense`` leading dense layers
-    (``dense_layers``) of a MoE arch, then the main ``layers``."""
-    _refuse_ssm_and_encoder_stacks(cfg)
+    """Spec of the decoder stack: SSM blocks (``family == "ssm"``), Jamba
+    periods of ``attn_period`` sublayers (hybrid), or ``first_k_dense``
+    leading dense layers (``dense_layers``) of a MoE arch, then the main
+    ``layers``."""
+    _refuse_encoder_stacks(cfg)
+    if cfg.family == "ssm":
+        return {"layers": stacked(ssm_block_spec(cfg), cfg.num_layers)}
+    if cfg.is_hybrid:
+        return {"layers": stacked(_jamba_block_spec(cfg),
+                                  cfg.num_layers // cfg.attn_period)}
     spec: Dict[str, Any] = {}
     n_dense = cfg.first_k_dense if cfg.uses_moe else 0
     if n_dense:
@@ -95,15 +129,67 @@ def apply_decoder(p, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor,
                   prefix_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden, aux_loss_sum): the dense stack, then the main
-    stack, each a loop over its stacked layers; the aux losses summed in
-    layer order (0 without MoE)."""
+    stack, each a loop over its stacked layers (periods for a hybrid); the
+    aux losses summed in layer order (0 without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stack = p["layers"]
+    if cfg.family == "ssm":
+        for i in range(depth(stack)):
+            x = apply_ssm_block(layer(stack, i), cfg, x)
+        return x, aux
+    if cfg.is_hybrid:
+        for i in range(depth(stack)):
+            x, a = _apply_jamba_block(layer(stack, i), cfg, x, positions)
+            aux = aux + a
+        return x, aux
     for name, use_moe in (("dense_layers", False), ("layers", cfg.uses_moe)):
         if name not in p:
             continue
         stack = p[name]
-        for i in range(len(stack["ln1"]["scale"])):     # the stack's depth
+        for i in range(depth(stack)):
             x, a = apply_attn_block(layer(stack, i), cfg, x, positions,
                                     use_moe, prefix_len=prefix_len)
+            aux = aux + a
+    return x, aux
+
+
+# ------------------------------------------------------------- Jamba block
+
+
+def _jamba_block_spec(cfg: ArchConfig) -> Dict:
+    """One period of cfg.attn_period sublayers: attention at period//2,
+    SSM elsewhere; MoE FFN on the sublayers i % moe_period ==
+    moe_period - 1."""
+    spec = {}
+    for i in range(cfg.attn_period):
+        is_attn = i == cfg.attn_period // 2
+        is_moe = bool(cfg.moe_period) and \
+            i % cfg.moe_period == cfg.moe_period - 1
+        if is_attn:
+            sub = {"ln1": norm_spec(cfg), "attn": attn.gqa_spec(cfg)}
+        else:
+            sub = {"ln1": norm_spec(cfg), "ssm": ssm_lib.ssm_spec(cfg)}
+        sub["ln2"] = norm_spec(cfg)
+        sub["ffn"] = (moe_lib.moe_spec(cfg) if is_moe
+                      else mlp_spec(cfg, cfg.d_ff))
+        spec[f"sub{i}"] = sub
+    return spec
+
+
+def _apply_jamba_block(p, cfg: ArchConfig, x: torch.Tensor,
+                       positions: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One period, sublayer by sublayer; the MoE aux losses summed in
+    sublayer order."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.attn_period):
+        sub = p[f"sub{i}"]
+        h = apply_norm(sub["ln1"], x, cfg.norm_eps)
+        if "attn" in sub:
+            h = attn.gqa_forward(sub["attn"], cfg, h, positions, causal=True)
+        else:
+            h = ssm_lib.ssd_forward(sub["ssm"], cfg, h)
+        x, a = ffn_residual(sub, cfg, x + h)
+        if a is not None:
             aux = aux + a
     return x, aux

@@ -888,6 +888,83 @@ def test_moe_layer_on_the_card(dev, K):
                                atol=2e-4)
 
 
+# ------------------------------------------------- SSM and hybrid stacks
+
+
+@pytest.mark.parametrize("S", [64, 96])
+def test_ssm_layer_on_the_card_equals_the_cpu(dev, S):
+    """mamba2-smoke's SSD layer in float32, the same seeded parameters and
+    inputs on the card and on the CPU: ``ssd_forward`` over 2 and 3
+    chunks, then 16 ``ssm_decode`` steps (outputs and both caches), 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.param import init_params
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").smoke(),
+                              param_dtype="float32")
+    cpu = init_params(ssm.ssm_spec(cfg), torch.Generator().manual_seed(0),
+                      torch.float32, "cpu")
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    x = torch.randn((2, S, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    torch.testing.assert_close(ssm.ssd_forward(card, cfg, x.to(dev)).cpu(),
+                               ssm.ssd_forward(cpu, cfg, x), rtol=1e-5,
+                               atol=1e-5)
+    c_cpu = ssm.ssm_init_cache(cfg, 2, torch.float32, "cpu")
+    c_card = ssm.ssm_init_cache(cfg, 2, torch.float32, dev)
+    for t in range(16):
+        want, c_cpu = ssm.ssm_decode(cpu, cfg, x[:, t:t + 1], c_cpu)
+        got, c_card = ssm.ssm_decode(card, cfg, x[:, t:t + 1].to(dev),
+                                     c_card)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for k in ("state", "conv"):
+        torch.testing.assert_close(c_card[k].cpu(), c_cpu[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_ssm_hybrid_prefill_goes_through_the_kernel(dev):
+    """jamba-smoke cut to one period of 4 and widened to head_dim 128 (the
+    smoke head_dim of 32 is no flash shape), float32 at capacity 8.0:
+    prefill on the card launches the (128, 128) kernel once per period,
+    agrees with the CPU's prefill and with 64 decode steps on the card
+    (2e-3, the reference's bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").smoke(),
+                              num_layers=4, attn_period=4, head_dim=128,
+                              param_dtype="float32", capacity_factor=8.0)
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    model = Model(cfg, device=dev).load_params(cpu.params)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (1, 64)))
+    before = attention.launches
+    full = model.prefill_logits({"tokens": toks.to(dev)})
+    assert attention.launches == before + 1
+    torch.testing.assert_close(full.cpu(), cpu.prefill_logits(
+        {"tokens": toks}), rtol=2e-3, atol=2e-3)
+    cache = model.init_cache(1, 64)
+    for t in range(64):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1].to(dev))
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_ssm_greedy_tokens_on_the_card_equal_the_cpus(dev, arch):
+    """mamba2-smoke and jamba-smoke in float32, the same seeded parameters
+    on the card and on the CPU: ``generate_batch`` gives the same greedy
+    tokens (decode steps only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_config(arch).smoke(), param_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    card = Model(cfg, device=dev).load_params(cpu.params)
+    prompts = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (4, 10)).astype(np.int32)
+    want = ServingEngine(cpu, cache_len=32).generate_batch(prompts, 8)
+    got = ServingEngine(card, cache_len=32).generate_batch(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+
+
 # ------------------------------------------- the batched LP engine (lp_batch)
 
 

@@ -144,13 +144,13 @@ def test_init_follows_the_reference_rules():
 
 def test_unported_archs_name_their_roadmap_item():
     """The archs still pending raise naming their ROADMAP item (MLA's
-    deepseek is ported: ``tests/test_torch_mla.py``)."""
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2-1.3b")
-    with pytest.raises(KeyError, match=r"item 10d \(SSM/hybrid\)"):
-        get_config("jamba-1.5-large-398b-smoke")
-    with pytest.raises(KeyError, match=r"item 10e"):
-        get_config("whisper-base")
+    deepseek is ported: ``tests/test_torch_mla.py``; mamba2 and jamba:
+    ``tests/test_torch_ssm.py``)."""
+    assert get_config("mamba2-1.3b").family == "ssm"
+    assert get_config("jamba-1.5-large-398b-smoke").attn_period == 2
+    for arch in ("whisper-base", "paligemma-3b-smoke"):
+        with pytest.raises(KeyError, match=r"item 10e"):
+            get_config(arch)
     assert get_config("deepseek-v3-671b-smoke").attention == "mla"
     assert get_config("mixtral-8x22b").num_experts == 8
     assert get_config("mixtral-8x22b-smoke").num_experts == 4
