@@ -283,6 +283,40 @@ The SSM slice (the deepseek models are freed first):
     prefill logits at S = 512 (the float32 flash kernel at (128, 128))
     against 512 ``decode_step``s (2e-3).
 
+The encoder-decoder and VLM slice (each model uncut, bf16, random init
+from a seeded ``torch.Generator``; the stub frontends' frame and patch
+embeddings drawn from a seeded generator):
+
+34. encdec prefill: whisper-base (6 encoder and 6 decoder layers, 97.27e6
+    parameters), ``Model.prefill_logits`` on B = 16 clips of 1,500 frames
+    and 448 text tokens with every launch count read around it (exactly
+    18 flash launches: 6 encoder calls, full, 1,500 queries over the
+    reference's 2,048 keys, the last 548 its zero padding; 6 causal self
+    and 6 cross calls, 448 queries over 448 and over 2,048 keys), first
+    and warm walls, tokens/s, peak memory, then profiled;
+35. encdec flash: the first encoder, decoder self and cross calls held
+    against the plain version (the one-ulp bar) and timed beside
+    ``scaled_dot_product_attention`` on the same (padded) K and V, with
+    the backend that ran it, and their bounds;
+36. encdec agreement: a float32 copy, B = 1, 64 tokens: prefill logits
+    against ``prefill_with_cache`` and decode steps within 2e-3 at 1,024
+    frames; the same difference at 1,500 frames printed, not checked (the
+    reference's parallel path attends its padded keys, its step path
+    does not);
+37. encdec serve: phase 13 on whisper with 8 requests (the cross cache the
+    zeros of ``init_cache``, as in the reference's engine);
+38. vlm prefill: paligemma-3b (18 layers, 1.905e9 parameters),
+    ``Model.prefill_logits`` on B = 8 x (256 patches + 768 tokens), 18
+    flash launches, each prefix-LM at (256, 256); the readings of 34;
+39. vlm flash: the first prefix-LM call held to the one-ulp bar and timed
+    beside SDPA with the boolean prefix-LM mask and beside causal SDPA
+    of the same shape;
+40. vlm agreement: a float32 paligemma cut to its first 2 layers, B = 1 x
+    (256 + 256): prefill logits through the float32 kernel at (256, 256)
+    against the same model with the plain attention on the card (2e-3);
+41. vlm serve: phase 13 on paligemma with 8 requests (decode sees no
+    prefix, as in the reference).
+
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without CUDA, or without the
@@ -3150,14 +3184,16 @@ def phase_sketchrefine(rows: int = SR_ROWS, device="cuda"):
 
 def ptxas_entries(log: str) -> list:
     """One dict per kernel entry of an ``nvcc -Xptxas -v`` log: its name
-    (``flash_fwd_tc_kernel<192,128>``), registers, stack frame and spill
-    bytes; and the log's warnings under ``warning``."""
+    (``flash_fwd_tc_kernel<192,128,false>``: q/k and v head_dim, whether
+    it takes a prefix), registers, stack frame and spill bytes; and the
+    log's warnings under ``warning``."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)ILi(\d+)ELi(\d+)E", line)
+                      r"'_Z\d+(\w+?)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", line)
         if m:
-            cur = {"kernel": f"{m[1]}<{m[2]},{m[3]}>"}
+            flag = {"0": ",false", "1": ",true", None: ""}[m[4]]
+            cur = {"kernel": f"{m[1]}<{m[2]},{m[3]}{flag}>"}
             out.append(cur)
         elif "warning" in line.lower():
             out.append({"warning": line.strip()})
@@ -3185,19 +3221,23 @@ def ptxas_report(build) -> None:
         if "warning" in e:
             say("ptxas flash_attn warning", text=json.dumps(e["warning"]))
             continue
-        hd, hdv = map(int, e["kernel"].split("<")[1].rstrip(">").split(","))
+        hd, hdv = map(int, e["kernel"].split("<")[1].split(",")[:2])
         bf16 = e["kernel"].startswith("flash_fwd_tc_kernel")
         say("ptxas flash_attn", **e, dtype="bfloat16" if bf16 else "float32",
             dynamic_smem_bytes=lib.flash_attn_smem_bytes(hd, hdv, int(bf16)))
 
 
-def flash_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps, per batch row and head."""
+def flash_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                prefix: int = 0) -> int:
+    """(query, key) pairs the mask keeps, per batch row and head: every
+    pair of a full call, else query i's keys below ``prefix`` and its
+    causal keys lo..i (lo = i - window + 1 with a window)."""
     if not causal:
-        return S * S
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+        return Sq * Sk
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    pf = min(max(prefix, 0), Sk)
+    return int((pf + np.maximum(0, i + 1 - np.maximum(lo, pf))).sum())
 
 
 def flash_agreement(got, want) -> tuple:
@@ -3232,10 +3272,11 @@ def flash_plain(q, k, v, **kw):
     import torch
     from repro_torch.kernels.attention import (PLAIN_CHUNK,
                                                flash_attention_plain)
-    B, S, H, _ = q.shape
+    B, Sq, H, _ = q.shape
     KV = k.shape[2]
     g = H // KV
-    step = max(1, PLAIN_BLOCK_BYTES // (B * S * g * min(S, PLAIN_CHUNK) * 4))
+    step = max(1, PLAIN_BLOCK_BYTES
+               // (B * Sq * g * min(k.shape[1], PLAIN_CHUNK) * 4))
     if step >= KV:
         return flash_attention_plain(q, k, v, **kw)
     return torch.cat([flash_attention_plain(
@@ -3243,44 +3284,49 @@ def flash_plain(q, k, v, **kw):
         v[:, :, h:h + step], **kw) for h in range(0, KV, step)], dim=2)
 
 
-def flash_check(q, k, v, *, causal=True, window=0, scale=None) -> tuple:
+def flash_check(q, k, v, *, causal=True, window=0, scale=None,
+                prefix=0) -> tuple:
     """Kernel vs plain flash attention on (q, k, v): (max abs error, max
     error over its limit, relative norm error); fails beyond the bars of
     ``flash_agreement`` or on a non-finite output."""
     import torch
     from repro_torch.kernels.ops import flash_attention_op
     got = flash_attention_op(q, k, v, causal=causal, window=window,
-                             scale=scale)
-    want = flash_plain(q, k, v, causal=causal, window=window, scale=scale)
+                             scale=scale, prefix=prefix)
+    want = flash_plain(q, k, v, causal=causal, window=window, scale=scale,
+                       prefix=prefix)
     check(bool(torch.isfinite(got).all()), "flash_attention: non-finite "
                                            "output")
     err, over, rel, ok = flash_agreement(got, want)
     check(ok, f"flash_attention disagrees with its plain version at "
               f"{tuple(q.shape)} v {tuple(v.shape)} {q.dtype} "
-              f"window={window} (max abs err {err}, {over} of its limit, "
+              f"causal={causal} window={window} prefix={prefix} "
+              f"(max abs err {err}, {over} of its limit, "
               f"relative norm {rel})")
     return err, over, rel
 
 
-def sdpa_call(q, k, v, *, causal, window, scale=None):
+def sdpa_call(q, k, v, *, causal, window, scale=None, prefix=0):
     """The library yardstick: one ``scaled_dot_product_attention`` call on
     the same inputs (heads-first views), and the name of the backend that
-    runs it.  The window needs an explicit mask, and with a mask the call
-    is pinned to the memory-efficient backend over K/V expanded to every
-    head (expanded outside the timed call): the math backend would hold
-    (H, S, S) scores.  So would it for v's head_dim other than q's (MLA),
-    where the flash backend refuses: that call may take any fused
-    backend, never math."""
+    runs it.  A window or a prefix needs an explicit mask, and with a mask
+    the call is pinned to the memory-efficient backend over K/V expanded
+    to every head (expanded outside the timed call): the math backend
+    would hold (H, S, S) scores.  So would it for v's head_dim other than
+    q's (MLA), where the flash backend refuses: that call may take any
+    fused backend, never math."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kw = dict(is_causal=causal, scale=scale)
     backends = None
-    if window > 0:
+    if window > 0 or prefix > 0:
         i = torch.arange(q.shape[1], device=q.device)
-        kw = dict(attn_mask=(i[:, None] >= i[None, :])
-                  & (i[:, None] - i[None, :] < window), scale=scale)
+        allowed = i[:, None] >= i[None, :]
+        if window > 0:
+            allowed = allowed & (i[:, None] - i[None, :] < window)
+        kw = dict(attn_mask=allowed | (i[None, :] < prefix), scale=scale)
         rep = q.shape[2] // k.shape[2]
         kt, vt = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
         backends = [SDPBackend.EFFICIENT_ATTENTION]
@@ -3309,33 +3355,48 @@ def sdpa_call(q, k, v, *, causal, window, scale=None):
     return call, backend
 
 
-def flash_times(q, k, v, *, causal=True, window=0, scale=None,
-                reps=3) -> dict:
+def sdpa_ms(q, k, v, reps: int = 3, **kw):
+    """(ms, note): the library call's time and its backend, or None and
+    why it failed (the yardstick only: noted, not hidden)."""
+    try:
+        call, backend = sdpa_call(q, k, v, **kw)
+        return timed_ms(call, reps), \
+            f"scaled_dot_product_attention ({backend})"
+    except RuntimeError as exc:
+        return None, f"scaled_dot_product_attention failed: {exc}"[:200]
+
+
+def flash_times(q, k, v, *, causal=True, window=0, scale=None, prefix=0,
+                reps=3, keys=None) -> dict:
+    """The kernel's, the plain version's and the library's times on these
+    inputs, with the bound of the useful work: ``keys`` (default all of
+    Sk) are the keys the caller gave, ahead of the reference's zero keys
+    that pad a full call; the padded keys are read and attended, but are
+    not counted in the bound's bytes or FLOP."""
     from repro_torch.kernels.ops import flash_attention_op
-    B, S, H, d = q.shape
-    KV, dv = k.shape[2], v.shape[3]
+    B, Sq, H, d = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    given = Sk if keys is None else keys
     dt = str(q.dtype).split(".")[-1]
-    nbytes = (B * S * H * (d + dv) + B * S * KV * (d + dv)) \
+    nbytes = (B * Sq * H * (d + dv) + B * given * KV * (d + dv)) \
         * q.element_size()
     # the useful FLOP: 2 (d + dv) a (query, key) pair the mask keeps
-    ops = 2 * (d + dv) * flash_pairs(S, causal, window) * B * H
-    lib, lib_note = None, "scaled_dot_product_attention"
-    try:
-        call, backend = sdpa_call(q, k, v, causal=causal, window=window,
-                                  scale=scale)
-        lib_note += f" ({backend})"
-        lib = timed_ms(call, reps)
-    except RuntimeError as exc:      # the yardstick only: noted, not hidden
-        lib_note = f"scaled_dot_product_attention failed: {exc}"[:200]
+    ops = 2 * (d + dv) * flash_pairs(Sq, given, causal, window, prefix) \
+        * B * H
+    lib, lib_note = sdpa_ms(q, k, v, reps, causal=causal, window=window,
+                            scale=scale, prefix=prefix)
     ms = timed_ms(lambda: flash_attention_op(q, k, v, causal=causal,
-                                             window=window, scale=scale),
-                  reps)
+                                             window=window, scale=scale,
+                                             prefix=prefix), reps)
+    seq = (f"S={Sq}" if Sq == Sk else f"Sq={Sq} Sk={Sk}") \
+        + (f" ({given} given)" if given != Sk else "")
     return _numbers(
-        f"B={B} S={S} H={H} KV={KV} d={d} dv={dv} {dt} "
-        f"{'causal' if causal else 'full'} window={window}",
+        f"B={B} {seq} H={H} KV={KV} d={d} dv={dv} {dt} "
+        f"{'causal' if causal else 'full'} window={window}"
+        + (f" prefix={prefix}" if prefix else ""),
         nbytes, ops, ms,
         timed_ms(lambda: flash_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale), 1),
+                                     scale=scale, prefix=prefix), 1),
         lib, peak=PEAK_OPS[dt], library=lib_note,
         tflops=ops / ms / 1e9,
         vs_library=ms / lib if lib else None)
@@ -3388,11 +3449,14 @@ def lm_model(dev):
 
 def flash_layers(cfg) -> int:
     """The flash launches of one prefill: one an attention layer, so one a
-    hybrid period and none in an SSM stack."""
+    hybrid period, none in an SSM stack, and for an encoder-decoder one an
+    encoder layer and two a decoder layer (self, cross)."""
     if cfg.family == "ssm":
         return 0
     if cfg.is_hybrid:
         return cfg.num_layers // cfg.attn_period
+    if cfg.is_encoder_decoder:
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
 
 
@@ -3402,12 +3466,22 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096,
     after one ``prefill_logits`` (one flash launch an attention layer,
     ``flash_layers``); then a warm run and a profiled run."""
     import torch
-    from repro_torch import kernels
-    cfg = model.cfg
     g = torch.Generator(device=model.device).manual_seed(1)
-    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+    toks = torch.randint(1, model.cfg.vocab_size, (B, S), generator=g,
                          device=model.device)
     batch = {"tokens": toks}
+    return prefill_readings(model, batch, label), batch
+
+
+def prefill_readings(model, batch, label: str, **extra) -> dict:
+    """One ``prefill_logits`` on ``batch`` with the launch counts reset
+    just before and read just after (``flash_layers`` flash launches),
+    then a warm run and a profiled run; the counts.  S is the positions
+    the decoder runs (a VLM's prefix included)."""
+    import torch
+    from repro_torch import kernels
+    cfg = model.cfg
+    B = batch["tokens"].shape[0]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -3415,6 +3489,7 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096,
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    S = batch["tokens"].shape[1] + cfg.num_prefix_tokens
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
           and logits.dtype == torch.float32, f"{label}: logits shape")
     check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
@@ -3427,7 +3502,7 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096,
     model.prefill_logits(batch)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    say(label, B=B, S=S, wall_ms_first=first * 1e3,
+    say(label, B=B, S=S, **extra, wall_ms_first=first * 1e3,
         wall_ms=warm * 1e3, tokens_per_s=B * S / warm,
         launches=json.dumps(counts), peak_mem_gib=peak / 2**30)
     busy_ms, ops, reads, ours, top = device_profile(
@@ -3436,7 +3511,7 @@ def phase_lm_prefill(model, B: int = 2, S: int = 4096,
         idle_share=1.0 - busy_ms / 1e3 / warm, device_ops=ops,
         device_to_host=reads,
         kernels=json.dumps(ours), top=json.dumps(top))
-    return counts, batch
+    return counts
 
 
 def first_layers(params, n: int):
@@ -3494,10 +3569,13 @@ def prefill_decode_agreement(m32, S: int, tol: float, label: str) -> float:
     return worst
 
 
-def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None):
-    """16 requests (prompts of 64-256 tokens, 16-64 new), max_batch 8,
-    cache_len 1024, an HBM budget of 0.05 x the card's memory; ``ticks``
-    admission ticks, by default as many as answer every request."""
+def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None,
+               prompt=(64, 257), new=(16, 65)):
+    """``requests`` requests (prompts of ``prompt`` tokens, 64-256 by
+    default, and ``new`` new ones, 16-64; both [lo, hi) ranges; 16
+    requests by default), max_batch 8, cache_len 1024, an HBM budget of
+    0.05 x the card's memory; ``ticks`` admission ticks, by default as
+    many as answer every request."""
     import torch
     from repro_torch.serving import PackageScheduler, Request, ServingEngine
     cfg = model.cfg
@@ -3506,7 +3584,7 @@ def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None):
                              flop_budget=5e13, max_batch=8,
                              device=model.device)
     rng = np.random.default_rng(seed)
-    reqs = [Request(rid, int(rng.integers(64, 257)), int(rng.integers(16, 65)),
+    reqs = [Request(rid, int(rng.integers(*prompt)), int(rng.integers(*new)),
                     float(rng.uniform(0.1, 1.0))) for rid in range(requests)]
     for r in reqs:
         sched.submit(r)
@@ -3530,13 +3608,19 @@ def cpu_admissions(model, reqs, ticks: int) -> list:
     return [[r.rid for r in sched.tick()] for _ in range(ticks)]
 
 
-def phase_lm_serve(model, label: str = "lm serve"):
+def phase_lm_serve(model, label: str = "lm serve", requests: int = 16,
+                   **lengths):
+    """``serve_once`` (``lengths``: its ``prompt`` and ``new`` ranges)
+    with its admissions held to a CPU scheduler's, every request answered,
+    its first tick rerun identically, then a short profiled batch."""
     from repro_torch import kernels
     from repro_torch.core import guard
     cfg = model.cfg
     kernels.reset_launches()
     with capturing_flights() as flights:
-        reqs, done, engine, sched, wall = serve_once(model)
+        reqs, done, engine, sched, wall = serve_once(model,
+                                                     requests=requests,
+                                                     **lengths)
     counts = kernels.launch_counts()
     per_tick, at = [], 0
     for t in engine.tick_log:
@@ -3568,7 +3652,8 @@ def phase_lm_serve(model, label: str = "lm serve"):
     # determinism: the first tick again from the same seed (its admission
     # and its batch's tokens) proves what a whole second run would, at
     # half its cost
-    _, again, _, _, again_s = serve_once(model, ticks=1)
+    _, again, _, _, again_s = serve_once(model, requests=requests, ticks=1,
+                                         **lengths)
     first = [(g.rid, g.tokens) for g in done[:engine.tick_log[0].admitted]]
     check([(g.rid, g.tokens) for g in again] == first,
           f"{label}: tick 0 rerun with the same seed gave other admissions "
@@ -4022,6 +4107,258 @@ def hybrid_phases(phase, dev):
     return counts, flash, serve
 
 
+# ------------------- the encoder-decoder and VLM slice: whisper, paligemma
+
+ENCDEC_ARCH = "whisper-base"      # uncut: 6 + 6 layers, 97.27e6 parameters
+# 16 clips of 30 s (the stub's 1,500 frames each) and 448 text tokens,
+# Whisper's text context: the encoder's 6 calls attend 1,500 queries over
+# 2,048 keys (the reference's chunk of 1,024, the last padded), the
+# decoder's 6 causal self calls 448 over 448 and its 6 cross calls 448
+# over 2,048
+ENCDEC_PREFILL = dict(B=16, T=448)
+ENCDEC_AGREEMENT = dict(T=64, frames=(1024, 1500))
+VLM_ARCH = "paligemma-3b"         # uncut: 18 layers, 1.905e9 parameters
+VLM_PREFILL = dict(B=8, T=768)    # 256 stub patches + 768 text tokens
+# phase "vlm agreement": a float32 paligemma cut to 2 layers, 1 x (256 +
+# 256)
+VLM_AGREEMENT = dict(num_layers=2, T=256)
+# phases "encdec serve" and "vlm serve": 8 requests, prompts of 16-64
+# tokens and 8-32 new (a tick decodes as many steps as its longest prompt
+# and answer need, under 100 here against 285 at the lm serve's lengths)
+SLICE_SERVE = dict(requests=8, prompt=(16, 65), new=(8, 33))
+AGREEMENT_TOL = 2e-3              # the reference's prefill-vs-decode bar
+
+
+def stub_batch(model, B: int, T: int, seed: int = 1, frames=None) -> dict:
+    """T seeded tokens a row, and the stub frontend's embeddings drawn from
+    the same generator in the model's dtype: ``frames`` (default the
+    config's ``encoder_seq_len``) frames for an encoder-decoder,
+    ``num_prefix_tokens`` patches for a VLM."""
+    import torch
+    cfg, dev = model.cfg, model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, T), generator=g,
+                                     device=dev)}
+    if cfg.is_encoder_decoder:
+        batch["enc_inputs"] = torch.randn(
+            (B, frames or cfg.encoder_seq_len, cfg.d_model), generator=g,
+            device=dev).to(model.dtype)
+    if cfg.num_prefix_tokens:
+        batch["prefix"] = torch.randn(
+            (B, cfg.num_prefix_tokens, cfg.d_model), generator=g,
+            device=dev).to(model.dtype)
+    return batch
+
+
+def encdec_model(dev, arch: str, label: str):
+    """``arch`` uncut, bf16, random init from a seeded generator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    say(label, arch=arch, params=model.param_count(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0, layers=cfg.num_layers,
+        encoder_layers=cfg.num_encoder_layers,
+        encoder_frames=cfg.encoder_seq_len if cfg.is_encoder_decoder
+        else None, prefix_tokens=cfg.num_prefix_tokens,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, norm=cfg.norm,
+        act=cfg.act, vocab=cfg.padded_vocab,
+        param_gib=torch.cuda.memory_allocated() / 2**30)
+    return model
+
+
+def phase_slice_prefill(model, B: int, T: int, label: str):
+    """Phase "lm prefill" on an encoder-decoder or a VLM batch (the stub's
+    frames or patches beside T tokens a row): ``flash_layers`` launches."""
+    batch = stub_batch(model, B, T)
+    extra = {"frames": batch["enc_inputs"].shape[1]} \
+        if "enc_inputs" in batch else {"prefix_tokens":
+                                       model.cfg.num_prefix_tokens}
+    return prefill_readings(model, batch, label, **extra), batch
+
+
+def phase_picked_flash(model, batch, picks: dict, label: str) -> dict:
+    """The prefill's flash calls named in ``picks`` (name: index in launch
+    order) kept, each held against the plain version (the one-ulp bar)
+    and timed beside the plain scan and the library call on the same
+    inputs (a full call's K/V with the reference's padded keys; its bound
+    counts the encoder's frames alone).  Returns {name: (max abs error,
+    numbers)}."""
+    import torch
+    with capturing(("flash_attention",),
+                   limit=max(picks.values()) + 1) as calls:
+        model.prefill_logits(batch)
+    torch.cuda.synchronize()
+    kept = calls["flash_attention"]
+    out = {}
+    for name, i in picks.items():
+        a, kw = kept[i]
+        err, over, rel = flash_check(*a, **kw)
+        keys = batch["enc_inputs"].shape[1] \
+            if "enc_inputs" in batch and not kw.get("causal", True) else None
+        nums = flash_times(*a, **kw, keys=keys)
+        if kw.get("prefix"):
+            # the same shape causal, without the prefix: the fused
+            # backends' case
+            nums["causal_library_ms"], nums["causal_library"] = sdpa_ms(
+                *a, causal=True, window=0, scale=kw.get("scale"))
+        say(f"{label} {name}", call=i, max_abs_err=err, err_over_limit=over,
+            rel_norm_err=rel, **nums)
+        out[name] = (err, nums)
+    del calls, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_gap(full, steps, tol: float) -> tuple:
+    """(max abs difference, max difference over ``tol`` abs + ``tol``
+    rel) of step logits against the prefill's at the same positions."""
+    diff = (steps - full).abs()
+    return float(diff.max()), float((diff / (tol + tol * full.abs())).max())
+
+
+def phase_encdec_agreement(model, T: int = ENCDEC_AGREEMENT["T"],
+                           frames=ENCDEC_AGREEMENT["frames"],
+                           tol: float = AGREEMENT_TOL) -> float:
+    """A float32 copy of the model, B = 1, T tokens: prefill logits against
+    ``prefill_with_cache`` of the first token (the encoder's cross K/V in
+    the cache) and T - 1 decode steps.  Checked within ``tol`` at the
+    first frame count (no padded chunk: the reference's two paths agree);
+    at the others only printed: there the reference's parallel path
+    attends its padded keys and its step path does not."""
+    import dataclasses
+    import torch
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(model.cfg, param_dtype="float32")
+    m32 = Model(cfg, device=model.device).load_params(model.params)
+    worst = 0.0
+    for n in frames:
+        batch = stub_batch(m32, 1, T, seed=2, frames=n)
+        full = m32.prefill_logits(batch)
+        first, cache = m32.prefill_with_cache(
+            {**batch, "tokens": batch["tokens"][:, :1]}, T)
+        steps = [first]
+        for t in range(1, T):
+            logits, cache = m32.decode_step(cache,
+                                            batch["tokens"][:, t:t + 1])
+            steps.append(logits)
+        err, over = logits_gap(full[0], torch.stack(steps, 1)[0], tol)
+        checked = n == frames[0]
+        say("encdec agreement", dtype="float32", frames=n, T=T,
+            max_abs_err=err, max_err_over_bar=over,
+            logits_absmax=float(full.abs().max()),
+            checked=checked, padded_keys=(-n) % 1024 if n > 1024 else 0)
+        if checked:
+            check(over <= 1.0, f"encdec agreement: prefill and decode "
+                               f"differ by {err} at {n} frames (bar {tol} "
+                               f"abs + {tol} rel)")
+            worst = err
+    del m32
+    torch.cuda.empty_cache()
+    return worst
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's flash calls run the kernel's plain version on the card
+    (``flash_plain``) inside the block."""
+    from repro_torch.models import attention as attn
+    saved = attn.flash_attention_op
+    attn.flash_attention_op = flash_plain
+    try:
+        yield
+    finally:
+        attn.flash_attention_op = saved
+
+
+def phase_vlm_agreement(model, changes=VLM_AGREEMENT,
+                        tol: float = AGREEMENT_TOL) -> float:
+    """A float32 copy of the model cut to its first layers, B = 1 x (256
+    patches + T tokens): prefill logits through the float32 kernel at
+    (256, 256) with the prefix against the same model with the plain
+    attention on the card, within ``tol``.  (Prefill against decode does
+    not apply: the reference's decode path has no prefix.)"""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import Model
+    T = changes["T"]
+    cfg = dataclasses.replace(model.cfg, param_dtype="float32",
+                              num_layers=changes["num_layers"])
+    m32 = Model(cfg, device=model.device).load_params(
+        first_layers(model.params, cfg.num_layers))
+    batch = stub_batch(m32, 1, T, seed=2)
+    kernels.reset_launches()
+    got = m32.prefill_logits(batch)
+    launches = kernels.launch_counts()["flash_attention"]
+    with plain_attention():
+        want = m32.prefill_logits(batch)
+    err, over = logits_gap(want, got, tol)
+    say("vlm agreement", dtype="float32", layers=cfg.num_layers,
+        S=cfg.num_prefix_tokens + T, flash_launches=launches,
+        max_abs_err=err, max_err_over_bar=over,
+        logits_absmax=float(want.abs().max()))
+    check(launches == cfg.num_layers, f"vlm agreement: {launches} flash "
+                                      "launches")
+    check(over <= 1.0, f"vlm agreement: the kernel's and the plain "
+                       f"version's logits differ by {err} (bar {tol} abs "
+                       f"+ {tol} rel)")
+    del m32, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def encdec_phases(phase, dev):
+    """Phases 34-37 on whisper-base uncut: "encdec prefill" (18 flash
+    launches), "encdec flash" (the first encoder, decoder self and cross
+    calls held and timed), "encdec agreement", "encdec serve".  Returns
+    (the prefill's launch counts, {call: (max abs error, numbers)}, the
+    serve phase's (lp_batch launches, max lane error))."""
+    import torch
+    model = phase("encdec model", encdec_model, dev, ENCDEC_ARCH,
+                  "encdec model")
+    counts, batch = phase("encdec prefill", phase_slice_prefill, model,
+                          ENCDEC_PREFILL["B"], ENCDEC_PREFILL["T"],
+                          "encdec prefill")
+    enc = model.cfg.num_encoder_layers
+    flash = phase("encdec flash", phase_picked_flash, model, batch,
+                  {"encoder": 0, "self": enc, "cross": enc + 1},
+                  "encdec flash")
+    del batch
+    phase("encdec agreement", phase_encdec_agreement, model)
+    serve = phase("encdec serve", lambda: phase_lm_serve(
+        model, "encdec serve", **SLICE_SERVE))
+    del model
+    torch.cuda.empty_cache()
+    return counts, flash, serve
+
+
+def vlm_phases(phase, dev):
+    """Phases 38-41 on paligemma-3b uncut: "vlm prefill" (18 flash
+    launches, prefix-LM at (256, 256)), "vlm flash" (the first call held
+    and timed), "vlm agreement", "vlm serve".  Returns as
+    ``encdec_phases``."""
+    import torch
+    model = phase("vlm model", encdec_model, dev, VLM_ARCH, "vlm model")
+    counts, batch = phase("vlm prefill", phase_slice_prefill, model,
+                          VLM_PREFILL["B"], VLM_PREFILL["T"], "vlm prefill")
+    flash = phase("vlm flash", phase_picked_flash, model, batch,
+                  {"prefix": 0}, "vlm flash")
+    del batch
+    torch.cuda.empty_cache()
+    phase("vlm agreement", phase_vlm_agreement, model)
+    serve = phase("vlm serve", lambda: phase_lm_serve(
+        model, "vlm serve", **SLICE_SERVE))
+    del model
+    torch.cuda.empty_cache()
+    return counts, flash, serve
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4332,26 +4669,33 @@ def main() -> None:
     mla_counts, mla_main, mla_serve_lp = mla_phases(phase, dev)
     ssm_counts, ssm_serve_lp = ssm_phases(phase, dev)
     hybrid_counts, hybrid_flash, hybrid_serve_lp = hybrid_phases(phase, dev)
+    encdec_counts, encdec_flash, encdec_serve_lp = encdec_phases(phase, dev)
+    vlm_counts, vlm_flash, vlm_serve_lp = vlm_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
-    # flash's main paths: the five prefills (mamba2's launches none),
+    # flash's main paths: the seven prefills (mamba2's launches none),
     # numbers at the largest call (MLA's, at (192, 128))
     prefills = {"lm prefill": lm_counts, "moe prefill": moe_counts,
                 "mla prefill": mla_counts, "ssm prefill": ssm_counts,
-                "hybrid prefill": hybrid_counts}
+                "hybrid prefill": hybrid_counts,
+                "encdec prefill": encdec_counts, "vlm prefill": vlm_counts}
     counts["flash_attention"] = sum(c["flash_attention"]
                                     for c in prefills.values())
-    main_nums["flash_attention"] = (max(lm_main[0], moe_main[0],
-                                        mla_main[0], hybrid_flash[0]),
-                                    mla_main[1])
+    slice_flash = {**{f"encdec_{k}_call": v for k, v in
+                      encdec_flash.items()},
+                   **{f"vlm_{k}_call": v for k, v in vlm_flash.items()}}
+    main_nums["flash_attention"] = (
+        max([lm_main[0], moe_main[0], mla_main[0], hybrid_flash[0]]
+            + [v[0] for v in slice_flash.values()]), mla_main[1])
 
     # the batched LP engine: its main path is phase "lp batch"'s B&B;
     # its launches on every other path that batches LP flights
     fixed["lp_batch"] = (lp["err"], lp["fixed"])
     serves = {"lm serve": serve_lp, "moe serve": moe_serve_lp,
               "mla serve": mla_serve_lp, "ssm serve": ssm_serve_lp,
-              "hybrid serve": hybrid_serve_lp}
+              "hybrid serve": hybrid_serve_lp,
+              "encdec serve": encdec_serve_lp, "vlm serve": vlm_serve_lp}
     main_nums["lp_batch"] = (max([lp["err"], parity_lp[1]]
                                  + [v[1] for v in serves.values()]),
                              lp["main"])
@@ -4391,9 +4735,12 @@ def main() -> None:
         if name == "flash_attention":
             from repro_torch.kernels.attention import HEAD_DIM_PAIRS
             extra.update(head_dim_pairs=[list(p) for p in HEAD_DIM_PAIRS],
+                         modes=["causal", "window", "full", "cross",
+                                "prefix"],
                          lm_prefill_largest_call=lm_main[1],
                          moe_prefill_largest_call=moe_main[1],
-                         hybrid_prefill_call=hybrid_flash[1])
+                         hybrid_prefill_call=hybrid_flash[1],
+                         **{k: v[1] for k, v in slice_flash.items()})
         if name in dist_nums:
             paths.update({p: n[name] for p, n in dist_counts.items()})
             err_m = max(err_m, dist_nums[name][0])

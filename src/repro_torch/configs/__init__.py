@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolves through here.
 
-The port registers the archs that its model stack runs today: the dense
-GQA ones (qwen2, danube, smollm and glm4), the GQA mixture of experts
+The port registers every arch of the reference's registry: the dense GQA
+ones (qwen2, danube, smollm and glm4), the GQA mixture of experts
 (mixtral), DeepSeek-V3 (MLA, a leading dense stack, shared and routed
-experts, the MTP head), the attention-free Mamba2 SSM stack (mamba2) and
-Jamba's hybrid of SSM, attention and MoE sublayers (jamba).  The other archs of the reference's registry join
-with the slices that port their families; asking for one raises
-``KeyError`` naming the ROADMAP item that brings it.
+experts, the MTP head), the attention-free Mamba2 SSM stack (mamba2),
+Jamba's hybrid of SSM, attention and MoE sublayers (jamba), Whisper's
+encoder-decoder (whisper) and PaliGemma's prefix-LM decoder (paligemma).
+An unknown arch raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -23,12 +23,8 @@ _ARCH_MODULES = {
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
-}
-
-# archs of the reference's registry whose family is not ported yet
-_PENDING = {
-    "whisper-base": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
-    "paligemma-3b": "ROADMAP queue 1 item 10e (encoder-decoder/VLM)",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -37,9 +33,6 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id.endswith("-smoke"):
         return get_config(arch_id[: -len("-smoke")]).smoke()
-    if arch_id in _PENDING:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: "
-                       f"{_PENDING[arch_id]}")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; "
                        f"known: {sorted(_ARCH_MODULES)}")

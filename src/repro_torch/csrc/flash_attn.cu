@@ -1,23 +1,32 @@
-// Flash attention for Hopper (sm_90a): causal / sliding-window / full
-// attention with an online softmax, forward only.
+// Flash attention for Hopper (sm_90a): causal / sliding-window / prefix-LM
+// / full attention, self or cross, with an online softmax, forward only.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention.py:32
 // (_flash_kernel) and the GQA expansion of repro/kernels/ops.py::
-// flash_attention_op, and serves MLA's prefill (the reference's
-// repro/models/attention.py::chunked_attention at q/k head_dim 192 and v
-// head_dim 128, scale 1/sqrt(192)).
+// flash_attention_op, and serves every full-sequence GQA and MLA call of
+// the reference's repro/models/attention.py::chunked_attention: MLA's
+// prefill (q/k head_dim 192, v head_dim 128, scale 1/sqrt(192)), an
+// encoder's full self-attention, a decoder's cross-attention over encoder
+// frames (Sq != Sk) and PaliGemma's prefix-LM mask at head_dim 256.
 //
 // out[b, i, h, :] = softmax_j(q_i . k_j * scale + mask_ij) . v_j, with the
 // softmax state (m, l, acc) in float32 and the output acc / max(l, 1e-30).
-// mask: causal (i >= j) with an optional window (i - j < window), or full
-// (window alone, or nothing).  scale is the caller's (1/sqrt(HDQK) by
-// default in the wrapper).  Layout: the model's own, q (B, S, H, HDQK),
-// k (B, S, KV, HDQK), v (B, S, KV, HDV) and o (B, S, H, HDV), read in
-// place; query head h reads KV head h / (H / KV).  Instantiated (HDQK, HDV)
-// pairs: (64, 64), (120, 120), (128, 128) and (192, 128).  Any S: ragged
-// tiles are masked.  KV tiles wholly above the diagonal or outside the
-// window are never visited, and the heaviest causal query tiles launch
-// first.  Two routes, by dtype:
+// mask (the reference's _mask): key j is attended when j < prefix, or when
+// the call is full, or when i >= j (causal) and, with a window, i - j <
+// window.  scale is the caller's (1/sqrt(HDQK) by default in the wrapper).
+// Layout: the model's own, q (B, Sq, H, HDQK), k (B, Sk, KV, HDQK), v (B,
+// Sk, KV, HDV) and o (B, Sq, H, HDV), read in place; query head h reads KV
+// head h / (H / KV); a causal call has Sq == Sk.  Instantiated (HDQK, HDV)
+// pairs: (64, 64), (120, 120), (128, 128), (192, 128) and (256, 256).  Any
+// Sq and Sk: ragged tiles are masked.  KV tiles that no row of a query
+// tile attends (above the diagonal and past the prefix, or outside the
+// window) are never visited, and the query tiles launch last first: the
+// heaviest under a causal mask, with a prefix or without (a tile's keys
+// are max(its end, prefix), which never falls as the tile moves on).  Each
+// kernel is instantiated with and without a prefix (PREFIX): a call
+// without one runs the mask and tile bounds it ran before prefix-LM was
+// added (one kernel for both ran the 32k causal call 3.5-5.6% slower on
+// the H100, with the same bits).  Two routes, by dtype:
 //
 // bfloat16: flash_fwd_tc_kernel, on the tensor cores.  Bound: at the
 // prefill shape (B=2, S=4,096, 12/2 heads, HD=128, causal) a launch does
@@ -26,7 +35,13 @@
 // 989 TFLOP/s bound it (0.104 ms), not memory; MLA's (192, 128) does 1.25x
 // the FLOP of (128, 128) a pair.  Design:
 //  - one block per (batch x head, 128-row query tile): two consumer
-//    warpgroups of 64 rows each and one producer warp (288 threads);
+//    warpgroups of 64 rows each and one producer warp (288 threads); at
+//    (256, 256) one consumer warpgroup, 64 rows and 160 threads (tc::Cfg):
+//    its 128 accumulator registers a thread, with the 64 of the scores and
+//    P, fit the 255 a thread of a 160-thread block, not the ~168 that
+//    ptxas grants 288 threads; FlashAttention-3's setmaxnreg split (a
+//    producer warpgroup handing registers to two consumers) would keep
+//    128 rows a block, at the cost of a third warpgroup's barriers;
 //  - the producer starts TMA loads (cp.async.bulk.tensor, 128-byte
 //    swizzle, one mbarrier per stage) of the Q tile once and of 64-key K
 //    and V tiles into a ring of STAGES stages, so the next tiles load while
@@ -35,7 +50,8 @@
 //    the V ring ceil(HDV/64): at (192, 128) 1,024 + 128 x (3 x 128 + 4 x 64
 //    x (3 + 2)) = 214,016 bytes (+ barriers) of the 232,448 a block may
 //    have.  V padded to 192 (a square (192, 192)) would need ~246 KB and
-//    a third more P . V work;
+//    a third more P . V work.  (256, 256) takes 2 stages and 64 query
+//    rows: 164,864 bytes (4 stages would be 328,704 at 128 rows);
 //  - S = q . k^T by wgmma (m64n64k16, both operands in shared memory; 4
 //    k-steps a column block, so 12 at HDQK = 192), f32 accumulation from
 //    the bf16 operands as they are; the f32 scores are then scaled.  The
@@ -48,8 +64,9 @@
 //    the A operand's) and V as the B operand in its own (keys x HDV) layout
 //    through the transpose bit: no transposed copy of V.  The accumulator
 //    is ceil(HDV/64) x 32 registers a thread (64 at HDV = 128, as at
-//    (128, 128)).  P is split in two bf16 parts, hi = bf16(p) and lo =
-//    bf16(p - hi), and both are multiplied into the same f32 accumulator:
+//    (128, 128); 128 at HDV = 256, one m64n256k16 a k-step).  P is split
+//    in two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), and both are
+//    multiplied into the same f32 accumulator:
 //    P rounded to bf16 alone (FlashAttention-2's choice) moves outputs
 //    near zero by ~20x the card check's bar (one bf16 ulp plus 1e-3 rms),
 //    hi + lo keeps p to ~2^-16.  The split costs 2 * HDV more FLOP a pair
@@ -57,7 +74,9 @@
 //    HDV) FLOP per pair only;
 //  - HD = 120 is zero-padded to 128 on the reduction side: the tensor maps'
 //    inner dimension is 120, so TMA fills columns 120..127 with zeros;
-//    stores are masked to HDV columns and to rows < S;
+//    stores are masked to HDV columns and to rows < Sq; q and k/v have a
+//    tensor map each, so TMA fills rows >= Sq and keys >= Sk with zeros
+//    and the mask drops those keys;
 //  - the output acc / max(l, 1e-30) is rounded to nearest even into bf16
 //    and stored from registers;
 //  - inside a warpgroup the softmax waits for Q . K^T and P . V waits for
@@ -96,13 +115,15 @@ constexpr size_t smem_floats() {
 // so the 16 threads reading 16 key rows hit 16 banks); each thread keeps a
 // 4 x 4 tile of scores and a 4 x HDV/16 tile of the accumulator.  P reuses
 // the K tile's shared memory: ~99 KB at HDQK = HDV = 128, two blocks per SM;
-// ~129 KB at (192, 128) (MLA), one block per SM.
-template <int HDQK, int HDV>
-__global__ void __launch_bounds__(THREADS, 2)
+// ~129 KB at (192, 128) (MLA) and 197,120 bytes at (256, 256) (PaliGemma),
+// one block per SM; at (256, 256) the 4 x 16 accumulator tile takes the
+// register budget of one block an SM.
+template <int HDQK, int HDV, bool PREFIX>
+__global__ void __launch_bounds__(THREADS, HDV > 128 ? 1 : 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int S, int H, int KV, int causal, int window,
-                     float scale, int n_qt) {
+                     int Sq, int Sk, int H, int KV, int causal, int window,
+                     int prefix, float scale, int n_qt) {
   constexpr int LD = HDQK + 1;          // padded row of the Q and K tiles
   constexpr int PLD = BK + 1;           // padded row of P
   constexpr int NC = (HDV + 15) / 16;   // accumulator columns per thread
@@ -123,15 +144,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int q0 = qt * BQ;
   const int64_t qrow = (int64_t)H * HDQK, krow = (int64_t)KV * HDQK;
   const int64_t vrow = (int64_t)KV * HDV, orow = (int64_t)H * HDV;
-  const float* qb = q + (int64_t)b * S * qrow + (int64_t)h * HDQK;
-  const float* kb = k + (int64_t)b * S * krow + (int64_t)kvh * HDQK;
-  const float* vb = v + (int64_t)b * S * vrow + (int64_t)kvh * HDV;
-  float* ob = o + (int64_t)b * S * orow + (int64_t)h * HDV;
+  const float* qb = q + (int64_t)b * Sq * qrow + (int64_t)h * HDQK;
+  const float* kb = k + (int64_t)b * Sk * krow + (int64_t)kvh * HDQK;
+  const float* vb = v + (int64_t)b * Sk * vrow + (int64_t)kvh * HDV;
+  float* ob = o + (int64_t)b * Sq * orow + (int64_t)h * HDV;
 
   for (int e = tid; e < BQ * HDQK; e += THREADS) {
     const int r = e / HDQK, c = e - r * HDQK;
     const int qi = q0 + r;
-    Qs[r * LD + c] = qi < S ? qb[(int64_t)qi * qrow + c] * scale : 0.f;
+    Qs[r * LD + c] = qi < Sq ? qb[(int64_t)qi * qrow + c] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -144,8 +165,9 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   // KV tiles that hold at least one key some row of this tile attends
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  const int k_lo = window > 0 && !PREFIX ? max(0, q0 - window + 1) : 0;
+  const int k_hi =
+      causal ? min(Sk, PREFIX ? max(q0 + BQ, prefix) : q0 + BQ) : Sk;
   const int kt_lo = k_lo / BK, kt_hi = (k_hi + BK - 1) / BK;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -154,12 +176,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int e = tid; e < BK * HDQK; e += THREADS) {
       const int r = e / HDQK, c = e - r * HDQK;
       const int ki = k0 + r;
-      Ks[r * LD + c] = ki < S ? kb[(int64_t)ki * krow + c] : 0.f;
+      Ks[r * LD + c] = ki < Sk ? kb[(int64_t)ki * krow + c] : 0.f;
     }
     for (int e = tid; e < BK * HDV; e += THREADS) {
       const int r = e / HDV, c = e - r * HDV;
       const int ki = k0 + r;
-      Vs[r * HDV + c] = ki < S ? vb[(int64_t)ki * vrow + c] : 0.f;
+      Vs[r * HDV + c] = ki < Sk ? vb[(int64_t)ki * vrow + c] : 0.f;
     }
     __syncthreads();
 
@@ -191,8 +213,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ki = k0 + tx + 16 * j;
-        ok[j] = ki < S && (!causal || qi >= ki) &&
-                (window <= 0 || qi - ki < window);
+        ok[j] = ki < Sk && ((PREFIX && ki < prefix) ||
+                            ((!causal || qi >= ki) &&
+                             (window <= 0 || qi - ki < window)));
         if (!ok[j]) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -245,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
@@ -257,18 +280,20 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 template <int HDQK, int HDV>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
-                      int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
-                      int window, float scale, cudaStream_t st) {
+                      int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                      int64_t KV, int causal, int window, int prefix,
+                      float scale, cudaStream_t st) {
   const size_t smem = smem_floats<HDQK, HDV>() * sizeof(float);
+  auto kernel = prefix > 0 ? flash_fwd_kernel<HDQK, HDV, true>
+                           : flash_fwd_kernel<HDQK, HDV, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HDQK, HDV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int n_qt = (int)((S + BQ - 1) / BQ);
+  const int n_qt = (int)((Sq + BQ - 1) / BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
-  flash_fwd_kernel<HDQK, HDV><<<grid, THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)S,
-      (int)H, (int)KV, causal, window, scale, n_qt);
+  kernel<<<grid, THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)Sq,
+      (int)Sk, (int)H, (int)KV, causal, window, prefix, scale, n_qt);
   return (int)cudaGetLastError();
 }
 
@@ -281,19 +306,29 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 namespace tc {
 
-constexpr int BQ = 128;       // query rows per block: two warpgroups of 64
 constexpr int BK = 64;        // keys per K/V tile
-constexpr int STAGES = 4;     // K/V ring depth
-constexpr int THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
 constexpr int ROWB = 128;     // bytes per smem row: 64 bf16, one swizzle span
 
+// The block's layout by (HDQK, HDV): WG consumer warpgroups of 64 query
+// rows each and one producer warp, and a K/V ring of STAGES tiles.  Up to
+// HDV = 128: 2 warpgroups (BQ = 128, 288 threads) and 4 stages.  At HDV =
+// 256 the accumulator is 128 f32 registers a thread, which 288 threads
+// cannot hold beside the scores (ptxas caps that block near 168 a
+// thread): one warpgroup (BQ = 64, 160 threads, up to 255 registers) and
+// 2 stages, 1,024 + 4 x 128 x (64 + 2 x 64) + 4 x 128 x 2 x 64 = 164,864
+// bytes; 128 rows would need 197,632 at 2 stages and 328,704 at 4.
 template <int HDQK, int HDV>
-constexpr int smem_bytes() {
+struct Cfg {
+  static constexpr int WG = HDV > 128 ? 1 : 2;
+  static constexpr int BQ = 64 * WG;             // query rows per block
+  static constexpr int THREADS = 128 * WG + 32;
+  static constexpr int STAGES = HDV > 128 ? 2 : 4;
   // 1,024 of slack to align the tiles, the Q tile and the K ring (HDQK
   // wide), the V ring (HDV wide), and 2 * STAGES + 1 mbarriers
-  return 1024 + ((HDQK + 63) / 64) * ROWB * (BQ + STAGES * BK) +
-         ((HDV + 63) / 64) * ROWB * STAGES * BK + 8 * (2 * STAGES + 1);
-}
+  static constexpr int SMEM = 1024 +
+      ((HDQK + 63) / 64) * ROWB * (BQ + STAGES * BK) +
+      ((HDV + 63) / 64) * ROWB * STAGES * BK + 8 * (2 * STAGES + 1);
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -404,8 +439,8 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
 // is row lane/4 + 8i, column 8j + 2(lane%4) + c).  ss: A and B from shared
 // memory, both K-major, scale_d = 0 overwrites D.  rs: A from registers (a
 // k16 fragment, 4 bf16x2), B MN-major (the transpose bit), D accumulated.
-// ss is m64n64k16; rs is m64n64k16 or m64n128k16 (32 or 64 accumulators),
-// the overload chosen by the accumulator array's size.
+// ss is m64n64k16; rs is m64n64k16, m64n128k16 or m64n256k16 (32, 64 or 128
+// accumulators), the overload chosen by the accumulator array's size.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -475,10 +510,61 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 constexpr int NS = BK / 2;   // score registers per thread (64 x BK / 128)
 
-// start S = Q . K^T for this warpgroup's 64 rows and one K tile
-template <int ND>
+// start S = Q . K^T for this warpgroup's 64 rows and one K tile (the Q
+// tile's column blocks are BQ rows apart)
+template <int ND, int BQ>
 __device__ __forceinline__ void start_qk(float (&s)[NS], uint32_t qaddr,
                                          uint32_t kaddr) {
 #pragma unroll
@@ -508,15 +594,17 @@ __device__ __forceinline__ void start_pv(float (&acc)[ND * 32],
 // What a thread needs to mask and scale its scores: rows r0 and r0 + 8,
 // key columns 8j + cq + {0, 1} of each 8-key chunk j
 struct Rows {
-  int r0, cq, S, causal, window;
+  int r0, cq, Sk, causal, window, prefix;
   float c2;  // scale * log2(e)
 };
 
 // The online-softmax step for the scores s of the K tile at k0: mask what
 // rows r0 and r0 + 8 may not attend (only where the tile straddles an
-// edge), update m and this lane's share of l, turn s into p in place, and
+// edge: Sk, the diagonal, the window, the prefix's end), update m and
+// this lane's share of l, turn s into p in place, and
 // return in corr the factor that rescales the accumulator.  A row's 64
 // scores lie on the 4 lanes of a quad.
+template <bool PREFIX>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              const Rows& r, int k0,
@@ -528,8 +616,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
       for (int e = 0; e < 4; ++e) {
         const int qi = r.r0 + 8 * (e >> 1);
         const int ki = k0 + 8 * j + r.cq + (e & 1);
-        const bool ok = ki < r.S && (!r.causal || qi >= ki) &&
-                        (r.window <= 0 || qi - ki < r.window);
+        const bool ok = ki < r.Sk && ((PREFIX && ki < r.prefix) ||
+                                      ((!r.causal || qi >= ki) &&
+                                       (r.window <= 0 || qi - ki < r.window)));
         if (!ok) s[4 * j + e] = -INFINITY;
       }
   }
@@ -588,14 +677,18 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
 
 }  // namespace tc
 
-template <int HDQK, int HDV>
-__global__ void __launch_bounds__(tc::THREADS, 1)
+template <int HDQK, int HDV, bool PREFIX>
+__global__ void __launch_bounds__(tc::Cfg<HDQK, HDV>::THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o, int S, int H, int KV,
-                        int causal, int window, float c2, int n_qt) {
+                        __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                        int KV, int causal, int window, int prefix, float c2,
+                        int n_qt) {
   using namespace tc;
+  constexpr int BQ = Cfg<HDQK, HDV>::BQ;
+  constexpr int STAGES = Cfg<HDQK, HDV>::STAGES;
+  constexpr int WG = Cfg<HDQK, HDV>::WG;
   constexpr int NQK = (HDQK + 63) / 64;     // 64-column blocks of a q/k row
   constexpr int NV = (HDV + 63) / 64;       // ... of a v/o row
   constexpr int QBYTES = NQK * BQ * ROWB;   // the Q tile
@@ -617,16 +710,19 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  // KV tiles that some row of this block attends
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  // KV tiles that some row of this block attends: with a prefix, every
+  // row attends keys 0..prefix-1, so a causal tile reaches past the
+  // diagonal to the prefix's end and a window does not cut the start
+  const int k_lo = window > 0 && !PREFIX ? max(0, q0 - window + 1) : 0;
+  const int k_hi =
+      causal ? min(Sk, PREFIX ? max(q0 + BQ, prefix) : q0 + BQ) : Sk;
   const int kt_lo = k_lo / BK;
   const int n_kt = (k_hi + BK - 1) / BK - kt_lo;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * WG);         // one arrival per consumer warp
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -634,7 +730,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   }
   __syncthreads();
 
-  if (warp == 8) {                          // the producer warp
+  if (warp == 4 * WG) {                     // the producer warp
     if (lane == 0) {
       mbar_expect_tx(qbar, QBYTES);
       for (int db = 0; db < NQK; ++db)
@@ -659,18 +755,23 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   // it_hi-1 of the block's n_kt; it frees the others as they arrive
   const int wg = warp >> 2;
   const int qw = q0 + 64 * wg;
-  const Rows rows{qw + 16 * (warp & 3) + (lane >> 2), 2 * (lane & 3), S,
-                  causal, window, c2};
-  const int kw_lo = window > 0 ? max(0, qw - window + 1) : 0;
-  const int kw_hi = causal ? min(S, qw + 64) : S;
+  const Rows rows{qw + 16 * (warp & 3) + (lane >> 2), 2 * (lane & 3), Sk,
+                  causal, window, prefix, c2};
+  const int kw_lo = window > 0 && !PREFIX ? max(0, qw - window + 1) : 0;
+  const int kw_hi =
+      causal ? min(Sk, PREFIX ? max(qw + 64, prefix) : qw + 64) : Sk;
   const int it_lo = kw_lo / BK - kt_lo;
   const int it_hi = min(n_kt, (kw_hi + BK - 1) / BK - kt_lo);
   const uint32_t qaddr = smem_u32(Qs) + wg * 64 * ROWB;
-  // the tile at it straddles the diagonal, the window's edge or S
+  // the tile at it is not attended whole by every row of this warpgroup:
+  // it crosses Sk, or ends past the prefix and straddles the diagonal or
+  // the window's edge
   auto edge = [&](int it) {
     const int k0 = (kt_lo + it) * BK;
-    return (causal && k0 + BK - 1 > qw) ||
-           (window > 0 && k0 <= qw + 63 - window) || k0 + BK > S;
+    return ((!PREFIX || k0 + BK > prefix) &&
+            ((causal && k0 + BK - 1 > qw) ||
+             (window > 0 && k0 <= qw + 63 - window))) ||
+           k0 + BK > Sk;
   };
   auto kaddr = [&](int it) { return smem_u32(Ks + (it % STAGES) * KBYTES); };
   auto vaddr = [&](int it) { return smem_u32(Vs + (it % STAGES) * VBYTES); };
@@ -698,11 +799,11 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     wait_full(it);
     reg_fence(s);
     wg_fence();
-    start_qk<NQK>(s, qaddr, kaddr(it));
+    start_qk<NQK, BQ>(s, qaddr, kaddr(it));
     wg_commit();
     wg_wait<0>();
     reg_fence(s);
-    softmax_tile(s, m, l, corr, rows, (kt_lo + it) * BK, edge(it));
+    softmax_tile<PREFIX>(s, m, l, corr, rows, (kt_lo + it) * BK, edge(it));
     rescale(acc, corr);
     split_p(s, phi, plo);
     reg_fence(acc);
@@ -722,15 +823,15 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     release(&empty[it % STAGES], lane);
   }
 
-  // the quad's shares of l, then the stores (rows < S, columns < HDV)
+  // the quad's shares of l, then the stores (rows < Sq, columns < HDV)
   const int64_t orow = (int64_t)H * HDV;
-  __nv_bfloat16* ob = o + (int64_t)b * S * orow + (int64_t)h * HDV;
+  __nv_bfloat16* ob = o + (int64_t)b * Sq * orow + (int64_t)h * HDV;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int qi = rows.r0 + 8 * i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
@@ -796,38 +897,41 @@ static bool make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
 
 template <int HDQK, int HDV>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
-                     int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
-                     int window, float scale, cudaStream_t st) {
+                     int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                     int causal, int window, int prefix, float scale,
+                     cudaStream_t st) {
+  using C = tc::Cfg<HDQK, HDV>;
   // TMA reads from 16-byte aligned addresses
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, HDQK, tc::BQ) ||
-      !make_map(&tk, k, B, S, KV, HDQK, tc::BK) ||
-      !make_map(&tv, v, B, S, KV, HDV, tc::BK))
+  if (!make_map(&tq, q, B, Sq, H, HDQK, C::BQ) ||
+      !make_map(&tk, k, B, Sk, KV, HDQK, tc::BK) ||
+      !make_map(&tv, v, B, Sk, KV, HDV, tc::BK))
     return (int)cudaErrorInvalidValue;
-  const int smem = tc::smem_bytes<HDQK, HDV>();
+  auto kernel = prefix > 0 ? flash_fwd_tc_kernel<HDQK, HDV, true>
+                           : flash_fwd_tc_kernel<HDQK, HDV, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<HDQK, HDV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int n_qt = (int)((S + tc::BQ - 1) / tc::BQ);
+  const int n_qt = (int)((Sq + C::BQ - 1) / C::BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
   const float log2e = 1.4426950408889634f;
-  flash_fwd_tc_kernel<HDQK, HDV><<<grid, tc::THREADS, smem, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (int)S, (int)H, (int)KV, causal, window,
-      scale * log2e, n_qt);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, (int)Sq, (int)Sk, (int)H, (int)KV,
+      causal, window, prefix, scale * log2e, n_qt);
   return (int)cudaGetLastError();
 }
 
 template <int HDQK, int HDV>
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  int64_t B, int64_t S, int64_t H, int64_t KV, int causal,
-                  int window, float scale, bool bf16, cudaStream_t st) {
-  return bf16 ? launch_tc<HDQK, HDV>(q, k, v, o, B, S, H, KV, causal, window,
-                                     scale, st)
-              : launch_f32<HDQK, HDV>(q, k, v, o, B, S, H, KV, causal, window,
-                                      scale, st);
+                  int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                  int causal, int window, int prefix, float scale, bool bf16,
+                  cudaStream_t st) {
+  return bf16 ? launch_tc<HDQK, HDV>(q, k, v, o, B, Sq, Sk, H, KV, causal,
+                                     window, prefix, scale, st)
+              : launch_f32<HDQK, HDV>(q, k, v, o, B, Sq, Sk, H, KV, causal,
+                                      window, prefix, scale, st);
 }
 
 // the instantiated (q/k head_dim, v head_dim) pairs, one switch key each
@@ -835,35 +939,41 @@ constexpr int64_t pair_key(int64_t hd, int64_t hdv) {
   return hd * 4096 + hdv;
 }
 
-// q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hdv), o (B, S, H, hdv),
-// contiguous, one dtype: bf16 when is_bf16 (the tensor-core kernel), else
-// float32 (the CUDA-core kernel).  (hd, hdv) in {(64, 64), (120, 120),
-// (128, 128), (192, 128)}; H % KV == 0; window <= 0 means none; scores
-// are scaled by `scale`.  Launches on `stream`, allocates nothing, does
-// not synchronise; returns cudaGetLastError().
+// q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hdv), o (B, Sq, H,
+// hdv), contiguous, one dtype: bf16 when is_bf16 (the tensor-core kernel),
+// else float32 (the CUDA-core kernel).  (hd, hdv) in {(64, 64), (120, 120),
+// (128, 128), (192, 128), (256, 256)}; H % KV == 0; a causal call has Sq
+// == Sk; window <= 0 means none; keys below `prefix` are attended by every
+// query; scores are scaled by `scale`.  Launches on `stream`, allocates
+// nothing, does not synchronise; returns cudaGetLastError().
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int64_t B, int64_t S, int64_t H,
-                              int64_t KV, int64_t hd, int64_t hdv,
-                              int64_t causal, int64_t window, double scale,
-                              int64_t is_bf16, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || B * H > 65535 || S > (int64_t)1 << 30 ||
-      hd <= 0 || hdv <= 0 || hd >= 4096 || hdv >= 4096)
+                              void* o, int64_t B, int64_t Sq, int64_t Sk,
+                              int64_t H, int64_t KV, int64_t hd, int64_t hdv,
+                              int64_t causal, int64_t window, int64_t prefix,
+                              double scale, int64_t is_bf16, void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
+  if (KV <= 0 || H % KV != 0 || B * H > 65535 || Sk <= 0 ||
+      Sq > (int64_t)1 << 30 || Sk > (int64_t)1 << 30 ||
+      (causal && Sq != Sk) || hd <= 0 || hdv <= 0 || hd >= 4096 ||
+      hdv >= 4096)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int w = window > 0 ? (int)window : 0;
+  const int pf = prefix > 0 ? (int)(prefix < Sk ? prefix : Sk) : 0;
   const int c = (int)causal;
   const float sc = (float)scale;
   const bool bf16 = is_bf16 != 0;
   switch (pair_key(hd, hdv)) {
-    case pair_key(64, 64):
-      return launch<64, 64>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
-    case pair_key(120, 120):
-      return launch<120, 120>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
-    case pair_key(128, 128):
-      return launch<128, 128>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
-    case pair_key(192, 128):
-      return launch<192, 128>(q, k, v, o, B, S, H, KV, c, w, sc, bf16, st);
+#define FLASH_PAIR(A, V)                                                   \
+  case pair_key(A, V):                                                     \
+    return launch<A, V>(q, k, v, o, B, Sq, Sk, H, KV, c, w, pf, sc, bf16, \
+                        st);
+    FLASH_PAIR(64, 64)
+    FLASH_PAIR(120, 120)
+    FLASH_PAIR(128, 128)
+    FLASH_PAIR(192, 128)
+    FLASH_PAIR(256, 256)
+#undef FLASH_PAIR
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -871,7 +981,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 
 template <int HDQK, int HDV>
 static int smem_of(bool bf16) {
-  return bf16 ? tc::smem_bytes<HDQK, HDV>()
+  return bf16 ? tc::Cfg<HDQK, HDV>::SMEM
               : (int)(smem_floats<HDQK, HDV>() * sizeof(float));
 }
 
@@ -891,6 +1001,8 @@ extern "C" int flash_attn_smem_bytes(int64_t hd, int64_t hdv,
       return smem_of<128, 128>(bf16);
     case pair_key(192, 128):
       return smem_of<192, 128>(bf16);
+    case pair_key(256, 256):
+      return smem_of<256, 256>(bf16);
     default:
       return 0;
   }

@@ -1,4 +1,5 @@
-"""Flash attention: causal / sliding-window / full, online softmax.
+"""Flash attention: causal / sliding-window / prefix-LM / full, self- or
+cross-attention, online softmax.
 
 Replaces ``repro/kernels/attention.py::_flash_kernel`` (Pallas, TPU).  For
 each query row it computes ``softmax(q.k^T * scale + mask) . v`` with the
@@ -8,28 +9,31 @@ default; v may have its own head_dim ``dv`` (MLA's prefill: d = 192 =
 nope + rope, dv = 128, scale ``192^-1/2``).  The plain version and the
 float32 kernel cast q to float32 and scale it before the dot, as the
 reference does; the bf16 kernel scales the float32 dot instead (f32
-rounding apart, the same).  The mask is causal (``q_pos >= k_pos``) with
-an optional window (``q_pos - k_pos < window``), or full.
+rounding apart, the same).  Query i and key j are positions i and j; key
+j is attended when ``j < prefix`` (prefix-LM: full attention inside the
+prefix) or, for a causal call, ``i >= j`` with an optional window ``i - j
+< window``, and always in a full call: the reference's ``_mask``.
 
-Layout: the model's own, q (B, S, H, d), k (B, S, KV, d) and v (B, S,
+Layout: the model's own, q (B, Sq, H, d), k (B, Sk, KV, d) and v (B, Sk,
 KV, dv) with ``H % KV == 0``; query head h reads KV head ``h // (H //
 KV)`` in place, where the reference's ``ops.flash_attention_op``
-materialised a ``jnp.repeat`` of k and v.  Positions are the row numbers
-0..S-1.
+materialised a ``jnp.repeat`` of k and v.  Sq and Sk differ only in a
+full (non-causal) call: cross-attention, or an encoder over keys padded
+to the reference's chunk (``models.attention.chunked_attention``).
 
 On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attn.cu``
 and raises on what it does not take.  bfloat16 runs on the tensor cores
-(``wgmma`` fed by TMA, 128-row query tiles; P is split into two bf16
-parts for P.V, so the output stays within one bf16 ulp of the plain
-version); float32 runs on the CUDA cores (64-row query tiles, float32
-FMAs).  Both skip KV tiles wholly above the diagonal or outside the
-window.  What the kernel does not take: a (d, dv) pair other than (64,
-64), (120, 120), (128, 128) or (192, 128), mixed dtypes, a non-contiguous
-tensor.  On a CPU tensor it runs :func:`flash_attention_plain`, the port
-of the reference model's chunked online-softmax scan
-(``repro/models/attention.py::chunked_attention``), whose general form
-:func:`chunked_scan` is also the CPU path of
-``repro_torch.models.attention.chunked_attention``.
+(``wgmma`` fed by TMA, 128-row query tiles, 64 at (256, 256); P is split
+into two bf16 parts for P.V, so the output stays within one bf16 ulp of
+the plain version); float32 runs on the CUDA cores (64-row query tiles,
+float32 FMAs).  Both skip KV tiles that no row of a query tile attends.
+What the kernel does not take: a (d, dv) pair other than (64, 64), (120,
+120), (128, 128), (192, 128) or (256, 256), a causal call with Sq != Sk,
+mixed dtypes, a non-contiguous tensor.  On a CPU tensor it runs
+:func:`flash_attention_plain`, the port of the reference model's chunked
+online-softmax scan (``repro/models/attention.py::chunked_attention``)
+over exactly the keys given, whose general form :func:`chunked_scan` is
+also the CPU path of ``repro_torch.models.attention.chunked_attention``.
 """
 from __future__ import annotations
 
@@ -42,13 +46,13 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38            # the reference scan's masked score
 # the kernel's instantiations, (q/k head_dim, v head_dim)
-HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128))
+HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128), (256, 256))
 # the plain version's KV chunk, the reference's: its (B, S, KV, g, chunk)
 # float32 score block is 1.6 GB at S = 32,768
 PLAIN_CHUNK = 1024
 launches = 0
 
-_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 8
+_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 10
         + (_build.F64, _build.I64, _build.P),
         "flash_attn_smem_bytes": (_build.I64,) * 3}
 
@@ -77,9 +81,9 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     """Online-softmax attention, a loop over KV chunks (plain torch).
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).  Returns (B, Sq, H, hdv).
-    The reference pads the last chunk; here it is sliced short, which
-    gives the same result wherever the padding is masked (every causal
-    call).
+    The last chunk is sliced short, so exactly the keys given are
+    attended; the reference's padded last chunk is the caller's
+    (``repro_torch.models.attention.chunked_attention``).
     """
     B, Sq, H, hd = q.shape
     _, Sk, KV, hdv = v.shape
@@ -111,24 +115,31 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Plain torch version of the kernel: the chunked scan over positions
-    0..S-1 (any device), ``PLAIN_CHUNK`` keys at a time."""
-    S = q.shape[1]
-    pos = torch.arange(S, device=q.device)
-    return chunked_scan(q, k, v, pos, pos, causal=causal, window=window,
+                          scale: Optional[float] = None,
+                          prefix: int = 0) -> torch.Tensor:
+    """Plain torch version of the kernel: the chunked scan over query
+    positions 0..Sq-1 and key positions 0..Sk-1 (any device),
+    ``PLAIN_CHUNK`` keys at a time."""
+    dev = q.device
+    return chunked_scan(q, k, v, torch.arange(q.shape[1], device=dev),
+                        torch.arange(k.shape[1], device=dev), causal=causal,
+                        window=window, prefix_len=prefix or None,
                         chunk=PLAIN_CHUNK, scale=scale)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal: bool = True) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3]:
-        raise ValueError("flash_attention: q (B, S, H, d), k (B, S, KV, d) "
-                         "and v (B, S, KV, dv)")
-    B, S, H, d = q.shape
-    if k.shape[:2] != (B, S) or k.shape[3] != d:
+        raise ValueError("flash_attention: q (B, Sq, H, d), k (B, Sk, KV, "
+                         "d) and v (B, Sk, KV, dv)")
+    B, Sq, H, d = q.shape
+    Sk = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != d or Sk < 1:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
-                         f"match q {tuple(q.shape)} (self-attention only)")
+                         f"match q {tuple(q.shape)}")
+    if causal and Sk != Sq:
+        raise ValueError(f"flash_attention: a causal call takes Sq == Sk "
+                         f"(got {Sq} queries over {Sk} keys)")
     KV = k.shape[2]
     if KV < 1 or H % KV:
         raise ValueError(f"flash_attention: H={H} is not a multiple of "
@@ -152,26 +163,30 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Attention of q (B, S, H, d) over k (B, S, KV, d) and v (B, S, KV,
-    dv), scores scaled by ``scale`` (``d^-1/2`` when None); (B, S, H,
-    dv)."""
+                    scale: Optional[float] = None,
+                    prefix: int = 0) -> torch.Tensor:
+    """Attention of q (B, Sq, H, d) over k (B, Sk, KV, d) and v (B, Sk,
+    KV, dv), scores scaled by ``scale`` (``d^-1/2`` when None), keys below
+    ``prefix`` attended by every query; (B, Sq, H, dv)."""
     global launches
+    prefix = max(int(prefix), 0)
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
-    _check(q, k, v)
-    B, S, H, d = q.shape
+                                     scale=scale, prefix=prefix)
+    _check(q, k, v, causal)
+    B, Sq, H, d = q.shape
+    Sk = k.shape[1]
     dv = v.shape[3]
-    o = q.new_empty((B, S, H, dv))
+    o = q.new_empty((B, Sq, H, dv))
     if o.numel() == 0:
         return o
     lib = _build.load("flash_attn", _SIG)
     err = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-        k.shape[2], d, dv, int(bool(causal)), max(int(window), 0),
-        1.0 / math.sqrt(d) if scale is None else float(scale),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
+        H, k.shape[2], d, dv, int(bool(causal)), max(int(window), 0),
+        min(prefix, Sk), 1.0 / math.sqrt(d) if scale is None
+        else float(scale), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     launches += 1
     return o

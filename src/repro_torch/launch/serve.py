@@ -8,6 +8,8 @@
         --arch deepseek-v3-671b --layers 5      # one 80 GB card
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --layers 4  # one period of 4 sublayers
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
 
 The reference's flags, plus ``--device`` (default ``cuda``; the CPU runs
 only with ``--device cpu``) and ``--layers`` (the model cut to its first
@@ -18,7 +20,10 @@ sublayers where that keeps the attention sublayer on a dense FFN, see
 ``cut_layers``).  The
 model is randomly initialised from a seeded ``torch.Generator``.  The HBM
 budget of the admission query is ``--hbm-frac`` of the card's memory; on
-the CPU it is that share of the 16 GiB the reference assumes.
+the CPU it is that share of the 16 GiB the reference assumes.  As in the
+reference's engine, whisper decodes against the zero cross cache of
+``init_cache`` (no encoder runs) and paligemma decodes without its image
+prefix.
 """
 from __future__ import annotations
 

@@ -1,19 +1,21 @@
 """Attention (port of ``repro.models.attention``): GQA with full,
-sliding-window and prefix-LM masks, and DeepSeek's MLA; full-sequence and
-one-token decode.
+sliding-window and prefix-LM masks, cross-attention, and DeepSeek's MLA;
+full-sequence and one-token decode.
 
 Full-sequence attention is ``chunked_attention``.  On a CUDA tensor it
 launches the hand-written flash kernel through its one entry,
-``kernels.ops.flash_attention_op``, which covers causal or full
-self-attention with an optional window and the caller's scale, at the
-kernel's (q/k head_dim, v head_dim) pairs: everything dense GQA prefill
-gives it, and MLA's prefill (192, 128) at scale ``1/sqrt(192)``.  For
-prefix-LM or cross-attention on a CUDA tensor it raises
-``NotImplementedError`` naming the ROADMAP item; it does not quietly run
-the plain scan there.  On a CPU tensor it runs the plain chunked
-online-softmax scan, the reference's algorithm, which lives with its mask
-(the reference's ``_mask``) beside the kernel as the kernel's plain
-version (``kernels.attention.chunked_scan``, ``mask``).
+``kernels.ops.flash_attention_op``: causal self-attention with an
+optional window, full self-attention (an encoder), cross-attention (Sq !=
+Sk, full, no window) and prefix-LM (causal with an int ``prefix_len``),
+with the caller's scale, at the kernel's (q/k head_dim, v head_dim)
+pairs.  A full call gets the reference's padded last chunk as real zero
+keys on either device, so both attend what the reference attends.  What the kernel
+does not take raises (a per-batch ``prefix_len`` tensor, a window on a
+full call, causal with Sq != Sk); nothing quietly runs the plain scan on
+the card.  On a CPU tensor it runs the plain chunked online-softmax scan,
+the reference's algorithm, which lives with its mask (the reference's
+``_mask``) beside the kernel as the kernel's plain version
+(``kernels.attention.chunked_scan``, ``mask``).
 
 Decode attends one query over the cache in plain torch, as the reference
 does outside Pallas; MLA decodes in the absorbed form (scores against the
@@ -33,6 +35,8 @@ from repro_torch.kernels.attention import NEG_INF, chunked_scan
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import apply_norm, rope
 from repro_torch.models.param import ParamInfo
+
+PAD_POS = 2**31 - 1          # the reference's position of a padded key
 
 
 def gqa_spec(cfg: ArchConfig) -> Dict[str, ParamInfo]:
@@ -67,25 +71,44 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
     """Online-softmax attention.  q: (B, Sq, H, hd); k: (B, Sk, KV, hd);
     v: (B, Sk, KV, hdv).  Returns (B, Sq, H, hdv).
 
-    On CUDA the flash kernel runs it and takes the positions as 0..S-1:
-    pass one position tensor as both ``q_pos`` and ``k_pos`` (the
-    self-attention that ``gqa_forward`` runs).  ``chunk`` is the plain
-    scan's KV chunk and does not reach the kernel.
+    A full (non-causal) call with Sk % chunk != 0, chunk being the
+    reference's KV chunk ``min(chunk, Sk)``, first gets the reference's
+    padded last chunk: K and V filled with zero keys at position
+    ``PAD_POS``, which a full mask attends (each scores 0, so it adds
+    ``exp(-m)`` to the softmax's sum and nothing to its numerator).  A
+    causal call's mask rejects such keys, so it is not padded.
+
+    On CUDA the flash kernel runs it and takes query positions as
+    0..Sq-1 and key positions as 0..Sk-1: a causal call passes one
+    position tensor as both ``q_pos`` and ``k_pos`` (the self-attention
+    that ``gqa_forward`` runs); a full call's positions mask nothing.
+    Elsewhere the plain chunked scan runs it, ``chunk`` keys at a time.
     """
+    Sq, Sk = q.shape[1], k.shape[1]
+    extra = 0 if causal else (-Sk) % min(chunk, Sk)
+    if extra:
+        k, v = (torch.cat([t, t.new_zeros((t.shape[0], extra)
+                                          + t.shape[2:])], dim=1)
+                for t in (k, v))
+        k_pos = torch.cat([k_pos, k_pos.new_full((extra,), PAD_POS)])
     if q.device.type != "cuda":
         return chunked_scan(q, k, v, q_pos, k_pos, causal=causal,
                             window=window, prefix_len=prefix_len,
                             chunk=chunk, scale=scale)
-    if prefix_len is not None:
+    if torch.is_tensor(prefix_len) and prefix_len.dim() > 0:
         raise NotImplementedError(
-            "prefix-LM attention on CUDA is not ported yet (ROADMAP queue 1 "
-            "item 10e, encoder-decoder/VLM)")
-    if k_pos is not q_pos or k.shape[1] != q.shape[1]:
+            "flash attention takes one int prefix_len, not one a batch row")
+    prefix = 0 if prefix_len is None else int(prefix_len)
+    if causal and (k_pos is not q_pos or Sk != Sq):
         raise NotImplementedError(
-            "cross-attention on CUDA is not ported yet (ROADMAP queue 1 "
-            "item 10e, encoder-decoder/VLM)")
+            "flash attention: a causal call is self-attention over "
+            "positions 0..S-1 (pass one position tensor as q_pos and "
+            "k_pos)")
+    if not causal and window > 0:
+        raise NotImplementedError(
+            "flash attention: a window on a non-causal call")
     return flash_attention_op(q, k, v, causal=causal, window=window,
-                              scale=scale)
+                              scale=scale, prefix=prefix)
 
 
 def gqa_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,

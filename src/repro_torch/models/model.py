@@ -8,18 +8,26 @@
 The parameters live in the module, as a tree of submodules with the
 reference's names and layouts (``decoder.layers.attn.wq`` is
 (L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
-the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints.
+the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints,
+plus ``enc_inputs`` (B, enc_len, D), the audio stub's frame embeddings,
+for an encoder-decoder, or ``prefix`` (B, num_prefix_tokens, D), the
+vision stub's patch embeddings, for a VLM.
 
-The port runs the GQA families, dense and mixture of experts,
-DeepSeek's MLA with its leading dense stack and its multi-token
-prediction (MTP) head's parameters, the Mamba2 SSM stack and Jamba's
-hybrid periods; encoder-decoder and VLM raise ``NotImplementedError``
-naming their ROADMAP item, and the training loss (and with it the MTP
-loss) waits for the training slice.  Decode keeps the cache index as a
-host int and writes the caches in place.
+The port runs every family of the reference: the GQA ones, dense and
+mixture of experts, DeepSeek's MLA with its leading dense stack and its
+multi-token prediction (MTP) head's parameters, the Mamba2 SSM stack,
+Jamba's hybrid periods, Whisper's encoder-decoder and PaliGemma's
+prefix-LM decoder; the training loss (and with it the MTP loss) waits
+for the training slice.  As in the reference, a VLM's decode sees no
+prefix (its decode path has none), and ``decode_step`` of an
+encoder-decoder attends whatever the cache's ``xk``/``xv`` hold: zeros
+from ``init_cache``, the encoder's projections after
+``prefill_with_cache``.  Decode keeps the cache index as a host int and
+writes the caches in place.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -68,6 +76,9 @@ class Model(nn.Module):
         s: Dict[str, Any] = {"embed": embedding_spec(cfg),
                              "ln_f": norm_spec(cfg),
                              "decoder": tfm.decoder_spec(cfg)}
+        if cfg.is_encoder_decoder:
+            s["encoder"] = tfm.encoder_spec(cfg)
+            s["decoder"] = tfm.xdecoder_spec(cfg)
         if cfg.mtp_depth:        # DeepSeek-V3's multi-token prediction head
             s["mtp"] = {
                 "proj": ParamInfo((2 * cfg.d_model, cfg.d_model),
@@ -129,29 +140,51 @@ class Model(nn.Module):
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
 
+    def _embeddings(self, a) -> torch.Tensor:
+        """Stub frame or patch embeddings in the model's dtype and device
+        (the reference's ``astype`` to the token embeddings' dtype)."""
+        if not torch.is_tensor(a):
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(device=self.device, dtype=self.dtype)
+
     def _embed_sequence(self, params, batch) -> Tuple[torch.Tensor,
                                                       torch.Tensor, Any]:
-        """Returns (x, positions, prefix_len)."""
+        """Returns (x, positions, prefix_len): a VLM's patch embeddings
+        before the tokens, attended in full (``prefix_len`` =
+        ``num_prefix_tokens``), sinusoidal positions added where the arch
+        has no RoPE (Whisper's decoder)."""
         cfg = self.cfg
-        if cfg.num_prefix_tokens:
-            raise NotImplementedError("VLM prefixes are not ported yet "
-                                      "(ROADMAP queue 1 item 10e)")
         x = embed_tokens(params["embed"], self._tokens(batch["tokens"]),
                          self.dtype)
+        prefix_len = None
+        if cfg.num_prefix_tokens:
+            x = torch.cat([self._embeddings(batch["prefix"]), x], dim=1)
+            prefix_len = cfg.num_prefix_tokens
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         if cfg.rope_theta <= 0 and not cfg.is_ssm and not cfg.is_hybrid:
             x = x + sinusoidal_positions(S, cfg.d_model, x.dtype,
                                          self.device)[None]
-        return x, positions, None
+        return x, positions, prefix_len
+
+    def encode(self, batch) -> torch.Tensor:
+        """An encoder-decoder's encoder over ``batch["enc_inputs"]``."""
+        return tfm.apply_encoder(self.params["encoder"], self.cfg,
+                                 self._embeddings(batch["enc_inputs"]))
 
     def hidden_states(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Final-norm hidden states + aux (router) loss."""
+        cfg = self.cfg
         params = self.params
         x, positions, prefix_len = self._embed_sequence(params, batch)
-        x, aux = tfm.apply_decoder(params["decoder"], self.cfg, x, positions,
-                                   prefix_len=prefix_len)
-        return apply_norm(params["ln_f"], x, self.cfg.norm_eps), aux
+        if cfg.is_encoder_decoder:
+            x = tfm.apply_xdecoder(params["decoder"], cfg, x, positions,
+                                   self.encode(batch))
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            x, aux = tfm.apply_decoder(params["decoder"], cfg, x, positions,
+                                       prefix_len=prefix_len)
+        return apply_norm(params["ln_f"], x, cfg.norm_eps), aux
 
     def prefill_logits(self, batch) -> torch.Tensor:
         """Parallel prefill: float32 logits (B, S, padded vocab)."""
@@ -159,10 +192,13 @@ class Model(nn.Module):
         return logits_from(self.params["embed"], h).float()
 
     # ------------------------------------------------------------ decode
-    def init_cache(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
+    def init_cache(self, batch_size: int, cache_len: int,
+                   enc_len: Optional[int] = None) -> Dict[str, Any]:
         """Decode state in the parameter dtype, with kv_len = min(cache_len,
         window) for a sliding window (a rolling cache), and the host int
-        ``index``.  GQA: k/v (L, B, kv_len, KV, hd).  MLA: the latent c
+        ``index``.  GQA: k/v (L, B, kv_len, KV, hd), and for an
+        encoder-decoder the cross K/V xk/xv (L, B, enc_len or
+        ``encoder_seq_len``, KV, hd), zeros.  MLA: the latent c
         (L, B, kv_len, kv_lora_rank) and the rope keys r (L, B, kv_len,
         rope_dim), the leading dense layers first.  SSM: the state
         (L, B, nh, N, hp) in float32 and the conv window (L, B, ck-1,
@@ -170,7 +206,6 @@ class Model(nn.Module):
         ``state{i}``/``conv{i}`` pair for each SSM sublayer i of a
         period."""
         cfg = self.cfg
-        tfm._refuse_encoder_stacks(cfg)
         kv_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
         L, B = cfg.num_layers, batch_size
@@ -192,6 +227,10 @@ class Model(nn.Module):
         else:
             shape = (L, B, kv_len, cfg.num_kv_heads, cfg.resolved_head_dim)
             shapes = {"k": shape, "v": shape}
+            if cfg.is_encoder_decoder:
+                xshape = (L, B, enc_len or cfg.encoder_seq_len,
+                          cfg.num_kv_heads, cfg.resolved_head_dim)
+                shapes.update(xk=xshape, xv=xshape)
         cache: Dict[str, Any] = {"index": 0}
         for k, shape in shapes.items():       # SSM states are float32
             cache[k] = torch.zeros(
@@ -220,7 +259,8 @@ class Model(nn.Module):
         """One token through the ``first_k_dense`` dense layers, then the
         main stack: layer i of the cache is layer i of that order.  GQA
         attends its k/v cache (and, as the reference's GQA body at
-        ``model.py:245-246``, has no leading dense stack); MLA its latent
+        ``model.py:245-246``, has no leading dense stack), then an
+        encoder-decoder's block its cross cache xk/xv; MLA its latent
         c/r cache, in the absorbed form.  An SSM layer steps its state and
         conv window; a hybrid period runs its sublayers in order, the
         attention one on the period's k/v, SSM sublayer i on
@@ -265,7 +305,12 @@ class Model(nn.Module):
                                               cache["k"][i], cache["v"][i],
                                               index,
                                               window=cfg.sliding_window)
-                x, _ = tfm.ffn_residual(lp, cfg, x + a)
+                x = x + a
+                if cfg.is_encoder_decoder:
+                    a = apply_norm(lp["ln_x"], x, cfg.norm_eps)
+                    x = x + _cross_decode(lp["xattn"], cfg, a,
+                                          cache["xk"][i], cache["xv"][i])
+                x, _ = tfm.ffn_residual(lp, cfg, x)
                 i += 1
         return x
 
@@ -288,12 +333,44 @@ class Model(nn.Module):
     def prefill_with_cache(self, batch, cache_len: int):
         """Sequential prefill (a loop of decode steps), as the reference's
         serving example runs it; the parallel forward is
-        ``prefill_logits``."""
+        ``prefill_logits``.  An encoder-decoder first runs its encoder and
+        projects every layer's cross K/V into the cache (``xk``/``xv``,
+        enc_len rows)."""
+        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         B, S = tokens.shape
-        cache = self.init_cache(B, cache_len)
+        if cfg.is_encoder_decoder:
+            enc = self.encode(batch)
+            cache = self.init_cache(B, cache_len, enc_len=enc.shape[1])
+            pos = torch.arange(enc.shape[1], dtype=torch.int32,
+                               device=self.device)
+            stack = self.params["decoder"]["layers"]
+            for i in range(tfm.depth(stack)):
+                k, v = attn.gqa_project_kv(tfm.layer(stack, i)["xattn"], enc,
+                                           pos, cfg.rope_theta)
+                cache["xk"][i].copy_(k)
+                cache["xv"][i].copy_(v)
+        else:
+            cache = self.init_cache(B, cache_len)
         logits = torch.zeros((B, self.cfg.padded_vocab), dtype=torch.float32,
                              device=self.device)
         for t in range(S):
             logits, cache = self.decode_step(cache, tokens[:, t:t + 1])
         return logits, cache
+
+
+def _cross_decode(p, cfg: ArchConfig, x: torch.Tensor, xk: torch.Tensor,
+                  xv: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the encoder's K/V xk/xv (B,
+    enc_len, KV, hd): every row attended, no padding (the reference's
+    ``_cross_decode``)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = attn._proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    qg = q.reshape(B, KV, H // KV, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bkgh,bckh->bkgc", qg, xk.float())
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckh->bkgh", w, xv.float())
+    return attn._out(o.reshape(B, 1, H, hd).to(x.dtype), p["wo"])

@@ -1,7 +1,8 @@
 """Layer stacks (port of ``repro.models.transformer``): dense and
 mixture-of-experts blocks with GQA or MLA attention, the leading dense
 stack (``first_k_dense``) in front of the main one, the attention-free
-Mamba2 stack and Jamba's hybrid periods.
+Mamba2 stack, Jamba's hybrid periods, and Whisper's encoder (full
+self-attention, ``ln_post``) and cross-attending decoder.
 
 The reference scans over layers with parameters stacked on a leading
 'layers' axis; the port keeps that layout (so parameters carry across
@@ -9,8 +10,8 @@ The reference scans over layers with parameters stacked on a leading
 Remat is a training concern and waits for the training slice.  The
 reference's ``constrain`` calls (``distributed/context.py``) are sharding
 hints with no effect on one card and are left out, as is its
-sequence-parallel attention branch.  Encoder-decoder and VLM stacks
-wait for their slice.
+sequence-parallel attention branch.  A VLM's prefix-LM mask reaches
+every block through ``apply_decoder``'s ``prefix_len``.
 """
 from __future__ import annotations
 
@@ -25,14 +26,6 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_spec, \
     norm_spec
 from repro_torch.models.param import stacked
-
-
-def _refuse_encoder_stacks(cfg: ArchConfig) -> None:
-    """Raise, naming the ROADMAP item, for a stack the port lacks:
-    encoder-decoder and VLM (item 10e)."""
-    if cfg.is_encoder_decoder or cfg.num_prefix_tokens:
-        raise NotImplementedError("encoder-decoder and VLM stacks are not "
-                                  "ported yet (ROADMAP queue 1 item 10e)")
 
 
 def layer(tree, i: int):
@@ -107,7 +100,6 @@ def decoder_spec(cfg: ArchConfig) -> Dict[str, Any]:
     periods of ``attn_period`` sublayers (hybrid), or ``first_k_dense``
     leading dense layers (``dense_layers``) of a MoE arch, then the main
     ``layers``."""
-    _refuse_encoder_stacks(cfg)
     if cfg.family == "ssm":
         return {"layers": stacked(ssm_block_spec(cfg), cfg.num_layers)}
     if cfg.is_hybrid:
@@ -193,3 +185,61 @@ def _apply_jamba_block(p, cfg: ArchConfig, x: torch.Tensor,
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+# --------------------------------------------------------------- encoder
+
+
+def encoder_spec(cfg: ArchConfig) -> Dict:
+    return {"layers": stacked(attn_block_spec(cfg, use_moe=False,
+                                              d_ff=cfg.d_ff),
+                              cfg.num_encoder_layers),
+            "ln_post": norm_spec(cfg)}
+
+
+def apply_encoder(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings x (B, S,
+    D): pre-norm blocks with full self-attention, then ``ln_post``."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    stack = p["layers"]
+    for i in range(depth(stack)):
+        lp = layer(stack, i)
+        h = apply_norm(lp["ln1"], x, cfg.norm_eps)
+        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=False)
+        h = apply_norm(lp["ln2"], x, cfg.norm_eps)
+        x = x + apply_mlp(lp["ffn"], h, cfg.act)
+    return apply_norm(p["ln_post"], x, cfg.norm_eps)
+
+
+# ----------------------------------------------------- enc-dec decoder
+
+
+def xdecoder_spec(cfg: ArchConfig) -> Dict:
+    sub = attn_block_spec(cfg, use_moe=False, d_ff=cfg.d_ff)
+    sub["ln_x"] = norm_spec(cfg)
+    sub["xattn"] = attn.gqa_spec(cfg)
+    return {"layers": stacked(sub, cfg.num_layers)}
+
+
+def apply_xdecoder(p, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor,
+                   enc_out: torch.Tensor) -> torch.Tensor:
+    """The encoder-decoder's decoder: each block causal self-attention,
+    then cross-attention over ``enc_out`` (its K/V projected by the
+    block's ``xattn``), then the MLP, each pre-norm with a residual."""
+    enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
+                           device=x.device)
+    stack = p["layers"]
+    for i in range(depth(stack)):
+        lp = layer(stack, i)
+        h = apply_norm(lp["ln1"], x, cfg.norm_eps)
+        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=True)
+        h = apply_norm(lp["ln_x"], x, cfg.norm_eps)
+        k, v = attn.gqa_project_kv(lp["xattn"], enc_out, enc_pos,
+                                   cfg.rope_theta)
+        x = x + attn.gqa_forward(lp["xattn"], cfg, h, positions,
+                                 causal=False, kv_override=(k, v),
+                                 kv_positions=enc_pos)
+        h = apply_norm(lp["ln2"], x, cfg.norm_eps)
+        x = x + apply_mlp(lp["ffn"], h, cfg.act)
+    return x

@@ -8,7 +8,10 @@ parallel forward is ``Model.prefill_logits``).  The cache index stays a
 host int, so the loop reads back from the device only the sampled tokens,
 one read per token.  Temperature sampling draws from the engine's own
 ``torch.Generator`` under its lock.  ``serve`` records one ``TickStats``
-per tick on ``tick_log``.
+per tick on ``tick_log``.  An encoder-decoder decodes against the zero
+cross cache of ``Model.init_cache`` and a VLM without its prefix: the
+reference's ``generate_batch`` runs neither the encoder nor the vision
+stub.
 """
 from __future__ import annotations
 

@@ -46,6 +46,8 @@ class Request:
     priority: float
 
     def kv_bytes(self, cfg) -> float:
+        """The self-attention K/V cache in bf16, as the reference counts it
+        (an encoder-decoder's cross cache is not counted)."""
         per_tok = 2 * 2 * cfg.num_kv_heads * cfg.resolved_head_dim \
             * cfg.num_layers
         return float(per_tok * (self.prompt_tokens + self.max_new_tokens))

@@ -722,17 +722,30 @@ def test_flash_attention_kernel(dev, S, H, KV, d, causal, window, dtype):
 
 
 def test_chunked_attention_outside_the_kernel_raises(dev):
-    """Prefix-LM and cross-attention raise naming their ROADMAP item; a
-    (q/k, v) head_dim pair the kernel lacks raises ``ValueError``; a
-    caller's scale reaches the kernel (MLA's), nothing falls back."""
+    """Prefix-LM with an int prefix and cross-attention launch the kernel;
+    what it does not take raises (a per-batch prefix tensor, a window on a
+    full call, causal with Sq != Sk, a (q/k, v) head_dim pair it lacks);
+    a caller's scale reaches the kernel (MLA's), nothing falls back."""
     from repro_torch.models.attention import chunked_attention
     q = torch.zeros(1, 64, 4, 64, device=dev)
     k = v = torch.zeros(1, 64, 2, 64, device=dev)
     pos = torch.arange(64, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chunked_attention(q, k, v, pos, pos, causal=True, prefix_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chunked_attention(q, k, v, pos, pos.clone(), causal=False)
+    before = attention.launches
+    chunked_attention(q, k, v, pos, pos, causal=True, prefix_len=8)
+    chunked_attention(q, k[:, :40], v[:, :40], pos, pos[:40].clone(),
+                      causal=False)
+    assert attention.launches == before + 2
+    with pytest.raises(NotImplementedError, match="prefix_len"):
+        chunked_attention(q, k, v, pos, pos, causal=True,
+                          prefix_len=torch.tensor([8], device=dev))
+    with pytest.raises(NotImplementedError, match="window"):
+        chunked_attention(q, k, v, pos, pos, causal=False, window=16)
+    with pytest.raises(NotImplementedError, match="causal"):
+        chunked_attention(q, k[:, :40], v[:, :40], pos, pos[:40],
+                          causal=True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        attention.flash_attention(q, k[:, :40].contiguous(),
+                                  v[:, :40].contiguous(), causal=True)
     with pytest.raises(ValueError):
         attention.flash_attention(q[..., :32].contiguous(),
                                   k[..., :32].contiguous(),
@@ -956,6 +969,212 @@ def test_ssm_greedy_tokens_on_the_card_equal_the_cpus(dev, arch):
     from repro_torch.models import Model
     from repro_torch.serving import ServingEngine
     cfg = dataclasses.replace(get_config(arch).smoke(), param_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    card = Model(cfg, device=dev).load_params(cpu.params)
+    prompts = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (4, 10)).astype(np.int32)
+    want = ServingEngine(cpu, cache_len=32).generate_batch(prompts, 8)
+    got = ServingEngine(card, cache_len=32).generate_batch(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------- encoder-decoder and VLM (flash modes)
+
+
+def _flash_held(q, k, v, **kw):
+    """One launch of the kernel on (q, k, v) held to the card check's bar
+    against the plain version."""
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    want = attention.flash_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err, over, rel, ok = _flash_agreement()(got, want)
+    assert ok, (f"max abs err {err}, {over} of the elementwise limit, "
+                f"relative norm {rel}")
+
+
+def _qkv(dev, rng, B, Sq, Sk, H, KV, d, dv, dtype):
+    return tuple(_t(rng.normal(size=(B, S, h, w)), dev, torch.float32)
+                 .to(dtype) for S, h, w in ((Sq, H, d), (Sk, KV, d),
+                                            (Sk, KV, dv)))
+
+
+@pytest.mark.parametrize("Sq,Sk", [(48, 1500), (130, 65), (200, 2048),
+                                   (1, 77)])
+@pytest.mark.parametrize("H,KV", [(8, 8), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_encdec_cross_kernel(dev, Sq, Sk, H, KV, dtype):
+    """Cross-attention, Whisper's head_dim 64: Sq queries over Sk keys,
+    ragged both ways (Sq and Sk off the 128-row, 64-row and 64-key tiles),
+    MHA and MQA (KV = 1), full mask."""
+    rng = np.random.default_rng(Sq * 7 + Sk + KV)
+    _flash_held(*_qkv(dev, rng, 2, Sq, Sk, H, KV, 64, 64, dtype),
+                causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_encdec_full_over_padded_keys(dev, dtype):
+    """Whisper's encoder call: 1,500 queries over 2,048 keys whose last
+    548 are the reference's zero padding, held to the plain version; then
+    ``chunked_attention`` on the card (which pads a full call to the
+    reference's chunk itself) against the CPU's reference scan at Sk =
+    1,500, in float32 to 2e-3 (the reference's kernel bar)."""
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(15)
+    q, k, v = _qkv(dev, rng, 2, 1500, 1500, 8, 8, 64, 64, dtype)
+    pad = [torch.cat([t, torch.zeros_like(t[:, :548])], dim=1)
+           for t in (k, v)]
+    _flash_held(q, *pad, causal=False)
+    if dtype == torch.float32:
+        pos = torch.arange(1500)
+        before = attention.launches
+        got = chunked_attention(q, k, v, pos.to(dev), pos.to(dev),
+                                causal=False)
+        assert attention.launches == before + 1
+        want = chunked_attention(q.cpu(), k.cpu(), v.cpu(), pos, pos,
+                                 causal=False)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("prefix", [0, 1, 100, 256, 300, 5000])
+@pytest.mark.parametrize("S", [320, 777])
+@pytest.mark.parametrize("d,H,KV", [(64, 8, 2), (256, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefix_kernel(dev, prefix, S, d, H, KV, dtype):
+    """Prefix-LM: causal, keys below ``prefix`` attended by every query
+    (0: plain causal; 1; inside the first tiles; PaliGemma's 256; past a
+    128-row tile's edge; beyond S), at head_dim 64 and PaliGemma's (256,
+    256) with one KV head."""
+    rng = np.random.default_rng(prefix + S + d)
+    _flash_held(*_qkv(dev, rng, 2, S, S, H, KV, d, d, dtype), causal=True,
+                prefix=prefix)
+
+
+@pytest.mark.parametrize("S", [1, 64, 65, 200, 1024])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_hd256_kernel(dev, S, causal, window, dtype):
+    """The (256, 256) pair: causal, windowed and full, S across the
+    64-row query tiles and the 64-key tiles, 8 query heads on 1 KV head
+    (PaliGemma's)."""
+    rng = np.random.default_rng(S + window)
+    _flash_held(*_qkv(dev, rng, 2, S, S, 8, 1, 256, 256, dtype),
+                causal=causal, window=window)
+
+
+# the digests of the kernel before prefix-LM, cross-attention and (256,
+# 256) were added (``scripts/flash_digests.py`` on that tree, H100 80GB
+# HBM3)
+FLASH_DIGESTS_BEFORE = {
+    "64x64 causal bfloat16": "212446d850cafbc2",
+    "64x64 causal float32": "7c40c8586ee8142e",
+    "64x64 window bfloat16": "324d27bd3bf08a19",
+    "64x64 window float32": "cb427fb517aae064",
+    "64x64 full bfloat16": "a1a104898ed6e01f",
+    "64x64 full float32": "b56a4e9cde1dca91",
+    "120x120 causal bfloat16": "2100086f9376b49d",
+    "120x120 causal float32": "d1cf633ac44df571",
+    "120x120 window bfloat16": "2690398608dd1f9f",
+    "120x120 window float32": "940e4ef7607c5c83",
+    "120x120 full bfloat16": "e4a6f776ff276b77",
+    "120x120 full float32": "c2d1680cbd23cd71",
+    "128x128 causal bfloat16": "4c8e67ac7d081de0",
+    "128x128 causal float32": "34df42158f8428dc",
+    "128x128 window bfloat16": "8dafa579ebc0c8ad",
+    "128x128 window float32": "4254bc98d4f01324",
+    "128x128 full bfloat16": "028ecba1cdc436f1",
+    "128x128 full float32": "0763e9dd808e3a32",
+    "192x128 causal bfloat16": "9522a2188a0bfaee",
+    "192x128 causal float32": "49b7008e48b226db",
+    "192x128 window bfloat16": "949e81c7a8419a4a",
+    "192x128 window float32": "952a21aec62e7358",
+    "192x128 full bfloat16": "9b745d7c3ab986c5",
+    "192x128 full float32": "c1a46b58a5987e8a",
+}
+
+
+def test_flash_existing_pairs_bits_unchanged_by_prefix_and_cross(dev):
+    """Every pair the kernel had before prefix-LM, cross-attention and
+    (256, 256), in both dtypes, causal, windowed and full at S = 200:
+    the same bits as the kernel before the change (digests of its
+    outputs)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "flash_digests.py"
+    spec = importlib.util.spec_from_file_location("flash_digests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.digests(attention)
+    assert set(got) == set(FLASH_DIGESTS_BEFORE)
+    assert got == FLASH_DIGESTS_BEFORE
+
+
+def _encdec_cfg(arch, **changes):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).smoke(),
+                               param_dtype="float32", **changes)
+
+
+@pytest.mark.parametrize("enc_len", [64, 1500])
+def test_encdec_prefill_goes_through_the_kernel(dev, enc_len):
+    """whisper-smoke widened to head_dim 64, float32: prefill on the card
+    launches the kernel once per encoder layer and twice per decoder
+    layer (self, cross) and agrees with the CPU's prefill (2e-3); at 64
+    frames (no padded chunk) with 12 decode steps after
+    ``prefill_with_cache`` too (2e-3)."""
+    from repro_torch.models import Model
+    cfg = _encdec_cfg("whisper-base", head_dim=64, encoder_seq_len=enc_len)
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    model = Model(cfg, device=dev).load_params(cpu.params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (2, 12))
+    frames = rng.normal(size=(2, enc_len, cfg.d_model)).astype(np.float32)
+    batch = {"tokens": toks, "enc_inputs": frames}
+    before = attention.launches
+    full = model.prefill_logits(batch)
+    assert attention.launches == before + cfg.num_encoder_layers \
+        + 2 * cfg.num_layers
+    torch.testing.assert_close(full.cpu(), cpu.prefill_logits(batch),
+                               rtol=2e-3, atol=2e-3)
+    if enc_len > 1024:
+        return
+    _, cache = model.prefill_with_cache(
+        {"tokens": toks[:, :1], "enc_inputs": frames}, 16)
+    for t in range(1, 12):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1])
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-3, atol=2e-3)
+
+
+def test_vlm_prefix_prefill_goes_through_the_kernel(dev):
+    """paligemma-smoke widened to head_dim 256 (one KV head, 16 patches),
+    float32: prefill on the card launches the (256, 256) kernel with the
+    prefix once per layer and agrees with the CPU's (2e-3)."""
+    from repro_torch.models import Model
+    cfg = _encdec_cfg("paligemma-3b", head_dim=256)
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    model = Model(cfg, device=dev).load_params(cpu.params)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, (2, 40)),
+             "prefix": rng.normal(size=(2, cfg.num_prefix_tokens,
+                                        cfg.d_model)).astype(np.float32)}
+    before = attention.launches
+    full = model.prefill_logits(batch)
+    assert attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(full.cpu(), cpu.prefill_logits(batch),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "paligemma-3b"])
+def test_encdec_greedy_tokens_on_the_card_equal_the_cpus(dev, arch):
+    """whisper-smoke and paligemma-smoke in float32, the same seeded
+    parameters on the card and on the CPU: ``generate_batch`` gives the
+    same greedy tokens (decode steps only; the cross cache the zeros of
+    ``init_cache``, no prefix, as in the reference's engine)."""
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+    cfg = _encdec_cfg(arch)
     cpu = Model(cfg, device="cpu").init(seed=0)
     card = Model(cfg, device=dev).load_params(cpu.params)
     prompts = np.random.default_rng(5).integers(

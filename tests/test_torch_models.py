@@ -143,17 +143,27 @@ def test_init_follows_the_reference_rules():
 
 
 def test_unported_archs_name_their_roadmap_item():
-    """The archs still pending raise naming their ROADMAP item (MLA's
-    deepseek is ported: ``tests/test_torch_mla.py``; mamba2 and jamba:
-    ``tests/test_torch_ssm.py``)."""
+    """Every arch of the reference's registry resolves in the port (MLA's
+    deepseek: ``tests/test_torch_mla.py``; mamba2 and jamba:
+    ``tests/test_torch_ssm.py``; whisper and paligemma:
+    ``tests/test_torch_encdec.py``), full and smoke; an unknown arch
+    raises ``KeyError``."""
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    assert set(ARCH_IDS) == set(REF_ARCH_IDS)
+    for arch in REF_ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_config(arch))
+        assert get_config(arch + "-smoke").name == arch + "-smoke"
+    assert get_config("whisper-base").is_encoder_decoder
+    assert get_config("paligemma-3b-smoke").num_prefix_tokens == 16
     assert get_config("mamba2-1.3b").family == "ssm"
     assert get_config("jamba-1.5-large-398b-smoke").attn_period == 2
-    for arch in ("whisper-base", "paligemma-3b-smoke"):
-        with pytest.raises(KeyError, match=r"item 10e"):
-            get_config(arch)
     assert get_config("deepseek-v3-671b-smoke").attention == "mla"
     assert get_config("mixtral-8x22b").num_experts == 8
     assert get_config("mixtral-8x22b-smoke").num_experts == 4
+    for arch in ("whisper-large", "no-such-arch-smoke"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config(arch)
     with pytest.raises(ValueError, match="missing"):
         Model(get_config("smollm-135m-smoke"), device="cpu").load_params({})
 
