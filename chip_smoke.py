@@ -317,6 +317,37 @@ embeddings drawn from a seeded generator):
 41. vlm serve: phase 13 on paligemma with 8 requests (decode sees no
     prefix, as in the reference).
 
+The training slice (``csrc/flash_attn_bwd.cu`` built beside the others,
+its nvcc seconds on the "build" line):
+
+42. flash bwd agreement: for each (q/k, v) head_dim pair, dtype and mask
+    of the forward (causal, window, prefix-LM, cross with Sq != Sk) at S
+    = 200: the forward's output bit-identical with and without ``lse``,
+    the LSE within 1e-5 of the plain version's, and the backward kernels'
+    dQ, dK, dV against ``flash_attention_bwd_plain`` on the same O and
+    LSE (relative norm: float32 1e-5, bf16 2^-8, one rounding each);
+43. flash bwd time: the backward at the train cell's attention (B = 4,
+    S = 4,096, 12/2 heads, (128, 128), bf16, causal): ms (CUDA events),
+    each kernel's device ms, the bound (bytes / 3.35 TB/s against 2 (3 d +
+    2 dv) FLOP a kept pair / 989 TFLOP/s), the plain version's ms, and
+    SDPA's backward (forward + backward less forward, ``enable_gqa``);
+44. train smoke: each arch's smoke config widened to a flash pair in
+    float32, one ``make_train_step`` step on the card and one on the CPU
+    from the same parameters and batch: metrics 1e-5, moments 1e-4 of each
+    leaf's largest (2^-8 where they are bf16), the whole update 1e-3 in
+    relative norm, one forward and one backward flash launch for each
+    attention call;
+45. train: qwen2-1.5b at full width, bf16, ``remat="full"``, AdamW with
+    float32 moments (lr 3e-3, no warmup), 8 x 4,096 tokens (cut from
+    ``train_4k``'s 256 x 4,096) in 2 microbatches, three steps: step ms,
+    tokens/s, 8 N T FLOP a step and its share of 989 TFLOP/s, peak GiB
+    beside the state and one microbatch's float32 logits, flash launches a
+    step (28 x 2 x 2 forward, 28 x 2 backward), the third step profiled
+    (idle share, top device ops); the first step's ce within 1e-3 of the
+    ce from ``prefill_logits``, every parameter changed and finite;
+46. train compressed: one more step with int8 gradient compression and
+    error feedback (a fresh optimizer state): ms, finite.
+
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without CUDA, or without the
@@ -1260,7 +1291,8 @@ def device_profile(fn, on_prof=None):
             reads += ev.count
         name = ev.key.split("(")[0].replace("void ", "")
         if name.startswith(("pricing_kernel", "bfrt_", "segstats_",
-                            "dlv_scan_", "flash_fwd_", "lp_batch_")):
+                            "dlv_scan_", "flash_fwd_", "flash_bwd_",
+                            "lp_batch_")):
             ms0, n0 = ours.get(name, (0.0, 0))
             ours[name] = (ms0 + getattr(ev, "self_device_time_total",
                                         0.0) / 1e3, n0 + ev.count)
@@ -4573,6 +4605,518 @@ def phase_dist(table, q3, alpha, layers, device="cuda"):
         "segment_stats": held["segment_stats mesh"]}
 
 
+# ------------------------------------------ the training slice: qwen2-1.5b
+
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+LSE_TOL = 1e-5            # |lse - plain| / max(1, |plain|)
+# (d, dv, H, KV): the forward's pairs, each at its card test's heads
+BWD_PAIRS = ((64, 64, 6, 2), (120, 120, 6, 2), (128, 128, 6, 2),
+             (192, 128, 4, 4), (256, 256, 8, 1))
+# (mask, Sq, Sk, kwargs): S ragged over the 64-row and 64-key tiles
+BWD_MASKS = (("causal", 200, 200, dict(causal=True)),
+             ("window", 200, 200, dict(causal=True, window=70)),
+             ("prefix", 200, 200, dict(causal=True, prefix=37)),
+             ("cross", 150, 333, dict(causal=False)))
+BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its jnp "
+                "scan, src/repro/models/attention.py:61")
+TRAIN_ATTN = dict(B=4, S=4096, H=12, KV=2, d=128, dv=128)  # one microbatch
+TRAIN_ARCH = "qwen2-1.5b"
+# cut from SHAPES["train_4k"] (256 x 4,096) to 8 x 4,096 in 2 microbatches
+TRAIN = dict(B=8, S=4096, microbatches=2, steps=3)
+# no warmup, and a rate at which one step moves a bf16 1.0 (an RMSNorm
+# scale: half its ulp below 1 is 2^-9), so every parameter changes
+TRAIN_HYPER = dict(lr=3e-3, warmup_steps=0)
+TRAIN_CE_TOL = 1e-3       # phase 45's first ce against prefill's, relative
+# each arch's smoke config widened to a flash pair (as the card tests
+# widen them); danube's window cut to 48 so that S = 64 crosses it; the
+# MoE archs at capacity 8.0, so that neither device drops a copy
+TRAIN_SMOKE = {
+    "qwen2-1.5b": dict(head_dim=128),
+    "h2o-danube-3-4b": dict(head_dim=120, sliding_window=48),
+    "smollm-135m": dict(head_dim=64),
+    "glm4-9b": dict(head_dim=128),
+    "mixtral-8x22b": dict(head_dim=128, capacity_factor=8.0),
+    "deepseek-v3-671b": dict(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                             v_head_dim=128, capacity_factor=8.0),
+    "mamba2-1.3b": dict(),
+    "jamba-1.5-large-398b": dict(head_dim=128, capacity_factor=8.0),
+    "whisper-base": dict(head_dim=64),
+    "paligemma-3b": dict(head_dim=256)}
+# metrics, of max(1, |cpu|); moments, of each leaf's largest magnitude
+# (mu = 0.1 g and nu = 0.05 g^2 after one step: they hold the gradients),
+# float32 1e-4 (mamba2's SSD, whose exponentials of cumulative sums carry
+# rounding furthest, differs by 1.8e-5 on the H100) and bf16 2^-8 (the
+# moments of the MoE archs, one rounding to bf16); the update (the new
+# parameters less the old) over all leaves, in relative norm: Adam's first
+# step divides a gradient by its own magnitude, so an element whose
+# gradient is as small as the two devices' rounding may move either way,
+# which one leaf of a few elements cannot absorb but the whole update can
+TRAIN_SMOKE_TOL = dict(metrics=1e-5, moments={"float32": 1e-4,
+                                              "bfloat16": 2.0 ** -8},
+                       update=1e-3)
+
+
+def bwd_inputs(case, mask, dtype: str, dev, B: int = 2):
+    """q, k, v and the output gradient dO of a backward case, drawn from
+    a numpy seed of its shape."""
+    import torch
+    d, dv, H, KV = case
+    _, Sq, Sk, _ = mask
+    rng = np.random.default_rng(Sq * 1000 + Sk + d + dv + H)
+    return tuple(torch.as_tensor(rng.normal(size=(B, S, h, w)),
+                                 dtype=torch.float32, device=dev)
+                 .to(getattr(torch, dtype))
+                 for S, h, w in ((Sq, H, d), (Sk, KV, d), (Sk, KV, dv),
+                                 (Sq, H, dv)))
+
+
+def bwd_hold(q, k, v, do, **kw) -> dict:
+    """The forward with ``lse`` and the backward kernels on (q, k, v, dO)
+    held to their plain versions: the forward's output bit-identical with
+    and without ``lse``; the LSE within ``LSE_TOL``; dQ, dK and dV within
+    ``BWD_TOL`` in relative norm of the plain backward's on the same
+    inputs (the kernel's O and LSE); fails otherwise.  The largest
+    relative errors and absolute error."""
+    import torch
+    from repro_torch.kernels import attention as A
+    dt = str(q.dtype).split(".")[-1]
+    with torch.no_grad():
+        o0 = A.flash_attention(q, k, v, **kw)
+        o, lse = A.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        _, lse_p = A.flash_attention_fwd_lse_plain(q, k, v, **kw)
+        got = A.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = A.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    what = f"{tuple(q.shape)} v {tuple(v.shape)} {dt} {kw}"
+    check(torch.equal(o, o0), f"flash forward: the output with lse differs "
+                              f"from the output without, {what}")
+    lse_err = float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1.0))
+                    .max())
+    check(lse_err <= LSE_TOL, f"flash forward lse off by {lse_err}, {what}")
+    rels, abs_err = [], 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype
+              and bool(torch.isfinite(g).all()),
+              f"flash backward {name}: shape, dtype or non-finite, {what}")
+        diff = (g.float() - w.float())
+        rels.append(float(diff.norm() / w.float().norm().clamp_min(1e-30)))
+        abs_err = max(abs_err, float(diff.abs().max()))
+        check(rels[-1] <= BWD_TOL[dt],
+              f"flash backward {name} relative norm error {rels[-1]} over "
+              f"{BWD_TOL[dt]}, {what}")
+    return {"rel": rels, "max_abs_err": abs_err, "lse_err": lse_err}
+
+
+def phase_flash_bwd_agreement(dev):
+    """Phase 42: every pair, dtype and mask of the forward's card tests,
+    at S = 200 (150 queries over 333 keys for cross)."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    err = 0.0
+    for case in BWD_PAIRS:
+        for mask in BWD_MASKS:
+            for dt in ("float32", "bfloat16"):
+                *qkv, do = bwd_inputs(case, mask, dt, dev)
+                r = bwd_hold(*qkv, do, **mask[3])
+                worst[dt] = max(worst[dt], max(r["rel"]))
+                err = max(err, r["max_abs_err"])
+                say(f"flash bwd {case[0]}x{case[1]} {mask[0]} {dt}",
+                    rel_norm_dq_dk_dv=json.dumps(r["rel"]),
+                    max_abs_err=r["max_abs_err"], lse_err=r["lse_err"])
+    say("flash bwd agreement", cases=len(BWD_PAIRS) * len(BWD_MASKS) * 2,
+        worst_rel_f32=worst["float32"], worst_rel_bf16=worst["bfloat16"],
+        bar=json.dumps(BWD_TOL), lse_bar=LSE_TOL)
+    return err
+
+
+def sdpa_bwd_ms(q, k, v, do, reps: int = 3):
+    """(ms, note): ``scaled_dot_product_attention``'s backward alone on the
+    same inputs (causal, ``enable_gqa``): forward + backward less the
+    forward, each recorded with grad on, and the backend that ran it."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    kw = dict(is_causal=True, enable_gqa=True)
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    both = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    backend = "unknown"
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = torch._fused_sdp_choice(qt, kt, vt, **kw)
+        backend = {int(b): n for n, b in SDPBackend.__members__.items()}\
+            .get(int(choice), backend)
+    except (AttributeError, RuntimeError, TypeError, ImportError):
+        pass
+    try:
+        return timed_ms(both, reps) - timed_ms(fwd, reps), \
+            f"scaled_dot_product_attention backward ({backend})"
+    except RuntimeError as exc:
+        return None, f"scaled_dot_product_attention failed: {exc}"[:200]
+
+
+def bwd_kernel_numbers(B, Sq, Sk, H, KV, d, dv, pairs, esize):
+    """(bytes, FLOP) of each backward kernel's useful work: D reads O and
+    dO and writes D; dK/dV reads q, k, v, dO, LSE and D and writes dK, dV,
+    2 (2 d + 2 dv) FLOP a kept pair (S, dP, dV, dK); dQ reads the same and
+    writes dQ, 2 d a pair (its recompute of S and dP is not counted)."""
+    qb, kb = B * Sq * H * d * esize, B * Sk * KV * d * esize
+    vb, ob = B * Sk * KV * dv * esize, B * Sq * H * dv * esize
+    rows = B * H * Sq * 4
+    return {"flash_bwd_dot": (2 * ob + rows, 2 * dv * B * Sq * H),
+            "flash_bwd_dkdv": (qb + kb + vb + ob + 2 * rows + kb + vb,
+                               2 * (2 * d + 2 * dv) * pairs),
+            "flash_bwd_dq": (qb + kb + vb + ob + 2 * rows + qb,
+                             2 * d * pairs)}
+
+
+def phase_flash_bwd_time(dev, cell=TRAIN_ATTN):
+    """Phase 43: the backward at the train cell's attention (one layer of
+    one microbatch of phase 45): the three kernels' ms (CUDA events) and
+    each kernel's device ms (the profiler), the bound (bytes / 3.35 TB/s
+    against 2 (3 d + 2 dv) FLOP a kept pair / 989 TFLOP/s), the plain
+    version's ms and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import attention as A
+    B, S, H, KV, d, dv = (cell[k] for k in ("B", "S", "H", "KV", "d", "dv"))
+    g = torch.Generator(device=dev).manual_seed(43)
+    q, k, v, do = (torch.randn((B, S, h, w), generator=g, device=dev)
+                   .to(torch.bfloat16)
+                   for h, w in ((H, d), (KV, d), (KV, dv), (H, dv)))
+    o, lse = A.flash_attention_fwd(q, k, v, causal=True, want_lse=True)
+    run = lambda: A.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    got = run()
+    torch.cuda.synchronize()
+    want = A.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    plain_ms = timed_ms(lambda: A.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True), 1, warm=0)
+    rels = [float((a.float() - b.float()).norm() / b.float().norm())
+            for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    check(max(rels) <= BWD_TOL["bfloat16"],
+          f"flash backward at the train cell: relative norm errors {rels}")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = timed_ms(run, 3)
+    dev_ms = per_call_device(run, 2, A, "flash_bwd_", counter="bwd_launches",
+                             kernels_per_call=3)
+    kernel_ms = {name.split("<")[0]: v[0] for name, v in
+                 json.loads(dev_ms["kernel_ms"]).items()}
+    pairs = flash_pairs(S, S, True, 0) * B * H
+    esize = q.element_size()
+    # inputs q, k, v, O, dO (bf16) and LSE (f32) once; dQ, dK, dV once
+    nbytes = (B * S * H * d + B * S * KV * (d + dv) + 2 * B * S * H * dv
+              + B * S * H * d + B * S * KV * (d + dv)) * esize \
+        + B * H * S * 4
+    ops = 2 * (3 * d + 2 * dv) * pairs
+    lib, lib_note = sdpa_bwd_ms(q, k, v, do)
+    whole = _numbers(f"B={B} S={S} H={H} KV={KV} d={d} dv={dv} bfloat16 "
+                     "causal", nbytes, ops, ms, plain_ms, lib,
+                     peak=PEAK_OPS["bfloat16"], library=lib_note,
+                     device_ms=dev_ms["device_ms"],
+                     tflops=ops / ms / 1e9,
+                     vs_library=ms / lib if lib else None,
+                     rel_norm_dq_dk_dv=json.dumps(rels))
+    say("flash bwd time", **whole, kernel_device_ms=json.dumps(kernel_ms))
+    per = {}
+    for name, (nb, fl) in bwd_kernel_numbers(B, S, S, H, KV, d, dv, pairs,
+                                             esize).items():
+        per[name] = _numbers(whole["shape"], nb, fl,
+                             kernel_ms.get(name), plain_ms, lib,
+                             peak=PEAK_OPS["bfloat16"], library=lib_note,
+                             plain="flash_attention_bwd_plain (the three "
+                                   "kernels' work together)",
+                             backward_ms=ms)
+        say(f"kernel {name}[train cell]", **per[name])
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return err, whole, per
+
+
+def smoke_batch(cfg, B: int = 2, S: int = 64, seed: int = 44):
+    """A numpy-seeded batch (labels = tokens) with the stub frames or
+    patches the family takes."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(1, cfg.vocab_size, (B, S))
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.is_encoder_decoder:
+        batch["enc_inputs"] = rng.normal(
+            size=(B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_prefix_tokens:
+        batch["prefix"] = rng.normal(
+            size=(B, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def train_smoke_step(arch: str, dev) -> dict:
+    """One train step of ``arch``'s smoke config widened by
+    ``TRAIN_SMOKE`` in float32 on the card and on the CPU from the same
+    parameters and batch (lr 1e-3): loss and every metric within 1e-5 of
+    max(1, |cpu|); the moments (mu = 0.1 g, nu = 0.05 g^2) within 1e-5 of
+    each leaf's largest magnitude in float32 (2^-8 in bf16), which holds
+    the gradients; the whole update within 1e-3 in relative norm
+    (``TRAIN_SMOKE_TOL``); the card's flash launches: one forward and one
+    backward for each attention call of the forward.  Fails
+    otherwise."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.param import leaves
+    from repro_torch.training.optimizer import OptHyper, tree_map
+    from repro_torch.training.step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(arch).smoke(), param_dtype="float32",
+                              **TRAIN_SMOKE[arch])
+    cpu = Model(cfg, device="cpu").init(seed=0)
+    p0 = {n: p.detach().clone() for n, p in leaves(cpu.params)}
+    card = Model(cfg, device=dev).load_params(
+        tree_map(lambda t: t.detach().clone(), cpu.params))
+    batch = smoke_batch(cfg)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        state = init_train_state(model)
+        step = make_train_step(model, OptHyper(lr=1e-3))
+        kernels.reset_launches()
+        state, metrics = step(state, batch)
+        if name == "card":
+            torch.cuda.synchronize()
+        out[name] = (state, metrics, kernels.launch_counts())
+    (s_c, m_c, _), (s_g, m_g, counts) = out["cpu"], out["card"]
+    tol = TRAIN_SMOKE_TOL
+    met = max(abs(float(m_g[k]) - float(m_c[k])) / max(1.0, abs(float(
+        m_c[k]))) for k in m_c)
+    mom = 0.0
+    for key in ("mu", "nu"):
+        ref = dict(leaves(s_c["opt"][key]))
+        for n, t in leaves(s_g["opt"][key]):
+            w = ref[n].float()
+            mom = max(mom, float((t.cpu().float() - w).abs().max())
+                      / max(float(w.abs().max()), 1e-30))
+    ref = dict(leaves(s_c["params"]))
+    diff = want = 0.0
+    for n, t in leaves(s_g["params"]):
+        d_cpu = ref[n].detach() - p0[n]
+        diff += float((t.detach().cpu() - p0[n] - d_cpu).square().sum())
+        want += float(d_cpu.square().sum())
+    upd = (diff / max(want, 1e-60)) ** 0.5
+    calls = flash_layers(cfg) + (1 if cfg.mtp_depth else 0)
+    say(f"train smoke {arch}", widened=json.dumps(TRAIN_SMOKE[arch]),
+        loss=float(m_g["loss"]), metric_err=met, moment_err=mom,
+        update_rel_err=upd, flash_fwd=counts["flash_attention"],
+        flash_bwd=counts["flash_attention_bwd"], expected=calls)
+    check(set(m_g) == set(m_c) and met <= tol["metrics"],
+          f"train smoke {arch}: metrics differ ({met})")
+    check(mom <= tol["moments"][cfg.opt_dtype],
+          f"train smoke {arch}: moments differ ({mom})")
+    check(upd <= tol["update"], f"train smoke {arch}: updates differ ({upd})")
+    check(counts["flash_attention"] == calls
+          and counts["flash_attention_bwd"] == calls,
+          f"train smoke {arch}: {counts['flash_attention']} forward and "
+          f"{counts['flash_attention_bwd']} backward flash launches, "
+          f"expected {calls} each")
+    return {"metric_err": met, "moment_err": mom, "update_rel_err": upd}
+
+
+def phase_train_smoke(dev):
+    """Phase 44: every arch's widened smoke step, card against CPU."""
+    from repro_torch.configs import ARCH_IDS
+    return {arch: train_smoke_step(arch, dev) for arch in ARCH_IDS}
+
+
+def train_model(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    model = Model(get_config(TRAIN_ARCH), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    say("train model", arch=TRAIN_ARCH, params=model.param_count(),
+        dtype=cfg.param_dtype, opt_dtype=cfg.opt_dtype, remat=cfg.remat,
+        init_s=time.perf_counter() - t0, layers=cfg.num_layers)
+    return model
+
+
+def train_batch(cfg, dev, B: int, S: int, seed: int = 45):
+    """B rows of S + 1 tokens from a seeded generator on the card: tokens
+    the first S, labels the next-token shift."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randint(1, cfg.vocab_size, (B, S + 1), generator=g,
+                      device=dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def prefill_ce(model, batch) -> float:
+    """The mean next-token cross-entropy of ``batch`` from
+    ``prefill_logits`` (no grad): the training loss's ce by another
+    route."""
+    import torch
+    logits = model.prefill_logits(batch)
+    lab = model._tokens(batch["labels"])
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, lab[..., None])[..., 0]
+    ce = float((logz - tgt).mean())
+    del logits, logz, tgt
+    torch.cuda.empty_cache()
+    return ce
+
+
+def phase_train(model, dev, sizes=TRAIN):
+    """Phase 45: ``TRAIN["steps"]`` AdamW steps of the full-width model on
+    B x S tokens in microbatches, through ``make_train_step``.  The first
+    holds the set-up; its ce is held against ``prefill_ce`` of the last
+    microbatch (the metric is the last microbatch's) at ``TRAIN_CE_TOL``.
+    Step 2 is timed with the launch counts reset around it; step 3 runs
+    under the profiler (its device busy time against step 2's wall gives
+    the idle share: the profiler itself slows the host ~4x).  Checks: finite loss and grad norm, every
+    parameter changed and finite."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.param import leaves
+    from repro_torch.training.optimizer import OptHyper
+    from repro_torch.training.step import init_train_state, make_train_step
+    cfg = model.cfg
+    B, S, mb = sizes["B"], sizes["S"], sizes["microbatches"]
+    batch = train_batch(cfg, dev, B, S)
+    last = {k: v[B - B // mb:] for k, v in batch.items()}
+    ce_prefill = prefill_ce(model, last)
+    state = init_train_state(model)
+    p0 = {n: p.detach().clone() for n, p in leaves(state["params"])}
+    step = make_train_step(model, OptHyper(**TRAIN_HYPER), microbatches=mb)
+    n_params = sum(p.numel() for p in p0.values())
+    state_bytes = n_params * (2 + 4) + sum(
+        t.numel() * t.element_size() for key in ("mu", "nu")
+        for _, t in leaves(state["opt"][key]))
+    logits_bytes = B // mb * S * cfg.padded_vocab * 4
+    flop = 8 * n_params * B * S
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics, counts = [], [], None
+    for i in range(sizes["steps"]):
+        if i == 1:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        if i == 2:
+            busy, ops, _, ours, top = device_profile(
+                lambda: metrics.append(step(state, batch)[1]))
+        else:
+            state, m = step(state, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 1:
+            counts = kernels.launch_counts()
+        m = metrics[-1]
+        check(bool(torch.isfinite(m["loss"])) and bool(
+            torch.isfinite(m["grad_norm"])),
+            f"train step {i + 1}: loss {float(m['loss'])} grad norm "
+            f"{float(m['grad_norm'])}")
+        say(f"train step {i + 1}", wall_ms=walls[-1] * 1e3,
+            **{k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    ce0 = float(metrics[0]["ce"])
+    ce_err = abs(ce0 - ce_prefill) / abs(ce_prefill)
+    check(ce_err <= TRAIN_CE_TOL, f"train: the first step's ce {ce0} is "
+                                  f"{ce_err} from prefill's {ce_prefill}")
+    unchanged = [n for n, p in leaves(state["params"])
+                 if torch.equal(p.detach(), p0[n])]
+    finite = all(bool(torch.isfinite(p.detach().float()).all())
+                 for _, p in leaves(state["params"]))
+    check(not unchanged, f"train: parameters unchanged after "
+                         f"{sizes['steps']} steps: {unchanged}")
+    check(finite, "train: non-finite parameters")
+    # a forward launch each layer and microbatch, again in the backward's
+    # recompute under remat; a backward launch each
+    layers = cfg.num_layers
+    want = {"flash_attention": layers * mb * (1 if cfg.remat == "none"
+                                              else 2),
+            "flash_attention_bwd": layers * mb}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"train: flash launches a step {counts}, expected {want}")
+    step_s = walls[1]
+    nums = dict(B=B, S=S, microbatches=mb, hyper=json.dumps(TRAIN_HYPER),
+                step_ms=step_s * 1e3, step_ms_profiled=walls[2] * 1e3,
+                first_step_ms=walls[0] * 1e3,
+                tokens_per_s=B * S / step_s, params=n_params,
+                flop_per_step=flop, flop_share=flop / step_s / 989e12,
+                peak_gib=peak / 2**30, state_gib=state_bytes / 2**30,
+                microbatch_logits_gib=logits_bytes / 2**30,
+                ce_first=ce0, ce_prefill=ce_prefill, ce_rel_err=ce_err,
+                flash_fwd_launches=counts["flash_attention"],
+                flash_bwd_launches=counts["flash_attention_bwd"],
+                device_busy_ms=busy, idle_share=1.0 - busy / 1e3 / step_s,
+                device_ops=ops, kernels=json.dumps(ours),
+                top=json.dumps(top))
+    say("train", **nums)
+    del p0, state, step
+    torch.cuda.empty_cache()
+    return counts, nums
+
+
+def phase_train_compressed(model, dev, sizes=TRAIN):
+    """Phase 46: one more step of phase 45's model with int8 gradient
+    compression and error feedback (a fresh optimizer state)."""
+    import torch
+    from repro_torch.models.param import leaves
+    from repro_torch.training.optimizer import OptHyper
+    from repro_torch.training.step import init_train_state, make_train_step
+    B, S, mb = sizes["B"], sizes["S"], sizes["microbatches"]
+    batch = train_batch(model.cfg, dev, B, S, seed=46)
+    state = init_train_state(model, compress=True)
+    step = make_train_step(model, OptHyper(**TRAIN_HYPER), microbatches=mb,
+                           compress=True)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(m["loss"])) and all(
+        bool(torch.isfinite(p.detach().float()).all())
+        for _, p in leaves(state["params"]))
+    ef = sum(float(t.abs().sum()) for _, t in leaves(state["opt"]["ef"]))
+    say("train compressed", step_ms=wall * 1e3, ef_abs_sum=ef,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        **{k: float(v) for k, v in m.items()})
+    check(finite and ef > 0, "train compressed: non-finite loss or "
+                             "parameters, or no residual kept")
+    del state, step
+    torch.cuda.empty_cache()
+    return wall * 1e3
+
+
+def train_phases(phase, dev):
+    """Phases 42-46; the kernels line's three backward entries."""
+    import torch
+    err42 = phase("flash bwd agreement", phase_flash_bwd_agreement, dev)
+    err43, whole, per = phase("flash bwd time", phase_flash_bwd_time, dev)
+    phase("train smoke", phase_train_smoke, dev)
+    model = phase("train model", train_model, dev)
+    counts, nums = phase("train", phase_train, model, dev)
+    phase("train compressed", phase_train_compressed, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    entries = []
+    for name in BWD_KERNELS:
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+            "replaces": BWD_REPLACES,
+            "launches": counts["flash_attention_bwd"],
+            "launches_by_path": {"train step": counts["flash_attention_bwd"]},
+            "max_abs_err": max(err42, err43),
+            "tolerance": "relative norm of dQ, dK, dV against "
+                         "flash_attention_bwd_plain: float32 1e-5, bf16 "
+                         "2^-8 (one rounding to bf16 each); the forward's "
+                         "LSE 1e-5 of max(1, |plain|)",
+            **per[name], "whole_backward": whole,
+            "train_step": {k: nums[k] for k in (
+                "step_ms", "tokens_per_s", "flop_share", "peak_gib")}})
+    return entries
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4590,10 +5134,12 @@ def main() -> None:
     build_s = _build.build_all()
     card = smi()
     say("build", seconds=build_s, sources=len(_build.SOURCES),
-        card=json.dumps(card))
+        card=json.dumps(card),
+        nvcc_s=json.dumps(dict(sorted(_build.BUILD_SECONDS.items()))))
     print(card, flush=True)
     ptxas_report(_build)
-    for name in ("dlv_scan", "bfrt", "segstats", "split_tree"):
+    for name in ("dlv_scan", "bfrt", "segstats", "split_tree",
+                 "flash_attn_bwd"):
         say(f"ptxas {name}", report=json.dumps(
             [ln.strip() for ln in _build.build_log(name).splitlines()
              if re.search(r"entry function|registers|spill", ln)]))
@@ -4671,6 +5217,7 @@ def main() -> None:
     hybrid_counts, hybrid_flash, hybrid_serve_lp = hybrid_phases(phase, dev)
     encdec_counts, encdec_flash, encdec_serve_lp = encdec_phases(phase, dev)
     vlm_counts, vlm_flash, vlm_serve_lp = vlm_phases(phase, dev)
+    bwd_entries = train_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
@@ -4752,6 +5299,7 @@ def main() -> None:
                                            streamed_errs.get(name, 0.0)),
                         "tolerance": TOLERANCE[name], **nums_m,
                         "fixed_shape": nums_f, **extra})
+    entries += bwd_entries
     say("done", seconds=time.perf_counter() - t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

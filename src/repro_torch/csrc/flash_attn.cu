@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a): causal / sliding-window / prefix-LM
-// / full attention, self or cross, with an online softmax, forward only.
+// / full attention, self or cross, with an online softmax: the forward, and
+// on request each row's log-sum-exp for the backward (csrc/flash_attn_bwd.cu).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention.py:32
 // (_flash_kernel) and the GQA expansion of repro/kernels/ops.py::
@@ -11,6 +12,11 @@
 //
 // out[b, i, h, :] = softmax_j(q_i . k_j * scale + mask_ij) . v_j, with the
 // softmax state (m, l, acc) in float32 and the output acc / max(l, 1e-30).
+// With a non-null `lse` (float32, (B, H, Sq)) a launch also writes, for each
+// row, m + log(max(l, 1e-30)) in natural-log units of the scaled scores:
+// the log of the softmax's denominator, which the backward kernels read to
+// recompute P without a second pass.  A null `lse` writes nothing and
+// leaves every output bit as it was.
 // mask (the reference's _mask): key j is attended when j < prefix, or when
 // the call is full, or when i >= j (causal) and, with a window, i - j <
 // window.  scale is the caller's (1/sqrt(HDQK) by default in the wrapper).
@@ -122,8 +128,9 @@ template <int HDQK, int HDV, bool PREFIX>
 __global__ void __launch_bounds__(THREADS, HDV > 128 ? 1 : 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int Sq, int Sk, int H, int KV, int causal, int window,
-                     int prefix, float scale, int n_qt) {
+                     float* __restrict__ lse, int Sq, int Sk, int H,
+                     int KV, int causal, int window, int prefix, float scale,
+                     int n_qt) {
   constexpr int LD = HDQK + 1;          // padded row of the Q and K tiles
   constexpr int PLD = BK + 1;           // padded row of P
   constexpr int NC = (HDV + 15) / 16;   // accumulator columns per thread
@@ -270,6 +277,8 @@ __global__ void __launch_bounds__(THREADS, HDV > 128 ? 1 : 2)
     const int qi = q0 + 4 * ty + i;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)        // m is in units of scaled scores
+      lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(denom);
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int col = tx + 16 * cc;
@@ -280,7 +289,7 @@ __global__ void __launch_bounds__(THREADS, HDV > 128 ? 1 : 2)
 
 template <int HDQK, int HDV>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
-                      int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                      float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
                       int64_t KV, int causal, int window, int prefix,
                       float scale, cudaStream_t st) {
   const size_t smem = smem_floats<HDQK, HDV>() * sizeof(float);
@@ -292,7 +301,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
   const int n_qt = (int)((Sq + BQ - 1) / BQ);
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
   kernel<<<grid, THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)Sq,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+      (int)Sq,
       (int)Sk, (int)H, (int)KV, causal, window, prefix, scale, n_qt);
   return (int)cudaGetLastError();
 }
@@ -682,7 +692,8 @@ __global__ void __launch_bounds__(tc::Cfg<HDQK, HDV>::THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Sk, int H,
                         int KV, int causal, int window, int prefix, float c2,
                         int n_qt) {
   using namespace tc;
@@ -833,6 +844,10 @@ __global__ void __launch_bounds__(tc::Cfg<HDQK, HDV>::THREADS, 1)
     const int qi = rows.r0 + 8 * i;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is a raw score: m * c2 + log2(l) is the log-sum-exp in log2 units
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * H + h) * Sq + qi] =
+          (m[i] * rows.c2 + log2f(denom)) * 0.6931471805599453f;
 #pragma unroll
     for (int j = 0; j < NO / 4; ++j) {
       const int col = 8 * j + rows.cq;
@@ -897,9 +912,9 @@ static bool make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S,
 
 template <int HDQK, int HDV>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
-                     int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
-                     int causal, int window, int prefix, float scale,
-                     cudaStream_t st) {
+                     float* lse, int64_t B, int64_t Sq, int64_t Sk,
+                     int64_t H, int64_t KV, int causal, int window,
+                     int prefix, float scale, cudaStream_t st) {
   using C = tc::Cfg<HDQK, HDV>;
   // TMA reads from 16-byte aligned addresses
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
@@ -918,20 +933,20 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)n_qt, (unsigned)(B * H));
   const float log2e = 1.4426950408889634f;
   kernel<<<grid, C::THREADS, C::SMEM, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (int)Sq, (int)Sk, (int)H, (int)KV,
+      tq, tk, tv, (__nv_bfloat16*)o, lse, (int)Sq, (int)Sk, (int)H, (int)KV,
       causal, window, prefix, scale * log2e, n_qt);
   return (int)cudaGetLastError();
 }
 
 template <int HDQK, int HDV>
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
-                  int causal, int window, int prefix, float scale, bool bf16,
-                  cudaStream_t st) {
-  return bf16 ? launch_tc<HDQK, HDV>(q, k, v, o, B, Sq, Sk, H, KV, causal,
-                                     window, prefix, scale, st)
-              : launch_f32<HDQK, HDV>(q, k, v, o, B, Sq, Sk, H, KV, causal,
-                                      window, prefix, scale, st);
+                  float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                  int64_t KV, int causal, int window, int prefix, float scale,
+                  bool bf16, cudaStream_t st) {
+  return bf16 ? launch_tc<HDQK, HDV>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                     causal, window, prefix, scale, st)
+              : launch_f32<HDQK, HDV>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                      causal, window, prefix, scale, st);
 }
 
 // the instantiated (q/k head_dim, v head_dim) pairs, one switch key each
@@ -944,13 +959,15 @@ constexpr int64_t pair_key(int64_t hd, int64_t hdv) {
 // else float32 (the CUDA-core kernel).  (hd, hdv) in {(64, 64), (120, 120),
 // (128, 128), (192, 128), (256, 256)}; H % KV == 0; a causal call has Sq
 // == Sk; window <= 0 means none; keys below `prefix` are attended by every
-// query; scores are scaled by `scale`.  Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError().
+// query; scores are scaled by `scale`.  lse: null, or float32 (B, H, Sq)
+// for each row's log-sum-exp.  Launches on `stream`, allocates nothing,
+// does not synchronise; returns cudaGetLastError().
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int64_t B, int64_t Sq, int64_t Sk,
-                              int64_t H, int64_t KV, int64_t hd, int64_t hdv,
-                              int64_t causal, int64_t window, int64_t prefix,
-                              double scale, int64_t is_bf16, void* stream) {
+                              void* o, void* lse, int64_t B, int64_t Sq,
+                              int64_t Sk, int64_t H, int64_t KV, int64_t hd,
+                              int64_t hdv, int64_t causal, int64_t window,
+                              int64_t prefix, double scale, int64_t is_bf16,
+                              void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
   if (KV <= 0 || H % KV != 0 || B * H > 65535 || Sk <= 0 ||
       Sq > (int64_t)1 << 30 || Sk > (int64_t)1 << 30 ||
@@ -966,8 +983,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   switch (pair_key(hd, hdv)) {
 #define FLASH_PAIR(A, V)                                                   \
   case pair_key(A, V):                                                     \
-    return launch<A, V>(q, k, v, o, B, Sq, Sk, H, KV, c, w, pf, sc, bf16, \
-                        st);
+    return launch<A, V>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KV, c, w, pf, \
+                        sc, bf16, st);
     FLASH_PAIR(64, 64)
     FLASH_PAIR(120, 120)
     FLASH_PAIR(128, 128)

@@ -42,14 +42,17 @@ EXTRA_FLAGS = {"pricing": ("-fmad=false",),
                "segstats": ("-fmad=false", "-Xptxas", "-v"),
                "dlv_scan": ("-fmad=false", "-Xptxas", "-v"),
                "flash_attn": ("-Xptxas", "-v"),
+               "flash_attn_bwd": ("-Xptxas", "-v"),
                "split_tree": ("-Xptxas", "-v")}
 # split_tree_bisect: the descent kernel that split_tree replaced, built
 # only as the baseline it is timed against
 SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn",
-           "lp_batch", "split_tree", "split_tree_bisect")
+           "flash_attn_bwd", "lp_batch", "split_tree", "split_tree_bisect")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# each source's nvcc wall seconds, for the sources built in this process
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -81,14 +84,15 @@ def _start(name: str, defines: tuple = ()):
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
     if job is None:
         return
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log, _ = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")

@@ -34,6 +34,20 @@ mixed dtypes, a non-contiguous tensor.  On a CPU tensor it runs
 online-softmax scan (``repro/models/attention.py::chunked_attention``)
 over exactly the keys given, whose general form :func:`chunked_scan` is
 also the CPU path of ``repro_torch.models.attention.chunked_attention``.
+
+The backward (training) is :class:`FlashAttentionFn`, which
+:func:`flash_attention` takes when autograd records and q, k or v
+requires grad: its forward launches the kernel with each row's
+log-sum-exp (``lse`` (B, H, Sq) float32, m + log(max(l, 1e-30)) of the
+scaled scores) and saves q, k, v, O and LSE; its backward is
+:func:`flash_attention_bwd`, three kernels of ``csrc/flash_attn_bwd.cu``
+(D = rowsum(dO * O), then dK/dV one block a KV tile, then dQ one block a
+query tile; FlashAttention-2's backward, float32 on the CUDA cores).  No
+TPU kernel is replaced: the reference's Pallas kernel has no backward and
+the reference differentiates its jnp scan.  Their plain versions are
+:func:`flash_attention_fwd_lse_plain` and :func:`flash_attention_bwd_plain`
+(the explicit formula, ``PLAIN_CHUNK`` keys at a time).  Without grad the
+forward-only launch runs, as it did before the backward existed.
 """
 from __future__ import annotations
 
@@ -51,10 +65,16 @@ HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128), (256, 256))
 # float32 score block is 1.6 GB at S = 32,768
 PLAIN_CHUNK = 1024
 launches = 0
+bwd_launches = 0             # flash_attention_bwd calls: 3 kernels each
 
-_SIG = {"flash_attn_fwd": (_build.P,) * 4 + (_build.I64,) * 10
+_SIG = {"flash_attn_fwd": (_build.P,) * 5 + (_build.I64,) * 10
         + (_build.F64, _build.I64, _build.P),
         "flash_attn_smem_bytes": (_build.I64,) * 3}
+_BWD_ARGS = (_build.I64,) * 10 + (_build.F64, _build.I64, _build.P)
+_BWD_SIG = {"flash_attn_bwd_dot": (_build.P,) * 3 + (_build.I64,) * 5
+            + (_build.P,),
+            "flash_attn_bwd_dkdv": (_build.P,) * 8 + _BWD_ARGS,
+            "flash_attn_bwd_dq": (_build.P,) * 7 + _BWD_ARGS}
 
 
 def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):
@@ -85,6 +105,19 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     attended; the reference's padded last chunk is the caller's
     (``repro_torch.models.attention.chunked_attention``).
     """
+    B, Sq, H, _ = q.shape
+    o_run, l_run, _ = _online_softmax(q, k, v, q_pos, k_pos, causal=causal,
+                                      window=window, prefix_len=prefix_len,
+                                      chunk=chunk, scale=scale)
+    o = o_run / l_run.clamp_min(1e-37)[..., None]
+    return o.reshape(B, Sq, H, v.shape[3]).to(q.dtype)
+
+
+def _online_softmax(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
+                    prefix_len, chunk: int, scale: Optional[float]):
+    """The chunked scan's float32 state after the last chunk: the
+    unnormalised output (B, Sq, KV, g, hdv), the sum l and the running max
+    m of the scaled scores (B, Sq, KV, g)."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, hdv = v.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -110,8 +143,7 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
         o_run = o_run * corr[..., None] + torch.einsum(
             "bqkgc,bckh->bqkgh", p, v_i)
         m_run = m_new
-    o = o_run / l_run.clamp_min(1e-37)[..., None]
-    return o.reshape(B, Sq, H, hdv).to(q.dtype)
+    return o_run, l_run, m_run
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -125,6 +157,66 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                         torch.arange(k.shape[1], device=dev), causal=causal,
                         window=window, prefix_len=prefix or None,
                         chunk=PLAIN_CHUNK, scale=scale)
+
+
+def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
+                                  window: int = 0,
+                                  scale: Optional[float] = None,
+                                  prefix: int = 0):
+    """Plain version of the kernel's forward with ``lse``: (the output of
+    :func:`flash_attention_plain`, each row's log-sum-exp (B, H, Sq)
+    float32, m + log(max(l, 1e-30)) of the scaled scores)."""
+    B, Sq, H, _ = q.shape
+    dev = q.device
+    o_run, l_run, m_run = _online_softmax(
+        q, k, v, torch.arange(Sq, device=dev),
+        torch.arange(k.shape[1], device=dev), causal=causal, window=window,
+        prefix_len=prefix or None, chunk=PLAIN_CHUNK, scale=scale)
+    o = o_run / l_run.clamp_min(1e-37)[..., None]
+    lse = m_run + torch.log(l_run.clamp_min(1e-30))
+    return (o.reshape(B, Sq, H, v.shape[3]).to(q.dtype),
+            lse.reshape(B, Sq, H).transpose(1, 2).contiguous())
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0,
+                              scale: Optional[float] = None,
+                              prefix: int = 0):
+    """Plain version of the backward kernels: (dq, dk, dv) in the inputs'
+    dtypes from the forward's output ``o``, its ``lse`` (B, H, Sq) and the
+    output's gradient ``do``, by the explicit formula in float32,
+    ``PLAIN_CHUNK`` keys at a time: D = rowsum(dO * O), P = exp(scale *
+    q k^T - LSE) masked, dV = P^T dO, dS = P * (dO v^T - D), dQ = scale *
+    dS k, dK = scale * dS^T q; GQA's query heads summed into their KV
+    head."""
+    B, Sq, H, d = q.shape
+    _, Sk, KV, dv = v.shape
+    g = H // KV
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    dev = q.device
+    qf = q.float().reshape(B, Sq, KV, g, d)
+    dof = do.float().reshape(B, Sq, KV, g, dv)
+    D = (dof * o.float().reshape(B, Sq, KV, g, dv)).sum(-1)
+    L = lse.float().transpose(1, 2).reshape(B, Sq, KV, g)
+    q_pos, k_pos = torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for c0 in range(0, Sk, PLAIN_CHUNK):
+        k_i = k[:, c0:c0 + PLAIN_CHUNK].float()
+        v_i = v[:, c0:c0 + PLAIN_CHUNK].float()
+        msk = mask(q_pos, k_pos[c0:c0 + PLAIN_CHUNK], causal=causal,
+                   window=window, prefix_len=prefix or None)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, k_i) * scale
+        p = torch.where(msk[None, :, None, None, :],
+                        torch.exp(s - L[..., None]), 0.0)
+        dvs.append(torch.einsum("bqkgc,bqkgh->bckh", p, dof))
+        ds = p * (torch.einsum("bqkgh,bckh->bqkgc", dof, v_i)
+                  - D[..., None])
+        dq += torch.einsum("bqkgc,bckh->bqkgh", ds, k_i)
+        dks.append(torch.einsum("bqkgc,bqkgh->bckh", ds, qf))
+    return ((dq * scale).reshape(B, Sq, H, d).to(q.dtype),
+            (torch.cat(dks, dim=1) * scale).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
 
 
 def _check(q, k, v, causal: bool = True) -> None:
@@ -162,31 +254,135 @@ def _check(q, k, v, causal: bool = True) -> None:
                              f"on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None,
-                    prefix: int = 0) -> torch.Tensor:
-    """Attention of q (B, Sq, H, d) over k (B, Sk, KV, d) and v (B, Sk,
-    KV, dv), scores scaled by ``scale`` (``d^-1/2`` when None), keys below
-    ``prefix`` attended by every query; (B, Sq, H, dv)."""
+def _check_bwd(q, v, o, lse, do) -> None:
+    B, Sq, H, _ = q.shape
+    if tuple(o.shape) != (B, Sq, H, v.shape[3]) or do.shape != o.shape:
+        raise ValueError(f"flash_attention_bwd: o and do must be (B, Sq, H, "
+                         f"dv) = {(B, Sq, H, v.shape[3])} (got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)})")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 (B, H, "
+                         f"Sq) = {(B, H, Sq)} (got {tuple(lse.shape)} "
+                         f"{lse.dtype})")
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous on {q.device}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o and do must be {q.dtype} "
+                         f"(got {o.dtype}, {do.dtype})")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None, prefix: int = 0,
+                        want_lse: bool = False):
+    """One launch of the forward kernel on CUDA tensors: (o, each row's
+    log-sum-exp (B, H, Sq) float32 with ``want_lse``, else None)."""
     global launches
     prefix = max(int(prefix), 0)
-    if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, prefix=prefix)
     _check(q, k, v, causal)
     B, Sq, H, d = q.shape
     Sk = k.shape[1]
     dv = v.shape[3]
     o = q.new_empty((B, Sq, H, dv))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if want_lse else None
     if o.numel() == 0:
-        return o
+        return o, lse
     lib = _build.load("flash_attn", _SIG)
     err = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
-        H, k.shape[2], d, dv, int(bool(causal)), max(int(window), 0),
-        min(prefix, Sk), 1.0 / math.sqrt(d) if scale is None
-        else float(scale), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if want_lse else None, B, Sq, Sk, H, k.shape[2], d,
+        dv, int(bool(causal)), max(int(window), 0), min(prefix, Sk),
+        1.0 / math.sqrt(d) if scale is None else float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None,
+                        prefix: int = 0):
+    """(dq, dk, dv) of the attention that gave ``o`` and ``lse`` (the
+    forward's, same arguments) for the output gradient ``do``.  On a CUDA
+    tensor three launches of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV,
+    then dQ), counted once in ``bwd_launches``; it raises on what the
+    forward does not take.  On a CPU tensor
+    :func:`flash_attention_bwd_plain`."""
+    global bwd_launches
+    prefix = max(int(prefix), 0)
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale,
+                                         prefix=prefix)
+    _check(q, k, v, causal)
+    _check_bwd(q, v, o, lse, do)
+    B, Sq, H, d = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dvv
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attn_bwd", _BWD_SIG)
+    bf16 = int(q.dtype == torch.bfloat16)
+    st = _build.stream_ptr(q.device)
+    _build.check(lib.flash_attn_bwd_dot(o.data_ptr(), do.data_ptr(),
+                                        D.data_ptr(), B, Sq, H, dv, bf16, st),
+                 "flash_attention_bwd (dot)")
+    args = (B, Sq, Sk, H, KV, d, dv, int(bool(causal)), max(int(window), 0),
+            min(prefix, Sk),
+            1.0 / math.sqrt(d) if scale is None else float(scale), bf16, st)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), D.data_ptr())
+    _build.check(lib.flash_attn_bwd_dkdv(*common, dk.data_ptr(),
+                                         dvv.data_ptr(), *args),
+                 "flash_attention_bwd (dkdv)")
+    _build.check(lib.flash_attn_bwd_dq(*common, dq.data_ptr(), *args),
+                 "flash_attention_bwd (dq)")
+    bwd_launches += 1
+    return dq, dk, dvv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel with ``lse``
+    (q, k, v, O and LSE saved), the backward kernels for dq, dk, dv.  On
+    CPU tensors the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, prefix):
+        kw = dict(causal=causal, window=window, scale=scale, prefix=prefix)
+        if q.device.type == "cuda":
+            o, lse = flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        else:
+            o, lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    prefix: int = 0) -> torch.Tensor:
+    """Attention of q (B, Sq, H, d) over k (B, Sk, KV, d) and v (B, Sk,
+    KV, dv), scores scaled by ``scale`` (``d^-1/2`` when None), keys below
+    ``prefix`` attended by every query; (B, Sq, H, dv).  On CUDA with grad
+    recorded for q, k or v: :class:`FlashAttentionFn`; otherwise one
+    forward-only launch."""
+    prefix = max(int(prefix), 0)
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, prefix=prefix)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale, prefix)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               scale=scale, prefix=prefix)[0]

@@ -8,12 +8,18 @@ launches the hand-written flash kernel through its one entry,
 optional window, full self-attention (an encoder), cross-attention (Sq !=
 Sk, full, no window) and prefix-LM (causal with an int ``prefix_len``),
 with the caller's scale, at the kernel's (q/k head_dim, v head_dim)
-pairs.  A full call gets the reference's padded last chunk as real zero
-keys on either device, so both attend what the reference attends.  What the kernel
-does not take raises (a per-batch ``prefix_len`` tensor, a window on a
-full call, causal with Sq != Sk); nothing quietly runs the plain scan on
-the card.  On a CPU tensor it runs the plain chunked online-softmax scan,
-the reference's algorithm, which lives with its mask (the reference's
+pairs; when autograd records for q, k or v (training), through
+``kernels.attention.FlashAttentionFn``, whose backward is the
+hand-written backward kernels (a full call's zero keys are joined by
+``torch.cat``, whose backward drops their gradient, as the reference's
+padded scan does).  A full call gets the reference's padded last chunk
+as real zero keys on either device, so both attend what the reference
+attends.  What the kernel does not take raises (a per-batch
+``prefix_len`` tensor, a window on a full call, causal with Sq != Sk);
+nothing quietly runs the plain scan on the card.  On a CPU tensor it
+runs the plain chunked online-softmax scan, the reference's algorithm
+(which autograd differentiates, the reference's training route), which
+lives with its mask (the reference's
 ``_mask``) beside the kernel as the kernel's plain version
 (``kernels.attention.chunked_scan``, ``mask``).
 

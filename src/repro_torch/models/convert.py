@@ -1,4 +1,5 @@
-"""Carry a parameter tree of the JAX reference into the port.
+"""Carry a parameter tree (or a train state) of the JAX reference into the
+port.
 
 The port keeps the reference's names and layouts (``decoder.layers.attn.wq``
 is (L, d, H, hd), ``embed.embedding`` is (V, d), ...), so a leaf moves
@@ -9,7 +10,7 @@ JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -35,3 +36,29 @@ def from_jax_params(tree: Dict[str, Any], cfg: ArchConfig,
     """A ``Model`` of ``cfg`` on ``device`` holding the reference's
     parameters ``tree`` (cast to ``cfg.param_dtype``)."""
     return Model(cfg, device=device).load_params(_convert(tree))
+
+
+def from_jax_train_state(state: Dict[str, Any], cfg: ArchConfig,
+                         device="cuda") -> Tuple[Model, Dict[str, Any]]:
+    """The reference's train state ``{"params", "opt": {"mu", "nu", "step"
+    [, "ef"]}}`` (numpy leaves) as (a ``Model`` holding its parameters,
+    with gradients on, and the port's state over that model, as
+    ``training.step.init_train_state`` makes it): moments in
+    ``cfg.opt_dtype``, the error-feedback residual in float32, ``step`` an
+    int32 0-d tensor."""
+    model = from_jax_params(state["params"], cfg, device=device)
+    model.requires_grad_(True)
+    opt_in = state["opt"]
+
+    def tree(t, dtype):
+        return {k: tree(v, dtype) if isinstance(v, dict) else
+                _tensor(v).to(device=model.device, dtype=dtype)
+                for k, v in t.items()}
+
+    mdt = getattr(torch, cfg.opt_dtype)
+    opt = {"mu": tree(opt_in["mu"], mdt), "nu": tree(opt_in["nu"], mdt),
+           "step": torch.tensor(int(np.asarray(opt_in["step"])),
+                                dtype=torch.int32, device=model.device)}
+    if "ef" in opt_in:
+        opt["ef"] = tree(opt_in["ef"], torch.float32)
+    return model, {"params": model.params, "opt": opt}

@@ -1,6 +1,7 @@
 """Top-level model API (port of ``repro.models.model``), driven by ArchConfig.
 
     model = Model(cfg, device="cuda").init(generator)  # or convert.from_jax_params
+    loss, metrics = model.loss_fn(batch)                # training loss
     logits = model.prefill_logits(batch)                # parallel prefill
     cache  = model.init_cache(batch_size, cache_len)    # decode state
     logits, cache = model.decode_step(cache, tokens)    # one token
@@ -8,18 +9,25 @@
 The parameters live in the module, as a tree of submodules with the
 reference's names and layouts (``decoder.layers.attn.wq`` is
 (L, d, H, hd)); ``model.params`` is the same tree as a nested dict, which
-the layer functions take.  Batches are dicts with ``tokens`` (B, S) ints,
-plus ``enc_inputs`` (B, enc_len, D), the audio stub's frame embeddings,
-for an encoder-decoder, or ``prefix`` (B, num_prefix_tokens, D), the
-vision stub's patch embeddings, for a VLM.
+the layer functions take.  The parameters are created with
+``requires_grad=False``; training turns gradients on with
+``model.requires_grad_(True)`` (``training.step.init_train_state`` does),
+and the inference entries (``prefill_logits``, ``decode_step``,
+``prefill_with_cache``) run under ``torch.no_grad()`` whatever the
+parameters say.  Batches are dicts with ``tokens`` (B, S) ints,
+``labels`` (B, S) ints for the loss (-1 = ignore), plus ``enc_inputs``
+(B, enc_len, D), the audio stub's frame embeddings, for an
+encoder-decoder, or ``prefix`` (B, num_prefix_tokens, D), the vision
+stub's patch embeddings, for a VLM.
 
 The port runs every family of the reference: the GQA ones, dense and
 mixture of experts, DeepSeek's MLA with its leading dense stack and its
 multi-token prediction (MTP) head's parameters, the Mamba2 SSM stack,
 Jamba's hybrid periods, Whisper's encoder-decoder and PaliGemma's
-prefix-LM decoder; the training loss (and with it the MTP loss) waits
-for the training slice.  As in the reference, a VLM's decode sees no
-prefix (its decode path has none), and ``decode_step`` of an
+prefix-LM decoder, and the training loss of each (``loss_fn``: the
+cross-entropy over logits made 1,024 positions at a time, the router's
+aux loss, DeepSeek's MTP loss).  As in the reference, a VLM's decode sees
+no prefix (its decode path has none), and ``decode_step`` of an
 encoder-decoder attends whatever the cache's ``xk``/``xv`` hold: zeros
 from ``init_cache``, the encoder's projections after
 ``prefill_with_cache``.  Decode keeps the cache index as a host int and
@@ -28,11 +36,14 @@ writes the caches in place.
 from __future__ import annotations
 
 import math
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -186,10 +197,53 @@ class Model(nn.Module):
                                        prefix_len=prefix_len)
         return apply_norm(params["ln_f"], x, cfg.norm_eps), aux
 
+    @torch.no_grad()
     def prefill_logits(self, batch) -> torch.Tensor:
         """Parallel prefill: float32 logits (B, S, padded vocab)."""
         h, _ = self.hidden_states(batch)
         return logits_from(self.params["embed"], h).float()
+
+    # -------------------------------------------------------------- loss
+    def loss_fn(self, batch, ce_chunk: int = 1024):
+        """(total loss, metrics): the mean cross-entropy over the labels
+        that are not -1 (a VLM's prefix positions carry none), plus 0.01 x
+        the router's aux loss and, with an MTP head, 0.3 x its loss; the
+        metrics ``ce``, ``aux``, ``tokens`` (labels counted) and ``mtp``,
+        detached 0-d float32 tensors."""
+        cfg = self.cfg
+        h, aux = self.hidden_states(batch)
+        if cfg.num_prefix_tokens:            # loss only on text positions
+            h = h[:, cfg.num_prefix_tokens:]
+        labels = self._tokens(batch["labels"])
+        loss, denom = _chunked_ce(self.params["embed"], h, labels, ce_chunk)
+        ce = loss / denom.clamp_min(1.0)
+        metrics = {"ce": ce.detach(), "aux": aux.detach(),
+                   "tokens": denom.detach()}
+        total = ce + 0.01 * aux
+        if cfg.mtp_depth:
+            mtp_loss = self._mtp_loss(h, batch, labels, ce_chunk)
+            total = total + 0.3 * mtp_loss
+            metrics["mtp"] = mtp_loss.detach()
+        return total, metrics
+
+    def _mtp_loss(self, h, batch, labels, ce_chunk: int) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t ;
+        emb(token_{t+1})] through one extra block."""
+        cfg = self.cfg
+        params = self.params
+        p = params["mtp"]
+        emb_next = embed_tokens(params["embed"],
+                                self._tokens(batch["tokens"])[:, 1:],
+                                h.dtype)
+        z = torch.cat([apply_norm(p["ln"], h[:, :-1], cfg.norm_eps),
+                       emb_next], dim=-1) @ p["proj"]
+        positions = torch.arange(z.shape[1], dtype=torch.int32,
+                                 device=self.device)
+        z, _ = tfm.apply_attn_block(p["block"], cfg, z, positions,
+                                    use_moe=False)
+        mtp_labels = F.pad(labels[:, 2:], (0, 1), value=-1)
+        loss, denom = _chunked_ce(params["embed"], z, mtp_labels, ce_chunk)
+        return loss / denom.clamp_min(1.0)
 
     # ------------------------------------------------------------ decode
     def init_cache(self, batch_size: int, cache_len: int,
@@ -238,6 +292,7 @@ class Model(nn.Module):
                 else self.dtype, device=self.device)
         return cache
 
+    @torch.no_grad()
     def decode_step(self, cache, tokens, index: Optional[int] = None):
         """tokens: (B, 1) ints.  Returns (logits (B, V) float32, cache); the
         cache is updated in place and its host int ``index`` advanced."""
@@ -330,6 +385,7 @@ class Model(nn.Module):
         return x
 
     # -------------------------------------------- cache-filling prefill
+    @torch.no_grad()
     def prefill_with_cache(self, batch, cache_len: int):
         """Sequential prefill (a loop of decode steps), as the reference's
         serving example runs it; the parallel forward is
@@ -374,3 +430,38 @@ def _cross_decode(p, cfg: ArchConfig, x: torch.Tensor, xk: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckh->bkgh", w, xv.float())
     return attn._out(o.reshape(B, 1, H, hd).to(x.dtype), p["wo"])
+
+
+def _ce_chunk(emb_params, h: torch.Tensor, labels: torch.Tensor):
+    """(sum of -log p(label), labels counted) over one chunk of positions,
+    from its float32 logits; label -1 counts nothing."""
+    logits = logits_from(emb_params, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - tgt) * mask).sum(), mask.sum()
+
+
+def _chunked_ce(emb_params, h: torch.Tensor, labels: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with the (B, S, V) logits made only ``chunk``
+    positions at a time (S padded to a multiple of it, labels with -1),
+    the chunks summed in order.  Under autograd each chunk is
+    checkpointed (the reference's ``nothing_saveable``): its logits are
+    dropped after the forward and made again in the backward, so the
+    whole (B, S, V) logits never exist in either pass."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    one = functools.partial(_ce_chunk, emb_params)
+    if torch.is_grad_enabled():
+        one = functools.partial(checkpoint, one, use_reentrant=False)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[1], chunk):
+        l, c = one(h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        tot, cnt = tot + l, cnt + c
+    return tot, cnt

@@ -10,8 +10,9 @@ The reference computes every product here outside Pallas, so the port
 keeps them as torch products.  Its ``lax.scan`` over the S/Q chunks is a
 Python loop of two ops a chunk, in the reference's order: the state
 *before* a chunk is emitted, then ``h * decay + S_chunk``.  The quadratic
-intra-chunk tensors (decay, L, W) are built once, in place, in the
-(B, nC, nh, Q, Q) layout that the batched products take; the reference's
+intra-chunk tensors (decay, L, W) are built once, in place (out of
+place, with the same arithmetic, when autograd records: it keeps exp's
+output), in the (B, nC, nh, Q, Q) layout that the batched products take; the reference's
 ``(B, nC, Q, Q, nh)`` einsums contract the same sums.  Decode writes both
 caches in place (the reference returns new arrays): the state (B, nh, N,
 hp) in float32 and the conv window (B, ck-1, d_inner + 2N) in the
@@ -110,8 +111,12 @@ def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # inf * 0 would give NaN in W
     future = torch.ones((Q, Q), dtype=torch.bool,
                         device=x.device).triu_(1)
-    L.masked_fill_(future, -1e30).exp_()
-    W = L.mul_(scores[:, :, None]).mul_(dtc.permute(0, 1, 3, 2)[:, :, :, None])
+    dt_k = dtc.permute(0, 1, 3, 2)[:, :, :, None]
+    if torch.is_grad_enabled():  # autograd keeps exp's output: out of place
+        W = L.masked_fill(future, -1e30).exp() * scores[:, :, None] * dt_k
+    else:                        # the same arithmetic in place
+        W = L.masked_fill_(future, -1e30).exp_().mul_(
+            scores[:, :, None]).mul_(dt_k)
     del scores
     y_intra = (W @ xh.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
     del W, L

@@ -7,7 +7,12 @@ self-attention, ``ln_post``) and cross-attending decoder.
 The reference scans over layers with parameters stacked on a leading
 'layers' axis; the port keeps that layout (so parameters carry across
 1:1) and loops over it in Python, taking one layer's views per step.
-Remat is a training concern and waits for the training slice.  The
+Each layer's body is checkpointed by ``cfg.remat`` as the reference's
+``_remat`` wraps its scanned body, but only while autograd records
+(inference never checkpoints): "full" keeps nothing of the body and runs
+it again in the backward, "dots" keeps the outputs of the matrix
+products (``aten.mm``/``aten.addmm``, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.  The
 reference's ``constrain`` calls (``distributed/context.py``) are sharding
 hints with no effect on one card and are left out, as is its
 sequence-parallel attention branch.  A VLM's prefix-LM mask reaches
@@ -15,9 +20,12 @@ every block through ``apply_decoder``'s ``prefix_len``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -38,6 +46,30 @@ def depth(tree) -> int:
     """The leading (layers) extent of a stacked parameter tree."""
     v = next(iter(tree.values()))
     return depth(v) if isinstance(v, dict) else v.shape[0]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """One layer's body ``fn`` under ``cfg.remat``: itself for "none" or
+    when autograd does not record, else checkpointed ("full": nothing
+    kept; "dots": the products' outputs kept)."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat: {mode!r} is not none, full or dots")
 
 
 # ------------------------------------------------------------------ blocks
@@ -126,21 +158,24 @@ def apply_decoder(p, cfg: ArchConfig, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stack = p["layers"]
     if cfg.family == "ssm":
+        body = _remat(apply_ssm_block, cfg.remat)
         for i in range(depth(stack)):
-            x = apply_ssm_block(layer(stack, i), cfg, x)
+            x = body(layer(stack, i), cfg, x)
         return x, aux
     if cfg.is_hybrid:
+        body = _remat(_apply_jamba_block, cfg.remat)
         for i in range(depth(stack)):
-            x, a = _apply_jamba_block(layer(stack, i), cfg, x, positions)
+            x, a = body(layer(stack, i), cfg, x, positions)
             aux = aux + a
         return x, aux
+    body = _remat(apply_attn_block, cfg.remat)
     for name, use_moe in (("dense_layers", False), ("layers", cfg.uses_moe)):
         if name not in p:
             continue
         stack = p[name]
         for i in range(depth(stack)):
-            x, a = apply_attn_block(layer(stack, i), cfg, x, positions,
-                                    use_moe, prefix_len=prefix_len)
+            x, a = body(layer(stack, i), cfg, x, positions, use_moe,
+                        prefix_len)
             aux = aux + a
     return x, aux
 
@@ -202,13 +237,18 @@ def apply_encoder(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     D): pre-norm blocks with full self-attention, then ``ln_post``."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     stack = p["layers"]
+    body = _remat(_encoder_block, cfg.remat)
     for i in range(depth(stack)):
-        lp = layer(stack, i)
-        h = apply_norm(lp["ln1"], x, cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=False)
-        h = apply_norm(lp["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(lp["ffn"], h, cfg.act)
+        x = body(layer(stack, i), cfg, x, positions)
     return apply_norm(p["ln_post"], x, cfg.norm_eps)
+
+
+def _encoder_block(lp, cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(lp["ln1"], x, cfg.norm_eps)
+    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=False)
+    h = apply_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + apply_mlp(lp["ffn"], h, cfg.act)
 
 
 # ----------------------------------------------------- enc-dec decoder
@@ -230,16 +270,20 @@ def apply_xdecoder(p, cfg: ArchConfig, x: torch.Tensor,
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
                            device=x.device)
     stack = p["layers"]
+    body = _remat(_xdecoder_block, cfg.remat)
     for i in range(depth(stack)):
-        lp = layer(stack, i)
-        h = apply_norm(lp["ln1"], x, cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=True)
-        h = apply_norm(lp["ln_x"], x, cfg.norm_eps)
-        k, v = attn.gqa_project_kv(lp["xattn"], enc_out, enc_pos,
-                                   cfg.rope_theta)
-        x = x + attn.gqa_forward(lp["xattn"], cfg, h, positions,
-                                 causal=False, kv_override=(k, v),
-                                 kv_positions=enc_pos)
-        h = apply_norm(lp["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(lp["ffn"], h, cfg.act)
+        x = body(layer(stack, i), cfg, x, positions, enc_out, enc_pos)
     return x
+
+
+def _xdecoder_block(lp, cfg: ArchConfig, x: torch.Tensor,
+                    positions: torch.Tensor, enc_out: torch.Tensor,
+                    enc_pos: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(lp["ln1"], x, cfg.norm_eps)
+    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=True)
+    h = apply_norm(lp["ln_x"], x, cfg.norm_eps)
+    k, v = attn.gqa_project_kv(lp["xattn"], enc_out, enc_pos, cfg.rope_theta)
+    x = x + attn.gqa_forward(lp["xattn"], cfg, h, positions, causal=False,
+                             kv_override=(k, v), kv_positions=enc_pos)
+    h = apply_norm(lp["ln2"], x, cfg.norm_eps)
+    return x + apply_mlp(lp["ffn"], h, cfg.act)

@@ -8,7 +8,9 @@ parallel forward is ``Model.prefill_logits``).  The cache index stays a
 host int, so the loop reads back from the device only the sampled tokens,
 one read per token.  Temperature sampling draws from the engine's own
 ``torch.Generator`` under its lock.  ``serve`` records one ``TickStats``
-per tick on ``tick_log``.  An encoder-decoder decodes against the zero
+per tick on ``tick_log``.  Generation and ``serve`` run under
+``torch.no_grad()``, so a model whose parameters require grad (one being
+trained) serves without building graphs.  An encoder-decoder decodes against the zero
 cross cache of ``Model.init_cache`` and a VLM without its prefix: the
 reference's ``generate_batch`` runs neither the encoder nor the vision
 stub.
@@ -74,6 +76,7 @@ class ServingEngine:
             tok = logits.argmax(dim=-1)
         return tok.clamp(0, self.cfg.vocab_size - 1)
 
+    @torch.no_grad()
     def _generate(self, prompts: np.ndarray, max_new: int,
                   temperature: float) -> Tuple[np.ndarray, float, float]:
         """(tokens (B, max_new) int32, prefill s, decode s)."""
@@ -103,6 +106,7 @@ class ServingEngine:
         """prompts: (B, P) ints -> (B, max_new) int32 greedy/temp samples."""
         return self._generate(np.asarray(prompts), max_new, temperature)[0]
 
+    @torch.no_grad()
     def serve(self, scheduler: PackageScheduler, *, ticks: int,
               pad_token: int = 0) -> List[Generation]:
         """Run admission ticks; each admitted batch is generated jointly."""

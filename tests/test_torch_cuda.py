@@ -1950,3 +1950,90 @@ def test_dist_solve_on_the_card_is_the_cpu_solve(dist_meshes, seed, n):
     assert (got.iters, got.pivot_stats) == (want.iters, want.pivot_stats)
     assert np.array_equal(np.sort(got.basis), np.sort(want.basis))
     assert got.obj == pytest.approx(want.obj, rel=1e-9, abs=1e-9)
+
+
+# ------------------------------------------ the flash backward and training
+
+
+def _bwd_case(dev, case, mask, dtype):
+    return _chip_smoke().bwd_inputs(case, mask, dtype, dev)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "prefix", "cross"])
+@pytest.mark.parametrize("pair", ["64x64", "120x120", "128x128",
+                                  "192x128", "256x256"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_are_their_plain_version(dev, pair, mask, dtype):
+    """The three backward kernels against ``flash_attention_bwd_plain`` on
+    the kernel's own O and LSE, for every pair, dtype and mask of the
+    forward (S = 200; cross: 150 queries over 333 keys): dQ, dK, dV
+    within ``chip_smoke.BWD_TOL`` in relative norm (float32 1e-5; bf16
+    2^-8, each output one float32 sum rounded once in both); the forward's
+    output bit-identical with and without ``lse``; the LSE within 1e-5 of
+    max(1, |plain|).  One ``bwd_launches`` a call."""
+    cs = _chip_smoke()
+    case = next(c for c in cs.BWD_PAIRS if f"{c[0]}x{c[1]}" == pair)
+    m = next(x for x in cs.BWD_MASKS if x[0] == mask)
+    *qkv, do = _bwd_case(dev, case, m, dtype)
+    before = attention.bwd_launches
+    cs.bwd_hold(*qkv, do, **m[3])
+    assert attention.bwd_launches == before + 1
+
+
+def test_flash_forward_bits_unchanged_by_lse(dev):
+    """The forward's output with ``lse`` written, on every case of
+    ``scripts/flash_digests.py``: the digests recorded from the kernel
+    before the backward existed, and the same bits as the launch without
+    ``lse`` on the extra cases ((256, 256), prefix-LM, cross)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "flash_digests.py"
+    spec = importlib.util.spec_from_file_location("flash_digests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.digests(attention, lse=True) == FLASH_DIGESTS_BEFORE
+    assert mod.digests(attention, cases=mod.EXTRA_CASES, lse=True) == \
+        mod.digests(attention, cases=mod.EXTRA_CASES)
+
+
+def test_flash_autograd_function_against_finite_differences(dev):
+    """``FlashAttentionFn`` (the forward kernel with ``lse``, the backward
+    kernels) on a tiny causal float32 case: the directional derivative of
+    sum(o * w) along 8 random directions against central differences of
+    the forward kernel at eps = 1e-2, within 1e-2 relative (truncation
+    ~eps^2, float32 rounding ~1e-7 |L| / eps).  The kernel takes no
+    float64, so ``gradcheck`` does not apply."""
+    rng = np.random.default_rng(11)
+    q, k, v, w = (_t(rng.normal(size=s), dev, torch.float32)
+                  for s in ((1, 20, 2, 64), (1, 20, 1, 64), (1, 20, 1, 64),
+                            (1, 20, 2, 64)))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = attention.bwd_launches
+    out = attention.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad((out * w).sum(), leaves)
+    assert attention.bwd_launches == before + 1
+
+    def loss(a, b, c):
+        with torch.no_grad():
+            return float((attention.flash_attention(a, b, c, causal=True)
+                          * w).double().sum())
+    eps = 1e-2
+    for _ in range(8):
+        u = [_t(rng.normal(size=x.shape), dev, torch.float32)
+             for x in (q, k, v)]
+        fd = (loss(*(x + eps * d for x, d in zip((q, k, v), u)))
+              - loss(*(x - eps * d for x, d in zip((q, k, v), u)))) / (2 * eps)
+        an = sum(float((g * d).sum()) for g, d in zip(grads, u))
+        assert abs(fd - an) <= 1e-2 * max(abs(an), 1.0), (fd, an)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "h2o-danube-3-4b",
+                                  "deepseek-v3-671b", "mamba2-1.3b",
+                                  "whisper-base", "paligemma-3b"])
+def test_widened_smoke_train_step_on_the_card_equals_the_cpus(dev, arch):
+    """``chip_smoke.train_smoke_step``: one float32 step of the widened
+    smoke config on the card and on the CPU from the same parameters and
+    batch (``TRAIN_SMOKE_TOL``: metrics 1e-5, moments 1e-4 of each leaf's
+    largest or 2^-8 where they are bf16, the whole update 1e-3 in relative
+    norm; one forward and one backward flash launch per attention
+    call)."""
+    _chip_smoke().train_smoke_step(arch, dev)
