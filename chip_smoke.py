@@ -322,15 +322,24 @@ its nvcc seconds on the "build" line):
 
 42. flash bwd agreement: for each (q/k, v) head_dim pair, dtype and mask
     of the forward (causal, window, prefix-LM, cross with Sq != Sk) at S
-    = 200: the forward's output bit-identical with and without ``lse``,
-    the LSE within 1e-5 of the plain version's, and the backward kernels'
-    dQ, dK, dV against ``flash_attention_bwd_plain`` on the same O and
-    LSE (relative norm: float32 1e-5, bf16 2^-8, one rounding each);
+    = 200, and at shapes ragged over the tensor-core kernels' tiles (a
+    single query row, S = 129 and 257: one past a multiple of their 64-
+    and 128-row tiles): the forward's output bit-identical with and
+    without ``lse``, the LSE within 1e-5 of the plain version's, and the
+    backward kernels' dQ, dK, dV against ``flash_attention_bwd_plain`` on
+    the same O and LSE (relative norm: float32 1e-5, bf16 2^-8, one
+    rounding each); a second backward on the same inputs bit-identical;
 43. flash bwd time: the backward at the train cell's attention (B = 4,
-    S = 4,096, 12/2 heads, (128, 128), bf16, causal): ms (CUDA events),
-    each kernel's device ms, the bound (bytes / 3.35 TB/s against 2 (3 d +
+    S = 4,096, 12/2 heads, (128, 128), bf16, causal) on the tensor cores,
+    in turns with the CUDA-core kernels it replaced
+    (``flash_attention_bwd_cuda_cores``): ms (CUDA events), each kernel's
+    device ms and TFLOP/s, the bound (bytes / 3.35 TB/s against 2 (3 d +
     2 dv) FLOP a kept pair / 989 TFLOP/s), the plain version's ms, and
     SDPA's backward (forward + backward less forward, ``enable_gqa``);
+    the profiler shows the tensor-core kernels, not the CUDA-core ones;
+    then the CUDA-core kernels timed the same way at the shape of phase
+    44's qwen2-1.5b call (float32, B = 2, S = 64, 4/2 heads, 128), and
+    bf16 (256, 256), which stays on them, at the VLM cell's attention;
 44. train smoke: each arch's smoke config widened to a flash pair in
     float32, one ``make_train_step`` step on the card and one on the CPU
     from the same parameters and batch: metrics 1e-5, moments 1e-4 of each
@@ -343,8 +352,9 @@ its nvcc seconds on the "build" line):
     tokens/s, 8 N T FLOP a step and its share of 989 TFLOP/s, peak GiB
     beside the state and one microbatch's float32 logits, flash launches a
     step (28 x 2 x 2 forward, 28 x 2 backward), the third step profiled
-    (idle share, top device ops); the first step's ce within 1e-3 of the
-    ce from ``prefill_logits``, every parameter changed and finite;
+    (idle share, top device ops), every backward on the tensor cores; the
+    first step's ce within 1e-3 of the ce from ``prefill_logits``, every
+    parameter changed and finite;
 46. train compressed: one more step with int8 gradient compression and
     error feedback (a fresh optimizer state): ms, finite.
 
@@ -534,34 +544,61 @@ def per_call_device(call, calls: int, module, prefix,
     """``call()`` ``calls`` times under the profiler: the device ms a call
     of this repo's kernels named ``prefix...`` (a string or a tuple of
     them), summed over every kernel the calls started; the launches a call
-    (the wrapper's own count ``module.<counter>``, exact); how many of the
-    started kernels the profiler recorded; and ``kernel_ms``, each
-    kernel's mean ms and records.  The profiler can lose records, so the
-    calls are profiled again, up to four times in all, until it has
+    (the wrapper's own count ``module.<counter>``, exact; with no
+    ``module``, ``kernels_per_call`` a call, which the caller vouches
+    for); how many of the started kernels the profiler recorded; and
+    ``kernel_ms``, each kernel's mean ms, records and median ms (from each
+    record's own duration).  The profiler can lose, or mistime, the first
+    device records of a window, more of them the longer the process has
+    run (a 10-call window ~800 s into this script once lost all 30): so
+    each window opens with a kernel of a torch op, a sync and 0.2 s of
+    wait, the median leaves a mistimed record out, and the calls are
+    profiled again, up to four times in all, until the profiler has
     recorded every kernel they started.  If it never has, and each call
     started one kernel (the same work every call), the recorded mean is
     the call's time (the estimate these rows have always printed, beside
     "seen of started"); where a call starts several kernels of different
     lengths (the seed scan's call counts once and starts
     ``kernels_per_call`` = 4, the histogram's two; a replay of a build's
-    calls), no mean
-    stands for them, and the device ms is None (not measured)."""
+    calls), no mean stands for them, and the device ms is None (not
+    measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    opener = torch.zeros(1, device="cuda")
+    recs = {}
+
+    def window():
+        opener.add_(1)              # the window's first device record
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        for _ in range(calls):
+            call()
+
+    def keep(prof):
+        recs.clear()
+        for ev in prof.events():
+            name = ev.name.split("(")[0].replace("void ", "")
+            if ev.device_type == DeviceType.CUDA and name.startswith(prefix):
+                recs.setdefault(name, []).append(
+                    ev.time_range.elapsed_us() / 1e3)
+
     for _ in range(4):
-        before = getattr(module, counter)
-        ours = device_profile(lambda: [call() for _ in range(calls)])[3]
-        started = (getattr(module, counter) - before) * kernels_per_call
-        mine = {k: v for k, v in ours.items() if k.startswith(prefix)}
-        seen = sum(n for _, n in mine.values())
+        before = getattr(module, counter) if module is not None else 0
+        device_profile(window, on_prof=keep)
+        started = (getattr(module, counter) - before) * kernels_per_call \
+            if module is not None else calls * kernels_per_call
+        seen = sum(len(v) for v in recs.values())
         if seen >= started:
             break
-    total = sum(ms for ms, _ in mine.values())
+    total = sum(sum(v) for v in recs.values())
     device = total / calls if seen >= started > 0 \
         else total / seen if seen and started == calls else None
     return {"device_ms": device,
             "launches_per_call": started / kernels_per_call / calls,
             "profiled_launches": f"{seen} of {started}",
-            "kernel_ms": json.dumps({k: [ms / n, n]
-                                     for k, (ms, n) in mine.items()})}
+            "kernel_ms": json.dumps({k: [sum(v) / len(v), len(v),
+                                         float(np.median(v))]
+                                     for k, v in recs.items()})}
 
 
 def pricing_times(args) -> dict:
@@ -2591,10 +2628,10 @@ def phase_heap(X, device="cuda"):
 def seed_numbers(vals, beta, plain_ms: float) -> dict:
     """The seed scan on one span: CUDA events over 3 calls, the profiler's
     device ms a call (its four kernels summed; ``kernel_ms``: each
-    kernel's mean ms and records), the plain version's ms, the bound (8 B
-    read and 1 B written a row, over the card's memory rate), the counters
-    of one call, and the replaced kernel (``serial=True``) timed the same
-    way right after."""
+    kernel's mean ms, records and median ms), the plain version's ms, the
+    bound (8 B read and 1 B written a row, over the card's memory rate),
+    the counters of one call, and the replaced kernel (``serial=True``)
+    timed the same way right after."""
     from repro_torch.kernels import dlv_scan as kdlv
     n = len(vals)
     _, st = kdlv.dlv_scan_seed(vals, beta, stats=True)
@@ -3227,6 +3264,8 @@ def ptxas_entries(log: str) -> list:
             flag = {"0": ",false", "1": ",true", None: ""}[m[4]]
             cur = {"kernel": f"{m[1]}<{m[2]},{m[3]}{flag}>"}
             out.append(cur)
+        elif "Compiling entry function" in line:
+            cur = None            # an entry without a head_dim pair
         elif "warning" in line.lower():
             out.append({"warning": line.strip()})
         elif cur is not None:
@@ -4617,7 +4656,22 @@ BWD_MASKS = (("causal", 200, 200, dict(causal=True)),
              ("window", 200, 200, dict(causal=True, window=70)),
              ("prefix", 200, 200, dict(causal=True, prefix=37)),
              ("cross", 150, 333, dict(causal=False)))
-BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq")
+# ragged over the tensor-core kernels' tiles (dK/dV: 64 or 128 keys a
+# block, 64 or 32 query rows a stage; dQ: 128 or 64 query rows a block, 64
+# keys a stage): one query row over 129 keys, and S one past a multiple of
+# 64 and 128.  (One causal row over its one key has dQ = dK = 0 exactly,
+# dP = D, so a relative norm there compares rounding noise.)
+BWD_RAGGED = (("one row", 1, 129, dict(causal=False)),
+              ("S=129", 129, 129, dict(causal=True)),
+              ("S=129 prefix", 129, 129, dict(causal=True, prefix=37)),
+              ("S=257 window", 257, 257, dict(causal=True, window=70)))
+# the kernels of a backward call: D, then dK/dV and dQ on the tensor cores
+# (bf16 at (64, 64), (120, 120), (128, 128), (192, 128)) or on the CUDA
+# cores (float32, bf16 (256, 256), and the baseline timed in phase 43)
+BWD_KERNELS = ("flash_bwd_dot", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
+               "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_TC = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+BWD_CUDA_CORES = ("flash_bwd_dkdv", "flash_bwd_dq")
 BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its jnp "
                 "scan, src/repro/models/attention.py:61")
 TRAIN_ATTN = dict(B=4, S=4096, H=12, KV=2, d=128, dv=128)  # one microbatch
@@ -4708,24 +4762,43 @@ def bwd_hold(q, k, v, do, **kw) -> dict:
     return {"rel": rels, "max_abs_err": abs_err, "lse_err": lse_err}
 
 
+def bwd_rerun(q, k, v, do, **kw) -> None:
+    """The backward twice on the same inputs (the forward's O and LSE):
+    dQ, dK and dV bit-identical (no atomics: every sum in one fixed
+    order); fails otherwise."""
+    import torch
+    from repro_torch.kernels import attention as A
+    with torch.no_grad():
+        o, lse = A.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+        first = A.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = A.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"flash backward: a rerun gave other bits, {tuple(q.shape)} "
+          f"{q.dtype} {kw}")
+
+
 def phase_flash_bwd_agreement(dev):
     """Phase 42: every pair, dtype and mask of the forward's card tests,
-    at S = 200 (150 queries over 333 keys for cross)."""
+    at S = 200 (150 queries over 333 keys for cross), and the ragged
+    shapes of ``BWD_RAGGED``; each bf16 case rerun bit-identical."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     err = 0.0
+    masks = BWD_MASKS + BWD_RAGGED
     for case in BWD_PAIRS:
-        for mask in BWD_MASKS:
+        for mask in masks:
             for dt in ("float32", "bfloat16"):
                 *qkv, do = bwd_inputs(case, mask, dt, dev)
                 r = bwd_hold(*qkv, do, **mask[3])
+                if dt == "bfloat16":
+                    bwd_rerun(*qkv, do, **mask[3])
                 worst[dt] = max(worst[dt], max(r["rel"]))
                 err = max(err, r["max_abs_err"])
                 say(f"flash bwd {case[0]}x{case[1]} {mask[0]} {dt}",
                     rel_norm_dq_dk_dv=json.dumps(r["rel"]),
                     max_abs_err=r["max_abs_err"], lse_err=r["lse_err"])
-    say("flash bwd agreement", cases=len(BWD_PAIRS) * len(BWD_MASKS) * 2,
+    say("flash bwd agreement", cases=len(BWD_PAIRS) * len(masks) * 2,
         worst_rel_f32=worst["float32"], worst_rel_bf16=worst["bfloat16"],
-        bar=json.dumps(BWD_TOL), lse_bar=LSE_TOL)
+        bar=json.dumps(BWD_TOL), lse_bar=LSE_TOL, bf16_reruns_same_bits=True)
     return err
 
 
@@ -4760,23 +4833,116 @@ def bwd_kernel_numbers(B, Sq, Sk, H, KV, d, dv, pairs, esize):
     """(bytes, FLOP) of each backward kernel's useful work: D reads O and
     dO and writes D; dK/dV reads q, k, v, dO, LSE and D and writes dK, dV,
     2 (2 d + 2 dv) FLOP a kept pair (S, dP, dV, dK); dQ reads the same and
-    writes dQ, 2 d a pair (its recompute of S and dP is not counted)."""
+    writes dQ, 2 d a pair (its recompute of S and dP is not counted).
+    The same for a route's two kernels on the tensor cores and on the
+    CUDA cores."""
     qb, kb = B * Sq * H * d * esize, B * Sk * KV * d * esize
     vb, ob = B * Sk * KV * dv * esize, B * Sq * H * dv * esize
     rows = B * H * Sq * 4
+    dkdv = (qb + kb + vb + ob + 2 * rows + kb + vb,
+            2 * (2 * d + 2 * dv) * pairs)
+    dq = (qb + kb + vb + ob + 2 * rows + qb, 2 * d * pairs)
     return {"flash_bwd_dot": (2 * ob + rows, 2 * dv * B * Sq * H),
-            "flash_bwd_dkdv": (qb + kb + vb + ob + 2 * rows + kb + vb,
-                               2 * (2 * d + 2 * dv) * pairs),
-            "flash_bwd_dq": (qb + kb + vb + ob + 2 * rows + qb,
-                             2 * d * pairs)}
+            "flash_bwd_dkdv_tc": dkdv, "flash_bwd_dq_tc": dq,
+            "flash_bwd_dkdv": dkdv, "flash_bwd_dq": dq}
+
+
+def bwd_device(call, calls: int, cuda_cores: bool = False):
+    """``per_call_device`` of ``calls`` backward calls (three kernels each:
+    counted by ``bwd_launches``, or, on the uncounted CUDA-core baseline,
+    three a call) and each kernel's median device ms by its name before
+    "<"."""
+    from repro_torch.kernels import attention as A
+    dev = per_call_device(call, calls, None if cuda_cores else A,
+                          "flash_bwd_", counter="bwd_launches",
+                          kernels_per_call=3)
+    return dev, {k.split("<")[0]: v[2]
+                 for k, v in json.loads(dev["kernel_ms"]).items()}
+
+
+def bwd_case_numbers(q, k, v, do, kw, reps: int, ms=None, plain_ms=None,
+                     plain: bool = True) -> dict:
+    """One backward case (``flash_attention_bwd``, on whichever route its
+    pair and dtype take) timed on the card: the call's ms (CUDA events
+    over ``reps`` calls, unless ``ms`` is given), each kernel's device ms
+    (``bwd_device``), its bytes, useful FLOP (``bwd_kernel_numbers``) and
+    bound, the plain version's ms (unless given, or ``plain`` is false)
+    and SDPA's backward (causal calls)."""
+    from repro_torch.kernels import attention as A
+    B, S, H, d = q.shape
+    KV, dv = k.shape[2], v.shape[3]
+    o, lse = A.flash_attention_fwd(q, k, v, want_lse=True, **kw)
+    run = lambda: A.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    tc0 = A.bwd_tc_launches
+    run()
+    route = BWD_TC if A.bwd_tc_launches > tc0 else BWD_CUDA_CORES
+    ms = timed_ms(run, reps) if ms is None else ms
+    dev, med = bwd_device(run, reps)
+    if plain_ms is None and plain:
+        plain_ms = timed_ms(lambda: A.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 1, warm=0)
+    lib, note = sdpa_bwd_ms(q, k, v, do) if kw.get("causal") \
+        and not kw.get("window") and not kw.get("prefix") else (None, None)
+    pairs = flash_pairs(S, S, kw.get("causal", False), kw.get("window", 0),
+                        kw.get("prefix", 0)) * B * H
+    peak = PEAK_OPS[str(q.dtype).split(".")[-1]]
+    shape = f"B={B} S={S} H={H} KV={KV} d={d} dv={dv} " \
+            f"{str(q.dtype).split('.')[-1]} {kw}"
+    per = {}
+    for name, (nb, fl) in bwd_kernel_numbers(B, S, S, H, KV, d, dv, pairs,
+                                             q.element_size()).items():
+        if name not in ("flash_bwd_dot",) + route:
+            continue
+        kms = med.get(name)           # None where the profiler lost it
+        per[name] = _numbers(shape, nb, fl, kms, plain_ms, lib, peak=peak,
+                             library=note,
+                             plain="flash_attention_bwd_plain (the three "
+                                   "kernels' work together)",
+                             tflops=fl / kms / 1e9 if kms else None,
+                             vs_library=kms / lib if kms and lib else None,
+                             backward_ms=ms,
+                             runs_on="tensor cores" if name in BWD_TC
+                             else "cuda cores",
+                             **({"recompute_flop": 2 * (d + dv) * pairs}
+                                if name in ("flash_bwd_dq_tc", "flash_bwd_dq")
+                                else {}))
+    del o, lse
+    return {"ms": ms, "device_ms": dev["device_ms"], "pairs": pairs,
+            "profiled_launches": dev["profiled_launches"], "kernels": per,
+            "medians": med, "plain_ms": plain_ms, "library_ms": lib,
+            "library": note}
+
+
+def bwd_smoke_call(dev, arch: str = TRAIN_ARCH):
+    """q, k, v, dO and the mask of ``arch``'s attention call in phase 44:
+    its widened smoke config, float32, ``smoke_batch``'s B and S, causal;
+    the call whose CUDA-core kernels phase 44 launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch).smoke(),
+                              **TRAIN_SMOKE[arch])
+    B, S = smoke_batch(cfg)["tokens"].shape
+    d = cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(44)
+    q, k, v, do = (torch.randn((B, S, h, d), generator=g, device=dev)
+                   for h in (cfg.num_heads, cfg.num_kv_heads,
+                             cfg.num_kv_heads, cfg.num_heads))
+    return q, k, v, do, dict(causal=True, window=cfg.sliding_window or 0)
 
 
 def phase_flash_bwd_time(dev, cell=TRAIN_ATTN):
     """Phase 43: the backward at the train cell's attention (one layer of
-    one microbatch of phase 45): the three kernels' ms (CUDA events) and
-    each kernel's device ms (the profiler), the bound (bytes / 3.35 TB/s
-    against 2 (3 d + 2 dv) FLOP a kept pair / 989 TFLOP/s), the plain
-    version's ms and SDPA's backward."""
+    one microbatch of phase 45), on the tensor cores and, in turns (new,
+    old, old, new), on the CUDA-core kernels it replaced: each route's ms
+    (CUDA events) and each kernel's device ms and TFLOP/s (the profiler,
+    which must show the tensor-core kernels and not the CUDA-core ones on
+    the model's call: ``per_call_device``'s medians over 10 and 3 calls),
+    the bound (bytes / 3.35 TB/s against 2 (3 d + 2 dv) FLOP a kept pair /
+    989 TFLOP/s), the plain version's ms and SDPA's backward.  Then the
+    CUDA-core kernels at the shape of phase 44's qwen2-1.5b call (the
+    kernels line's numbers for them), and bf16 (256, 256) at the VLM
+    cell's attention, which stays on them."""
     import torch
     from repro_torch.kernels import attention as A
     B, S, H, KV, d, dv = (cell[k] for k in ("B", "S", "H", "KV", "d", "dv"))
@@ -4786,6 +4952,8 @@ def phase_flash_bwd_time(dev, cell=TRAIN_ATTN):
                    for h, w in ((H, d), (KV, d), (KV, dv), (H, dv)))
     o, lse = A.flash_attention_fwd(q, k, v, causal=True, want_lse=True)
     run = lambda: A.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    old = lambda: A.flash_attention_bwd_cuda_cores(q, k, v, o, lse, do,
+                                                   causal=True)
     got = run()
     torch.cuda.synchronize()
     want = A.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
@@ -4799,38 +4967,71 @@ def phase_flash_bwd_time(dev, cell=TRAIN_ATTN):
           f"flash backward at the train cell: relative norm errors {rels}")
     del got, want
     torch.cuda.empty_cache()
-    ms = timed_ms(run, 3)
-    dev_ms = per_call_device(run, 2, A, "flash_bwd_", counter="bwd_launches",
-                             kernels_per_call=3)
-    kernel_ms = {name.split("<")[0]: v[0] for name, v in
-                 json.loads(dev_ms["kernel_ms"]).items()}
-    pairs = flash_pairs(S, S, True, 0) * B * H
-    esize = q.element_size()
+    turns = [timed_ms(run, 10), timed_ms(old, 2), timed_ms(old, 2),
+             timed_ms(run, 10)]
+    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    new = bwd_case_numbers(q, k, v, do, dict(causal=True), 10, ms=ms,
+                           plain_ms=plain_ms)
+    new_k = new["medians"]
+    old_dev, old_k = bwd_device(old, 3, cuda_cores=True)
+    check(all(n in new_k for n in BWD_TC)
+          and not any(n in new_k for n in BWD_CUDA_CORES),
+          f"flash backward at the train cell: the profiler shows "
+          f"{sorted(new_k)}, not the tensor-core kernels alone")
     # inputs q, k, v, O, dO (bf16) and LSE (f32) once; dQ, dK, dV once
     nbytes = (B * S * H * d + B * S * KV * (d + dv) + 2 * B * S * H * dv
-              + B * S * H * d + B * S * KV * (d + dv)) * esize \
+              + B * S * H * d + B * S * KV * (d + dv)) * q.element_size() \
         + B * H * S * 4
-    ops = 2 * (3 * d + 2 * dv) * pairs
-    lib, lib_note = sdpa_bwd_ms(q, k, v, do)
+    ops = 2 * (3 * d + 2 * dv) * new["pairs"]
+    lib = new["library_ms"]
     whole = _numbers(f"B={B} S={S} H={H} KV={KV} d={d} dv={dv} bfloat16 "
                      "causal", nbytes, ops, ms, plain_ms, lib,
-                     peak=PEAK_OPS["bfloat16"], library=lib_note,
-                     device_ms=dev_ms["device_ms"],
+                     peak=PEAK_OPS["bfloat16"], library=new["library"],
+                     device_ms=sum(new_k.values()),
                      tflops=ops / ms / 1e9,
                      vs_library=ms / lib if lib else None,
+                     turns_ms=json.dumps(turns),
+                     profiled_launches=new["profiled_launches"],
+                     cuda_cores_ms=old_ms,
+                     cuda_cores_device_ms=sum(old_k.values()),
+                     cuda_cores_kernel_ms=old_dev["kernel_ms"],
+                     cuda_cores_profiled_launches=old_dev[
+                         "profiled_launches"],
                      rel_norm_dq_dk_dv=json.dumps(rels))
-    say("flash bwd time", **whole, kernel_device_ms=json.dumps(kernel_ms))
-    per = {}
-    for name, (nb, fl) in bwd_kernel_numbers(B, S, S, H, KV, d, dv, pairs,
-                                             esize).items():
-        per[name] = _numbers(whole["shape"], nb, fl,
-                             kernel_ms.get(name), plain_ms, lib,
-                             peak=PEAK_OPS["bfloat16"], library=lib_note,
-                             plain="flash_attention_bwd_plain (the three "
-                                   "kernels' work together)",
-                             backward_ms=ms)
-        say(f"kernel {name}[train cell]", **per[name])
-    del q, k, v, do, o, lse
+    say("flash bwd time", **whole, kernel_device_ms=json.dumps(new_k))
+    per = new["kernels"]
+    for name, nums in per.items():
+        say(f"kernel {name}[train cell]", **nums)
+    del q, k, v, do, o, lse, new
+    torch.cuda.empty_cache()
+    # the CUDA-core kernels as phase 44's float32 steps launch them
+    *qkvd, kw = bwd_smoke_call(dev)
+    smoke = bwd_case_numbers(*qkvd, kw, 10)
+    check(all(n in smoke["medians"] for n in BWD_CUDA_CORES),
+          f"flash backward at phase 44's call: the profiler shows "
+          f"{sorted(smoke['medians'])}, not the CUDA-core kernels")
+    for name in BWD_CUDA_CORES:
+        per[name] = {**smoke["kernels"][name], "call_of": f"phase 44's "
+                     f"{TRAIN_ARCH} step (its widened smoke config)"}
+        say(f"kernel {name}[phase 44 call]", **per[name])
+    del qkvd
+    # bf16 (256, 256) at the VLM cell's attention (paligemma: B = 8, 256
+    # patches + 768 tokens, 8 query heads on 1 KV head, a 256-key prefix)
+    g = torch.Generator(device=dev).manual_seed(44)
+    q, k, v, do = (torch.randn((8, 1024, h, 256), generator=g, device=dev)
+                   .to(torch.bfloat16) for h in (8, 1, 1, 8))
+    vlm = bwd_case_numbers(q, k, v, do, dict(causal=True, prefix=256), 3,
+                           plain=False)
+    vops = 2 * (3 * 256 + 2 * 256) * vlm["pairs"]
+    vbytes = (4 * 8 * 1024 * 8 * 256 + 4 * 8 * 1024 * 256) * 2 \
+        + 8 * 8 * 1024 * 4
+    vb, vby = bound_ms(vbytes, vops, PEAK_OPS["bfloat16"])
+    say("flash bwd 256x256[vlm cell]", ms=vlm["ms"],
+        device_ms=vlm["device_ms"], tflops=vops / vlm["ms"] / 1e9,
+        bound_ms=vb, bound_by=vby, over_bound=vlm["ms"] / vb,
+        profiled_launches=vlm["profiled_launches"],
+        kernel_device_ms=json.dumps(vlm["medians"]))
+    del q, k, v, do
     torch.cuda.empty_cache()
     return err, whole, per
 
@@ -4917,11 +5118,14 @@ def train_smoke_step(arch: str, dev) -> dict:
           f"train smoke {arch}: {counts['flash_attention']} forward and "
           f"{counts['flash_attention_bwd']} backward flash launches, "
           f"expected {calls} each")
-    return {"metric_err": met, "moment_err": mom, "update_rel_err": upd}
+    return {"metric_err": met, "moment_err": mom, "update_rel_err": upd,
+            "cuda_cores_bwd": counts["flash_attention_bwd"]
+            - counts["flash_attention_bwd_tc"]}
 
 
 def phase_train_smoke(dev):
-    """Phase 44: every arch's widened smoke step, card against CPU."""
+    """Phase 44: every arch's widened smoke step, card against CPU; the
+    float32 backward calls, all on the CUDA-core kernels."""
     from repro_torch.configs import ARCH_IDS
     return {arch: train_smoke_step(arch, dev) for arch in ARCH_IDS}
 
@@ -5034,7 +5238,8 @@ def phase_train(model, dev, sizes=TRAIN):
     layers = cfg.num_layers
     want = {"flash_attention": layers * mb * (1 if cfg.remat == "none"
                                               else 2),
-            "flash_attention_bwd": layers * mb}
+            "flash_attention_bwd": layers * mb,
+            "flash_attention_bwd_tc": layers * mb}
     check(all(counts[k] == n for k, n in want.items()),
           f"train: flash launches a step {counts}, expected {want}")
     step_s = walls[1]
@@ -5048,6 +5253,7 @@ def phase_train(model, dev, sizes=TRAIN):
                 ce_first=ce0, ce_prefill=ce_prefill, ce_rel_err=ce_err,
                 flash_fwd_launches=counts["flash_attention"],
                 flash_bwd_launches=counts["flash_attention_bwd"],
+                flash_bwd_tc_launches=counts["flash_attention_bwd_tc"],
                 device_busy_ms=busy, idle_share=1.0 - busy / 1e3 / step_s,
                 device_ops=ops, kernels=json.dumps(ours),
                 top=json.dumps(top))
@@ -5088,30 +5294,43 @@ def phase_train_compressed(model, dev, sizes=TRAIN):
 
 
 def train_phases(phase, dev):
-    """Phases 42-46; the kernels line's three backward entries."""
+    """Phases 42-46; the kernels line's five backward entries: D and the
+    tensor-core kernels launched by phase 45's steps (timed at the train
+    cell in phase 43), the CUDA-core ones by phase 44's float32 steps
+    (timed in phase 43 at the shape of phase 44's qwen2-1.5b call)."""
     import torch
     err42 = phase("flash bwd agreement", phase_flash_bwd_agreement, dev)
     err43, whole, per = phase("flash bwd time", phase_flash_bwd_time, dev)
-    phase("train smoke", phase_train_smoke, dev)
+    smoke = phase("train smoke", phase_train_smoke, dev)
     model = phase("train model", train_model, dev)
     counts, nums = phase("train", phase_train, model, dev)
     phase("train compressed", phase_train_compressed, model, dev)
     del model
     torch.cuda.empty_cache()
+    smoke_cc = sum(r["cuda_cores_bwd"] for r in smoke.values())
+    check(smoke_cc > 0, "train smoke: no backward on the CUDA-core kernels")
     entries = []
     for name in BWD_KERNELS:
+        step = counts["flash_attention_bwd_tc"] if name in BWD_TC \
+            else 0 if name in BWD_CUDA_CORES \
+            else counts["flash_attention_bwd"]
+        paths = {"train step": step}
+        if name in BWD_CUDA_CORES:
+            paths["train smoke"] = smoke_cc
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
             "replaces": BWD_REPLACES,
-            "launches": counts["flash_attention_bwd"],
-            "launches_by_path": {"train step": counts["flash_attention_bwd"]},
+            "launches": smoke_cc if name in BWD_CUDA_CORES else step,
+            "launches_by_path": paths,
             "max_abs_err": max(err42, err43),
             "tolerance": "relative norm of dQ, dK, dV against "
                          "flash_attention_bwd_plain: float32 1e-5, bf16 "
                          "2^-8 (one rounding to bf16 each); the forward's "
-                         "LSE 1e-5 of max(1, |plain|)",
-            **per[name], "whole_backward": whole,
+                         "LSE 1e-5 of max(1, |plain|); bf16 reruns "
+                         "bit-identical",
+            **per[name],
+            **({} if name in BWD_CUDA_CORES else {"whole_backward": whole}),
             "train_step": {k: nums[k] for k in (
                 "step_ms", "tokens_per_s", "flop_share", "peak_gib")}})
     return entries

@@ -4,7 +4,7 @@ Builds every kernel, prints the flash backward's nvcc seconds and ptxas
 report, then runs "flash bwd agreement", "flash bwd time", "train smoke",
 "train model", "train" (qwen2-1.5b at full width, three steps of 8 x
 4,096 tokens) and "train compressed" as the full script does, prints the
-seconds of each and the three backward kernels' entries of the
+seconds of each and the backward kernels' entries of the
 ``kernels`` line.
 
     python3 scripts/train_probe.py        # needs one CUDA card

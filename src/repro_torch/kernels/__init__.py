@@ -5,8 +5,9 @@ built from ``csrc/``; CPU tensors run the plain torch version), the plain
 version itself, and a ``launches`` counter that the wrapper bumps once per
 kernel launch (``dlv_scan.seed_launches`` for the seed scan, which shares
 its module with the DLV scan; ``attention.bwd_launches`` for the flash
-backward, once per call of its three kernels).  Importing builds nothing: ``nvcc`` runs
-on first use.
+backward, once per call of its three kernels, and ``bwd_tc_launches``
+for those calls that took its tensor-core route).  Importing builds
+nothing: ``nvcc`` runs on first use.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ KERNELS = {"pricing": pricing, "bfrt_histogram": bfrt,
            "segment_stats": segstats, "dlv_scan": dlv_scan,
            "dlv_scan_seed": dlv_scan, "flash_attention": attention,
            "lp_batch": lp_batch, "split_tree_descent": split_tree,
-           "flash_attention_bwd": attention}
+           "flash_attention_bwd": attention,
+           "flash_attention_bwd_tc": attention}
 # a kernel's counter in its module, where it is not ``launches``
 COUNTER = {"dlv_scan_seed": "seed_launches",
-           "flash_attention_bwd": "bwd_launches"}
+           "flash_attention_bwd": "bwd_launches",
+           "flash_attention_bwd_tc": "bwd_tc_launches"}
 
 
 def reset_launches() -> None:

@@ -42,15 +42,24 @@ log-sum-exp (``lse`` (B, H, Sq) float32, m + log(max(l, 1e-30)) of the
 scaled scores) and saves q, k, v, O and LSE; its backward is
 :func:`flash_attention_bwd`, three kernels of ``csrc/flash_attn_bwd.cu``
 (D = rowsum(dO * O), then dK/dV one block a KV tile, then dQ one block a
-query tile; FlashAttention-2's backward, float32 on the CUDA cores).  No
-TPU kernel is replaced: the reference's Pallas kernel has no backward and
-the reference differentiates its jnp scan.  Their plain versions are
+query tile; FlashAttention-2's backward without atomics, so a rerun
+gives the same bits).  Two routes, by pair and dtype: bfloat16 at (64,
+64), (120, 120), (128, 128) and (192, 128) runs on the tensor cores
+(``wgmma`` fed by TMA, P and dS rounded once to bf16 for their products;
+counted also in ``bwd_tc_launches``); bfloat16 at (256, 256), whose dK
+and dV accumulators do not fit a warpgroup's registers, and float32 run
+float32 FMAs on the CUDA cores.  :func:`flash_attention_bwd_cuda_cores`
+runs the CUDA-core kernels at any pair: the baseline the tensor-core
+kernels are timed against, on no model path.  No TPU kernel is replaced:
+the reference's Pallas kernel has no backward and the reference
+differentiates its jnp scan.  Their plain versions are
 :func:`flash_attention_fwd_lse_plain` and :func:`flash_attention_bwd_plain`
 (the explicit formula, ``PLAIN_CHUNK`` keys at a time).  Without grad the
 forward-only launch runs, as it did before the backward existed.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -66,6 +75,7 @@ HEAD_DIM_PAIRS = ((64, 64), (120, 120), (128, 128), (192, 128), (256, 256))
 PLAIN_CHUNK = 1024
 launches = 0
 bwd_launches = 0             # flash_attention_bwd calls: 3 kernels each
+bwd_tc_launches = 0          # ... of them on the tensor-core route
 
 _SIG = {"flash_attn_fwd": (_build.P,) * 5 + (_build.I64,) * 10
         + (_build.F64, _build.I64, _build.P),
@@ -73,8 +83,9 @@ _SIG = {"flash_attn_fwd": (_build.P,) * 5 + (_build.I64,) * 10
 _BWD_ARGS = (_build.I64,) * 10 + (_build.F64, _build.I64, _build.P)
 _BWD_SIG = {"flash_attn_bwd_dot": (_build.P,) * 3 + (_build.I64,) * 5
             + (_build.P,),
-            "flash_attn_bwd_dkdv": (_build.P,) * 8 + _BWD_ARGS,
-            "flash_attn_bwd_dq": (_build.P,) * 7 + _BWD_ARGS}
+            "flash_attn_bwd_dkdv": (_build.P,) * 9 + _BWD_ARGS,
+            "flash_attn_bwd_dq": (_build.P,) * 7 + _BWD_ARGS,
+            "flash_attn_bwd_cuda_cores": (_build.P,) * 9 + _BWD_ARGS}
 
 
 def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):
@@ -301,21 +312,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, scale: Optional[float] = None,
-                        prefix: int = 0):
-    """(dq, dk, dv) of the attention that gave ``o`` and ``lse`` (the
-    forward's, same arguments) for the output gradient ``do``.  On a CUDA
-    tensor three launches of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV,
-    then dQ), counted once in ``bwd_launches``; it raises on what the
-    forward does not take.  On a CPU tensor
-    :func:`flash_attention_bwd_plain`."""
-    global bwd_launches
-    prefix = max(int(prefix), 0)
-    if q.device.type != "cuda":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         window=window, scale=scale,
-                                         prefix=prefix)
+def _bwd_launch(q, k, v, o, lse, do, causal, window, scale, prefix,
+                cuda_cores: bool):
+    """The backward's launches on CUDA tensors: D, then dK/dV and dQ by
+    the route of the pair and dtype, or on the CUDA cores with
+    ``cuda_cores``.  (dq, dk, dv, 1 if the tensor-core kernels ran, as
+    the dK/dV launch reports it)."""
     _check(q, k, v, causal)
     _check_bwd(q, v, o, lse, do)
     B, Sq, H, d = q.shape
@@ -323,10 +325,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if q.numel() == 0:
-        return dq, dk, dvv
-    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        return dq, dk, dvv, 0
     lib = _build.load("flash_attn_bwd", _BWD_SIG)
     bf16 = int(q.dtype == torch.bfloat16)
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     st = _build.stream_ptr(q.device)
     _build.check(lib.flash_attn_bwd_dot(o.data_ptr(), do.data_ptr(),
                                         D.data_ptr(), B, Sq, H, dv, bf16, st),
@@ -336,13 +338,60 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             1.0 / math.sqrt(d) if scale is None else float(scale), bf16, st)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), D.data_ptr())
+    if cuda_cores:
+        _build.check(lib.flash_attn_bwd_cuda_cores(
+            *common, dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), *args),
+            "flash_attention_bwd_cuda_cores")
+        return dq, dk, dvv, 0
+    tc = ctypes.c_int32(0)
     _build.check(lib.flash_attn_bwd_dkdv(*common, dk.data_ptr(),
-                                         dvv.data_ptr(), *args),
+                                         dvv.data_ptr(),
+                                         ctypes.addressof(tc), *args),
                  "flash_attention_bwd (dkdv)")
     _build.check(lib.flash_attn_bwd_dq(*common, dq.data_ptr(), *args),
                  "flash_attention_bwd (dq)")
-    bwd_launches += 1
-    return dq, dk, dvv
+    return dq, dk, dvv, tc.value
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None,
+                        prefix: int = 0):
+    """(dq, dk, dv) of the attention that gave ``o`` and ``lse`` (the
+    forward's, same arguments) for the output gradient ``do``.  On a CUDA
+    tensor three launches of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV,
+    then dQ: on the tensor cores for bf16 at (64, 64), (120, 120), (128,
+    128) and (192, 128), else on the CUDA cores), counted once in
+    ``bwd_launches`` and, on the tensor cores, in ``bwd_tc_launches``; it
+    raises on what the forward does not take (and, on the tensor cores, on
+    a tensor that is not 16-byte aligned).  On a CPU tensor
+    :func:`flash_attention_bwd_plain`."""
+    global bwd_launches, bwd_tc_launches
+    prefix = max(int(prefix), 0)
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale,
+                                         prefix=prefix)
+    dq, dk, dv, tc = _bwd_launch(q, k, v, o, lse, do, causal, window, scale,
+                                 prefix, cuda_cores=False)
+    if q.numel():
+        bwd_launches += 1
+        bwd_tc_launches += tc
+    return dq, dk, dv
+
+
+def flash_attention_bwd_cuda_cores(q, k, v, o, lse, do, *,
+                                   causal: bool = True, window: int = 0,
+                                   scale: Optional[float] = None,
+                                   prefix: int = 0):
+    """:func:`flash_attention_bwd` on the CUDA-core kernels at any pair
+    and dtype (CUDA tensors only): the bf16 route the tensor-core kernels
+    replaced, kept as the baseline they are timed against; no model path
+    calls it, and no counter counts it."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd_cuda_cores: CUDA tensors only")
+    dq, dk, dv, _ = _bwd_launch(q, k, v, o, lse, do, causal, window, scale,
+                                max(int(prefix), 0), cuda_cores=True)
+    return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):

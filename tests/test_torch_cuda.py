@@ -1959,25 +1959,73 @@ def _bwd_case(dev, case, mask, dtype):
     return _chip_smoke().bwd_inputs(case, mask, dtype, dev)
 
 
-@pytest.mark.parametrize("mask", ["causal", "window", "prefix", "cross"])
-@pytest.mark.parametrize("pair", ["64x64", "120x120", "128x128",
-                                  "192x128", "256x256"])
+BWD_PAIR_IDS = ["64x64", "120x120", "128x128", "192x128", "256x256"]
+
+
+def _bwd_pair(cs, pair):
+    return next(c for c in cs.BWD_PAIRS if f"{c[0]}x{c[1]}" == pair)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "prefix", "cross",
+                                  "one row", "S=129", "S=129 prefix",
+                                  "S=257 window"])
+@pytest.mark.parametrize("pair", BWD_PAIR_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_are_their_plain_version(dev, pair, mask, dtype):
     """The three backward kernels against ``flash_attention_bwd_plain`` on
     the kernel's own O and LSE, for every pair, dtype and mask of the
-    forward (S = 200; cross: 150 queries over 333 keys): dQ, dK, dV
-    within ``chip_smoke.BWD_TOL`` in relative norm (float32 1e-5; bf16
-    2^-8, each output one float32 sum rounded once in both); the forward's
-    output bit-identical with and without ``lse``; the LSE within 1e-5 of
-    max(1, |plain|).  One ``bwd_launches`` a call."""
+    forward (S = 200; cross: 150 queries over 333 keys) and the shapes
+    ragged over the tensor-core kernels' tiles (``BWD_RAGGED``: one query
+    row over 129 keys, S = 129 and 257): dQ, dK, dV within
+    ``chip_smoke.BWD_TOL`` in relative norm (float32 1e-5; bf16 2^-8, P
+    and dS one bf16 rounding each on the tensor cores, each output
+    rounded once); the forward's output bit-identical with and without
+    ``lse``; the LSE within 1e-5 of max(1, |plain|).  One
+    ``bwd_launches`` a call, and one ``bwd_tc_launches`` where the pair
+    and dtype take the tensor cores (bf16 below (256, 256))."""
     cs = _chip_smoke()
-    case = next(c for c in cs.BWD_PAIRS if f"{c[0]}x{c[1]}" == pair)
-    m = next(x for x in cs.BWD_MASKS if x[0] == mask)
+    case = _bwd_pair(cs, pair)
+    m = next(x for x in cs.BWD_MASKS + cs.BWD_RAGGED if x[0] == mask)
     *qkv, do = _bwd_case(dev, case, m, dtype)
-    before = attention.bwd_launches
+    before, tc = attention.bwd_launches, attention.bwd_tc_launches
     cs.bwd_hold(*qkv, do, **m[3])
     assert attention.bwd_launches == before + 1
+    on_tc = dtype == "bfloat16" and pair != "256x256"
+    assert attention.bwd_tc_launches == tc + on_tc
+
+
+@pytest.mark.parametrize("mask", ["causal", "cross", "S=257 window"])
+@pytest.mark.parametrize("pair", BWD_PAIR_IDS)
+def test_flash_bwd_bf16_rerun_is_bit_identical(dev, pair, mask):
+    """``chip_smoke.bwd_rerun``: the bf16 backward twice on the same
+    inputs gives the same bits (no atomics: every gradient element is one
+    block's sum in a fixed order)."""
+    cs = _chip_smoke()
+    m = next(x for x in cs.BWD_MASKS + cs.BWD_RAGGED if x[0] == mask)
+    *qkv, do = _bwd_case(dev, _bwd_pair(cs, pair), m, "bfloat16")
+    cs.bwd_rerun(*qkv, do, **m[3])
+
+
+@pytest.mark.parametrize("pair, dtype, want", [
+    ("128x128", "bfloat16", ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")),
+    ("256x256", "bfloat16", ("flash_bwd_dkdv", "flash_bwd_dq")),
+    ("128x128", "float32", ("flash_bwd_dkdv", "flash_bwd_dq"))])
+def test_flash_bwd_route_by_kernel_name(dev, pair, dtype, want):
+    """The profiler's kernels of backward calls, as phase 43 reads them
+    (``chip_smoke.bwd_device``, through ``per_call_device``): bf16 (128,
+    128) launches the tensor-core kernels and none of the CUDA-core ones;
+    bf16 (256, 256) and float32 the CUDA-core ones.  The profiler can drop
+    a window's first device records, so the names are held, not the
+    counts."""
+    cs = _chip_smoke()
+    m = cs.BWD_MASKS[0]
+    *qkv, do = _bwd_case(dev, _bwd_pair(cs, pair), m, dtype)
+    o, lse = attention.flash_attention_fwd(*qkv, want_lse=True, **m[3])
+    names = set(cs.bwd_device(
+        lambda: attention.flash_attention_bwd(*qkv, o, lse, do, **m[3]),
+        4)[1])
+    other = set(cs.BWD_TC + cs.BWD_CUDA_CORES) - set(want)
+    assert set(want) <= names and not names & other, names
 
 
 def test_flash_forward_bits_unchanged_by_lse(dev):
