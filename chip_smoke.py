@@ -356,7 +356,27 @@ its nvcc seconds on the "build" line):
     first step's ce within 1e-3 of the ce from ``prefill_logits``, every
     parameter changed and finite;
 46. train compressed: one more step with int8 gradient compression and
-    error feedback (a fresh optimizer state): ms, finite.
+    error feedback (a fresh optimizer state): ms, finite;
+47. train launcher: ``python -m repro_torch.launch.train``'s ``main`` at
+    smollm-135m, full width (30 layers, d_model 576, 9/3 heads of 64,
+    vocab 49,152, bf16, remat "full"), 8 x 2,048 tokens (cut from
+    ``train_4k``'s 256 x 4,096), 14 steps with ``--select-data``, three
+    runs: (a) uninterrupted, (b) checkpoints every 5 steps and
+    ``--fail-at 9`` (exit code 42, held), (c) the same flags, resumed
+    from step 10; (b)'s losses bit-equal to (a)'s first ten and (c)'s to
+    (a)'s from step 10 on, finite, the last below the first; the
+    selection feasible, valid, with the layers and (1e-6) the objective of
+    the CPU run in the kernel's order of additions; step ms, tokens/s,
+    FLOP share, peak GiB, the selection's wall and package, the
+    checkpoint's GB, each save's and the restore's seconds, flash
+    launches a step (60 forward, 30 backward, all 30 on the tensor
+    cores); then the pipeline's host ms a batch and one more step of
+    (a)'s model profiled (device busy, idle share, top device ops);
+48. train checkpoint: phase 45's qwen2-1.5b train state (bf16 parameters,
+    float32 moments, ~15.4 GB) saved, restored onto the card and every
+    leaf held equal: GB, save and restore s and GB/s (the restore reads
+    warm files); not run, and said so, with less than twice the state
+    free on disk.
 
 Then the seconds of each phase, the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel, and a last line ``{"ok": true, "device": {...}}``.  Any
@@ -5258,9 +5278,10 @@ def phase_train(model, dev, sizes=TRAIN):
                 device_ops=ops, kernels=json.dumps(ours),
                 top=json.dumps(top))
     say("train", **nums)
+    opt = state["opt"]
     del p0, state, step
     torch.cuda.empty_cache()
-    return counts, nums
+    return counts, nums, opt
 
 
 def phase_train_compressed(model, dev, sizes=TRAIN):
@@ -5293,19 +5314,295 @@ def phase_train_compressed(model, dev, sizes=TRAIN):
     return wall * 1e3
 
 
+LAUNCHER_ARCH = "smollm-135m"     # 30 layers, d_model 576, 9/3 heads of 64
+# cut from SHAPES["train_4k"] (256 x 4,096) to 8 x 2,048 (SmolLM's context)
+LAUNCHER = dict(batch=8, seq=2048, steps=14, ckpt_every=5, fail_at=9)
+LAUNCHER_TIMED = slice(2, 14)     # (a)'s steps whose median is the step ms
+SELECTION_TOL = 1e-6              # objective, relative: phase "parity"'s bar
+# the kernels of phase 47's path: the train step's flash pair and the
+# package query of --select-data
+LAUNCHER_KERNELS = ("flash_attention", "pricing", "bfrt_histogram",
+                    "segment_stats", "dlv_scan", "lp_batch")
+
+
+def launcher_args(dev, ckpt_dir=None, fail_at=None) -> list:
+    c = LAUNCHER
+    args = ["--arch", LAUNCHER_ARCH, "--steps", str(c["steps"]),
+            "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+            "--select-data", "--log-every", "5", "--device", str(dev)]
+    if ckpt_dir is not None:
+        args += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+                 str(c["ckpt_every"])]
+    if fail_at is not None:
+        args += ["--fail-at", str(fail_at)]
+    return args
+
+
+@contextlib.contextmanager
+def kernel_order_stats():
+    """The DLV build's segment stats in the card kernel's order of
+    additions (``segment_stats_tiled_plain``, its output bit for bit) in
+    place of the plain version's ``index_add_`` while the block runs."""
+    from repro_torch.core import dlv
+    from repro_torch.kernels import segstats
+    saved = dlv.segment_stats
+    dlv.segment_stats = segstats.segment_stats_tiled_plain
+    try:
+        yield
+    finally:
+        dlv.segment_stats = saved
+
+
+def selection_hold(sel) -> dict:
+    """Phase 47's selection (run on the card by the launcher) against the
+    port's own ``select_training_docs(device="cpu")`` on the same corpus.
+
+    The DLV build picks each partition's split attribute by the largest
+    variance; on an all-web partition ``tokens`` and ``tok_web`` hold the
+    same values, so their variances tie exactly and the order of the
+    sums breaks the tie.  The card's segment stats add in another order
+    than the CPU's ``index_add_``, so the two builds may differ there.
+    The card is held to the CPU run with the kernel's order
+    (``kernel_order_stats``): the same layer sizes and the objective
+    within ``SELECTION_TOL``; the plain CPU run's objective is printed
+    beside it."""
+    from repro_torch.data.selection import select_training_docs
+    from repro_torch.launch.train import SELECT_KW, selection_problem
+    corpus, q = selection_problem()
+    check(sel.feasible and q.check_package(corpus, sel.idx, sel.mult),
+          "train launcher: the selection is not a feasible, valid package")
+    kw = dict(device="cpu", **SELECT_KW)
+    t0 = time.perf_counter()
+    with kernel_order_stats():
+        mirror = select_training_docs(corpus, q, **kw)
+    mirror_s = time.perf_counter() - t0
+    plain = select_training_docs(corpus, q, **kw)
+    rel = abs(sel.obj - mirror.obj) / max(1.0, abs(mirror.obj))
+    check(sel.ps_stats.layer_sizes == mirror.ps_stats.layer_sizes,
+          f"train launcher: the card's layers {sel.ps_stats.layer_sizes} "
+          f"vs the CPU's in the kernel's order "
+          f"{mirror.ps_stats.layer_sizes}")
+    check(rel <= SELECTION_TOL, f"train launcher: the selection's objective "
+                                f"{sel.obj} vs the CPU's {mirror.obj}")
+    return dict(selection_obj=sel.obj, selection_docs=len(sel.idx),
+                selection_package_size=int(sel.mult.sum()),
+                selection_layers=json.dumps(sel.ps_stats.layer_sizes),
+                selection_lp_iters=sel.ps_stats.lp_iters,
+                selection_cpu_kernel_order_obj=mirror.obj,
+                selection_rel_diff=rel, selection_cpu_s=mirror_s,
+                selection_cpu_plain_obj=plain.obj,
+                selection_cpu_plain_layers=json.dumps(
+                    plain.ps_stats.layer_sizes),
+                selection_cpu_plain_rel_diff=abs(sel.obj - plain.obj)
+                / max(1.0, abs(plain.obj)))
+
+
+def first_difference(got, want) -> tuple:
+    """(largest |difference|, first index that differs or None)."""
+    diff = [abs(a - b) for a, b in zip(got, want)]
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+    return (max(diff) if diff else 0.0), first
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def launcher_profile(model, dev) -> dict:
+    """Where a launcher step's time goes, on (a)'s trained model: the
+    host seconds of one ``global_batch`` (the pipeline's per-token loop,
+    inside the launcher's step time), then one more step of
+    ``make_train_step`` (the launcher's schedule, fresh moments) on that
+    batch under the profiler: device busy ms, ops and top device ops."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import OptHyper
+    from repro_torch.training.step import init_train_state, make_train_step
+    c = LAUNCHER
+    data = SyntheticTokens(DataConfig(model.cfg.vocab_size, c["seq"],
+                                      c["batch"]))
+    t0 = time.perf_counter()
+    host = data.global_batch(c["steps"])
+    pipeline_s = time.perf_counter() - t0
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    state = init_train_state(model)
+    step = make_train_step(model, OptHyper(
+        lr=3e-3, warmup_steps=max(c["steps"] // 10, 5),
+        total_steps=c["steps"]))
+    busy, ops, reads, ours, top = device_profile(lambda: step(state, batch))
+    del state, step
+    return dict(pipeline_ms=pipeline_s * 1e3, device_busy_ms=busy,
+                device_ops=ops, device_to_host=reads,
+                kernels=json.dumps(ours), top=json.dumps(top))
+
+
+def phase_train_launcher(dev):
+    """Phase 47: ``repro_torch.launch.train.main`` on the card at
+    smollm-135m, full width, bf16, remat "full", ``LAUNCHER`` (8 x 2,048
+    tokens, 14 steps, --select-data), three runs in one process: (a)
+    without a checkpoint, launch counts reset around it; (b) with
+    ``--ckpt-dir`` every 5 steps and ``--fail-at 9``, whose exit code must
+    be 42; (c) the same flags without ``--fail-at``, which resumes from
+    step 10.  (b)'s losses equal (a)'s first ten bit for bit (two
+    uninterrupted runs), (c)'s equal (a)'s from step 10 on; every loss is
+    finite and the last below the first; the selection is held by
+    ``selection_hold``; ``launcher_profile`` profiles one more step.
+    Returns (a)'s launch counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    c = LAUNCHER
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="launcher_ckpt_",
+                                 dir=ROOT / "build"))
+    try:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        sa = {}
+        a = train.main(launcher_args(dev), stats=sa)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sa["model"].param_count()
+        layers = sa["model"].cfg.num_layers
+        prof = launcher_profile(sa.pop("model"), dev)
+        sb = {}
+        try:
+            train.main(launcher_args(dev, root, c["fail_at"]), stats=sb)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        check(code == 42, f"train launcher: run (b) exited {code}, not 42 "
+                          f"after --fail-at {c['fail_at']}")
+        ckpt_bytes = dir_bytes(sb["saves"][-1][2])
+        del sb["model"]
+        sc = {}
+        resumed = train.main(launcher_args(dev, root), stats=sc)
+        del sc["model"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    b = [l for _, l, _ in sb["steps"]]
+    split = c["fail_at"] + 1
+    two_err, two_first = first_difference(b, a[:split])
+    check(len(b) == split and two_first is None,
+          f"train launcher: two uninterrupted runs differ from step "
+          f"{two_first} (largest {two_err}): an op of the train path is not "
+          f"deterministic")
+    check(sc["start"] == split, f"train launcher: resumed at "
+                                f"{sc['start']}, not {split}")
+    res_err, res_first = first_difference(resumed, a[split:])
+    check(len(resumed) == c["steps"] - split and res_first is None,
+          f"train launcher: resumed losses differ from step "
+          f"{res_first} (largest {res_err})")
+    check(all(np.isfinite(a + b + resumed)) and a[-1] < a[0],
+          f"train launcher: losses {a}")
+    per = {k: counts[k] / c["steps"] for k in (
+        "flash_attention", "flash_attention_bwd", "flash_attention_bwd_tc")}
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "flash_attention_bwd_tc": layers}
+    check(per == want, f"train launcher: flash launches a step {per}, "
+                       f"expected {want}")
+    for name in ("pricing", "bfrt_histogram", "segment_stats", "dlv_scan"):
+        check(counts[name] > 0, f"train launcher: the selection never "
+                                f"launched {name}")
+    step_s = float(np.median([t for _, _, t in sa["steps"][LAUNCHER_TIMED]]))
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / 1e3 / step_s
+    tokens = c["batch"] * c["seq"]
+    flop = 8 * n_params * tokens
+    saves = sb["saves"] + sc["saves"]
+    nums = dict(arch=LAUNCHER_ARCH, params=n_params, batch=c["batch"],
+                seq=c["seq"], steps=c["steps"], step_ms=step_s * 1e3,
+                step_ms_all=json.dumps([t * 1e3 for _, _, t in sa["steps"]]),
+                tokens_per_s=tokens / step_s, flop_per_step=flop,
+                flop_share=flop / step_s / 989e12,
+                peak_gib=(peak - base) / 2**30,
+                resident_before_gib=base / 2**30,
+                loss_first=a[0], loss_last=a[-1],
+                two_runs_max_diff=two_err, resumed_max_diff=res_err,
+                resumed_from=sc["start"], exit_b=code,
+                selection_s=sa["selection_s"],
+                checkpoint_gb=ckpt_bytes / 1e9,
+                save_s=json.dumps([[st, t] for st, t, _ in saves]),
+                restore_s=sc["restore_s"],
+                flash_fwd_launches_per_step=per["flash_attention"],
+                flash_bwd_launches_per_step=per["flash_attention_bwd"],
+                flash_bwd_tc_launches_per_step=per[
+                    "flash_attention_bwd_tc"],
+                launches=json.dumps({k: counts[k]
+                                     for k in LAUNCHER_KERNELS}),
+                **selection_hold(sa["selection"]))
+    say("train launcher", **nums)
+    say("profile train launcher step", **prof)
+    return counts
+
+
+def phase_train_checkpoint(model, opt):
+    """Phase 48: phase 45's qwen2-1.5b train state (the model's bf16
+    parameters, after phase 46's step, and phase 45's float32 moments and
+    step) saved by ``CheckpointManager(keep_last_k=1)`` under a temp dir
+    in ``build/``, restored onto the card, and every leaf held equal
+    (``torch.equal``, dtype and device).  Not run, and said so, where the
+    disk holds less than twice the state."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.param import leaves
+    state = {"params": model.params, "opt": opt}
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves(state))
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = free_gb(ROOT / "build")
+    if free * 1e9 < 2 * nbytes:
+        say("train checkpoint", state_gb=nbytes / 1e9,
+            result=f"not run: {free} GB free")
+        return
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        mgr = CheckpointManager(root, keep_last_k=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(int(opt["step"]), state)
+        save_s = time.perf_counter() - t0
+        on_disk = dir_bytes(path)
+        t0 = time.perf_counter()
+        out = mgr.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = dict(leaves(out))
+        bad = [n for n, t in leaves(state)
+               if got[n].dtype != t.dtype or got[n].device != t.device
+               or not torch.equal(got[n], t.detach())]
+        check(not bad, f"train checkpoint: leaves differ after the round "
+                       f"trip: {bad[:5]}")
+        say("train checkpoint", arch=model.cfg.name, free_gb=free,
+            state_gb=nbytes / 1e9, on_disk_gb=on_disk / 1e9,
+            leaves=len(got), save_s=save_s, restore_s=restore_s,
+            save_gb_per_s=nbytes / 1e9 / save_s,
+            restore_gb_per_s=nbytes / 1e9 / restore_s, equal=True)
+        del out, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def train_phases(phase, dev):
-    """Phases 42-46; the kernels line's five backward entries: D and the
+    """Phases 42-48; the kernels line's five backward entries: D and the
     tensor-core kernels launched by phase 45's steps (timed at the train
     cell in phase 43), the CUDA-core ones by phase 44's float32 steps
-    (timed in phase 43 at the shape of phase 44's qwen2-1.5b call)."""
+    (timed in phase 43 at the shape of phase 44's qwen2-1.5b call).
+    Returns (those entries, phase 47's launch counts)."""
     import torch
     err42 = phase("flash bwd agreement", phase_flash_bwd_agreement, dev)
     err43, whole, per = phase("flash bwd time", phase_flash_bwd_time, dev)
     smoke = phase("train smoke", phase_train_smoke, dev)
     model = phase("train model", train_model, dev)
-    counts, nums = phase("train", phase_train, model, dev)
+    counts, nums, opt = phase("train", phase_train, model, dev)
     phase("train compressed", phase_train_compressed, model, dev)
-    del model
+    launcher = phase("train launcher", phase_train_launcher, dev)
+    phase("train checkpoint", phase_train_checkpoint, model, opt)
+    del model, opt
     torch.cuda.empty_cache()
     smoke_cc = sum(r["cuda_cores_bwd"] for r in smoke.values())
     check(smoke_cc > 0, "train smoke: no backward on the CUDA-core kernels")
@@ -5317,6 +5614,10 @@ def train_phases(phase, dev):
         paths = {"train step": step}
         if name in BWD_CUDA_CORES:
             paths["train smoke"] = smoke_cc
+        else:
+            paths["train launcher"] = launcher[
+                "flash_attention_bwd_tc" if name in BWD_TC
+                else "flash_attention_bwd"]
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
@@ -5333,7 +5634,7 @@ def train_phases(phase, dev):
             **({} if name in BWD_CUDA_CORES else {"whole_backward": whole}),
             "train_step": {k: nums[k] for k in (
                 "step_ms", "tokens_per_s", "flop_share", "peak_gib")}})
-    return entries
+    return entries, launcher
 
 
 def main() -> None:
@@ -5436,7 +5737,7 @@ def main() -> None:
     hybrid_counts, hybrid_flash, hybrid_serve_lp = hybrid_phases(phase, dev)
     encdec_counts, encdec_flash, encdec_serve_lp = encdec_phases(phase, dev)
     vlm_counts, vlm_flash, vlm_serve_lp = vlm_phases(phase, dev)
-    bwd_entries = train_phases(phase, dev)
+    bwd_entries, launcher_counts = train_phases(phase, dev)
     say("phase seconds", **{k.replace(" ", "_"): v
                             for k, v in phase_s.items()})
 
@@ -5507,6 +5808,8 @@ def main() -> None:
                          moe_prefill_largest_call=moe_main[1],
                          hybrid_prefill_call=hybrid_flash[1],
                          **{k: v[1] for k, v in slice_flash.items()})
+        if name in LAUNCHER_KERNELS:
+            paths["train launcher"] = launcher_counts[name]
         if name in dist_nums:
             paths.update({p: n[name] for p, n in dist_counts.items()})
             err_m = max(err_m, dist_nums[name][0])

@@ -1,9 +1,10 @@
-"""The training slice alone on the card: ``chip_smoke.py``'s phases 42-46.
+"""The training slice alone on the card: ``chip_smoke.py``'s phases 42-48.
 
 Builds every kernel, prints the flash backward's nvcc seconds and ptxas
 report, then runs "flash bwd agreement", "flash bwd time", "train smoke",
 "train model", "train" (qwen2-1.5b at full width, three steps of 8 x
-4,096 tokens) and "train compressed" as the full script does, prints the
+4,096 tokens), "train compressed", "train launcher" and "train
+checkpoint" as the full script does, prints the
 seconds of each and the backward kernels' entries of the
 ``kernels`` line.
 
@@ -42,7 +43,7 @@ def main() -> None:
         seconds[label] = time.perf_counter() - t0
         return out
 
-    entries = cs.train_phases(phase, torch.device("cuda"))
+    entries, _ = cs.train_phases(phase, torch.device("cuda"))
     cs.say("phase seconds", **{k.replace(" ", "_"): v
                                for k, v in seconds.items()})
     print(json.dumps({"kernels": entries}), flush=True)
