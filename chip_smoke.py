@@ -36,6 +36,13 @@ package.  Phases, one line each (or one per kernel):
    the partition again with every scan segment on the one-thread path
    ("profile partition, one-thread scan only": the build's device time
    without the long path);
+4b. analysis: the port's traced contracts on the card
+   (``repro_torch.analysis.contracts.run_contracts("card")``) on the
+   largest layer LP of one more h=3 solve of phase 4's engine: one host
+   read, one pricing launch and one BFRT select call a pivot of the
+   device LP, one ``rep.cpu()`` a priced pivot of ``solve_lp_dist`` on a
+   world of one rank, the distributed steps' passes and bytes, and the
+   trace's cost against untraced solves; fails on any violation;
 5. main-path inputs: the main path of phase 4 run once more with a copy of
    the arguments of every kernel call kept, and each kernel held against
    its plain version on exactly those inputs; the times in the ``kernels``
@@ -1363,6 +1370,71 @@ def device_profile(fn, on_prof=None):
         top
 
 
+# ------------------------------------------- the static analysis on the card
+
+ANALYSIS_MAX_ITERS = 5000     # the layer LPs' cap (shading's max_lp_iters)
+
+
+def phase_analysis(eng, q3):
+    """The port's traced contracts on the card
+    (``repro_torch.analysis.contracts.run_contracts("card")``) on the
+    largest layer LP of one Q2_TPCH h=3 solve of phase "full"'s engine (a
+    session: the engine's rng is untouched): the device LP's pivot loop
+    (one host read, one pricing launch and one BFRT select call a pivot)
+    and ``solve_lp_dist`` on an NCCL world of one rank (one ``rep.cpu()``
+    a pivot), the distributed steps, the batched engine, pricing, segment
+    stats and the descent.  One line a hot path; fails on any violation
+    that the port's baseline does not pin.  Returns the records."""
+    from repro_torch.analysis import contracts, report
+    from repro_torch.core.lp_kernel import solve_lp_kernel
+    lps = []
+
+    def keep(c, A_t, bl, bu, ub, **kw):
+        lps.append((c, A_t, bl, bu, ub))
+        return solve_lp_kernel(c, A_t, bl, bu, ub, **kw)
+
+    eng.session(0).solve(q3, ilp_kwargs=ILP_KW, lp_solver=keep)
+    check(bool(lps), "analysis: the h=3 solve ran no layer LP")
+    lp = max(lps, key=lambda a: np.asarray(a[0]).size)
+    viol, recs, wall = contracts.run_contracts("card", lp=lp,
+                                               max_iters=ANALYSIS_MAX_ITERS)
+    pinned = report.load_baseline(str(ROOT / "src" / "repro_torch" /
+                                      "analysis" / "baseline.json"))
+    new, _, _ = report.compare_baseline(viol, pinned)
+    for r in recs:
+        keys = ("pivots", "host_reads_per_pivot",
+                "pricing_launches_per_pivot", "select_calls_per_pivot",
+                "bfrt_launches_per_pivot",
+                "dense_passes", "dense_passes_per_pivot", "declared_reads",
+                "collective_bytes", "collective_bytes_per_pivot",
+                "budget_bytes", "traced_s", "untraced_s",
+                "trace_cost_s_per_pivot", "status", "wall_s")
+        say(f"analysis {r['hot_path']}", **{
+            k: json.dumps(r[k]) if isinstance(r[k], dict) else r[k]
+            for k in keys if k in r})
+    say("analysis", layer_lps=len(lps), lp_columns=int(np.asarray(
+        lp[0]).size), lp_rows=int(np.atleast_2d(lp[1]).shape[0]),
+        hot_paths=len(recs), violations=len(viol), new=len(new),
+        contracts_s=wall)
+    for v in viol:
+        print(f"  {v.format()}", flush=True)
+    check(not new, f"analysis: {len(new)} contract violations not pinned, "
+                   f"first: {new[0].format() if new else ''}")
+    twin = next(r for r in recs if r["hot_path"].startswith("lp_kernel."))
+    check(twin["pivots"] > 0 and twin["host_reads_per_pivot"] == 1.0
+          and twin["pricing_launches_per_pivot"] == 1.0
+          and twin["select_calls_per_pivot"] == 1.0,
+          f"analysis: the device LP's pivot is not one read, one pricing "
+          f"launch and one select call: {twin}")
+    dist_rec = next(r for r in recs
+                    if r["hot_path"].startswith("distributed.solve_lp_dist"))
+    rep_reads = dist_rec["declared_reads"].get("solve_lp_dist:cpu", 0)
+    check(dist_rec["pivots"] - 1 <= rep_reads <= dist_rec["pivots"],
+          f"analysis: solve_lp_dist read rep {rep_reads} times in "
+          f"{dist_rec['pivots']} pivots")
+    return recs
+
+
 # --------------------------------------------------------------- phase 5
 
 # the names by which the main path's modules call each kernel's wrapper
@@ -2462,6 +2534,8 @@ def phase_cache(eng, table, device):
     # ---- the append: the h=2 package's first 7 rows and fresh rows
     prime = cold("prime")[0]
     fresh = make_table("tpch", APPEND_FRESH, seed=2)
+    # repro: allow[REPRO005] the cell's table is an in-memory dict: a
+    # gather of seven rows and the fresh rows, not a streamed column load
     rows = {a: np.concatenate([np.asarray(table[a][prime.idx[:7]],
                                           np.float64),
                                np.asarray(fresh[a], np.float64)])
@@ -3161,6 +3235,8 @@ def phase_streamed_parity(device="cuda"):
     table = make_table("tpch", cfg["rows"], seed=0)
     path = STREAMED_DIR / "parity.npy"
     STREAMED_DIR.mkdir(parents=True, exist_ok=True)
+    # repro: allow[REPRO005] the parity table is made in memory here and
+    # written whole to the memmap under test
     np.save(path, np.stack([table[a] for a in ATTRS], axis=1))
     q = instantiate(Q2_TPCH, column_stats(table, ATTRS), 3)
     kw = dict(d_f=cfg["d_f"], alpha=cfg["alpha"], seed=0,
@@ -5685,6 +5761,7 @@ def main() -> None:
 
     parity_lp = phase("parity", phase_parity)
     counts, inputs, eng = phase("full", phase_full)
+    phase("analysis", phase_analysis, eng, inputs[1])
     main_nums = phase("main-path inputs", phase_main_inputs, counts,
                       *inputs)
     lp = phase("lp batch", phase_lp_batch, eng, *inputs)

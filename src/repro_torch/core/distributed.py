@@ -64,7 +64,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels.bfrt import bfrt_histogram
 from repro_torch.kernels.pricing import Pricer, ratio_range_plain
-from repro_torch.runtime import racecheck
+from repro_torch.runtime import racecheck, tracepoints
 
 NUM_BUCKETS = 128
 GATHER_K = 128        # per-rank in-bucket candidates for the exact walk
@@ -564,9 +564,11 @@ def _any_rank(flag: bool, shards: ColumnShards) -> bool:
     such as a wall-clock deadline, made the same on all of them."""
     if shards.p == 1:
         return flag
-    t = torch.tensor([float(flag)], dtype=torch.float64, device=shards.device)
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=shards.device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.cpu()[0] > 0)
+    # repro: allow[REPRO003] declared read: the ranks' agreed deadline,
+    # once a pivot and only with a budget on more than one rank
+    return t.cpu().tolist()[0] > 0
 
 
 def _gather_state(state_loc, shards: ColumnShards) -> np.ndarray:
@@ -671,6 +673,8 @@ def solve_lp_dist(c, A_t, bl, bu, ub, *, mesh, lb=None,
         Binv = np.linalg.inv(A[:, basis])
         y = Binv.T @ cf[basis]
         d_dev, axn = refresh_step(A_dev, cf_dev, state_dev, l_dev, u_dev, y)
+        # repro: allow[REPRO003] declared read: A xN for the basic values,
+        # once a refactorization (at most once a pivot)
         xB = -Binv @ axn.cpu().numpy()
         since = 0
 
@@ -681,6 +685,7 @@ def solve_lp_dist(c, A_t, bl, bu, ub, *, mesh, lb=None,
     fallback_reason = None
     try:
         for iters in range(1, max_iters + 1):
+            tracepoints.pivot("distributed.solve_lp_dist")
             if budget is not None and _any_rank(
                     budget.out_of_time()
                     or iters > budget.remaining_pivots(), shards):
@@ -712,6 +717,8 @@ def solve_lp_dist(c, A_t, bl, bu, ub, *, mesh, lb=None,
                                              abs(delta))
             # the pivot's one device->host read: everything the host loop
             # consumes (alpha and the flip mask stay on the device)
+            # repro: allow[REPRO003] declared read: the packed replicated
+            # outputs of the pq step, once a pivot
             rep = rep.cpu().numpy()
             if not rep[HAS_CROSS]:
                 if since > 0:   # could be drift: retry on fresh factors

@@ -163,8 +163,8 @@ class PackageQueryEngine:
                                       budget=report.budget, report=report,
                                       ladder=guarded, qcache=self.cache,
                                       device=self.device, **ps_kwargs)
-        # guard contract: a guarded solve never raises -- contain, report
-        # and return an empty (infeasible) result
+        # repro: allow[REPRO004] guard contract: guarded solve must never
+        # raise -- contain, report, and return an empty (infeasible) result
         except Exception as e:
             if not guarded:
                 raise

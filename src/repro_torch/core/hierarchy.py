@@ -130,6 +130,8 @@ class Hierarchy:
                 "pass an in-memory table or layer0_backend='bucketing'")
         self.layer0_backend = layer0_backend
         if rel.in_memory:
+            # repro: allow[REPRO005] guarded by rel.in_memory: columns
+            # are already resident; this is a view stack, not a load
             X0 = np.stack([np.asarray(rel[a], np.float64)
                            for a in self.attrs], axis=1)
             self.layers: List[Layer] = [
@@ -192,7 +194,12 @@ class Hierarchy:
         self._append_state = None
         self._invalidation_hooks = []
         rel = as_relation(table, columns=self.attrs)
+        if not rel.in_memory:
+            raise TypeError("Hierarchy.from_arrays takes an in-memory table "
+                            "(a dict of columns or an in-memory Relation)")
         self.relation = rel
+        # repro: allow[REPRO005] guarded by rel.in_memory: columns are
+        # already resident; this is a view stack, not a load
         X0 = np.stack([np.asarray(rel[a], np.float64) for a in self.attrs],
                       axis=1)
         self.layers = [Layer(rel, X0, None, float(eps0))]

@@ -38,6 +38,7 @@ from repro_torch.core.lp import (BUDGET, INFEASIBLE, ITER_LIMIT, OPTIMAL,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bfrt import Selector
 from repro_torch.kernels.pricing import Pricer
+from repro_torch.runtime import tracepoints
 
 
 def _refreshed(cf, A, l, u, basis, in_basis, at_upper):
@@ -93,12 +94,18 @@ def _solve(cf, A, l, u, basis0, at_upper0, max_iters: int,
 
     def read(*flags):
         """The pivot loop's one host read: small int tensors, one copy."""
+        # repro: allow[REPRO003] declared read: the pivot's status, drift
+        # and refresh flags in one copy, once a pivot
         return torch.cat([f.reshape(1).to(torch.int64)
                           for f in flags]).cpu().tolist()
 
     drift, flag = read(*gates())
     status, it, n_drift = ITER_LIMIT, 0, 0
+    # repro: allow[REPRO006] the budget caps max_iters before the loop
+    # (lp_iter_cap) and is charged after it: a deadline check here would
+    # be a host read a pivot
     while status == ITER_LIMIT and it < max_iters:
+        tracepoints.pivot("lp_kernel._solve")
         n_drift += drift
         if flag:
             Binv, xB, d, y = _refreshed(cf, A, l, u, basis, in_basis,

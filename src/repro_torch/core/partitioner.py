@@ -206,11 +206,13 @@ class Partition:
 
 
 _BACKENDS: Dict[str, Callable[..., Partition]] = {}
+_BACKENDS_LOCK = threading.Lock()
 
 
 def register_backend(name: str):
     def deco(fn):
-        _BACKENDS[name] = fn
+        with _BACKENDS_LOCK:
+            _BACKENDS[name] = fn
         return fn
     return deco
 

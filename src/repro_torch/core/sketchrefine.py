@@ -45,6 +45,7 @@ def sketch_refine(query: PackageQuery, table, attrs, *,
     n = rel.num_rows
     tau = max(2, int(tau_frac * n))
     if rel.in_memory:
+        # repro: allow[REPRO005] guarded by rel.in_memory: resident view
         X = np.stack([np.asarray(rel[a], np.float64) for a in attrs],
                      axis=1)
         part = partitioner.fit(X, backend=backend, device=dev,

@@ -52,7 +52,9 @@ SOURCES = ("pricing", "bfrt", "segstats", "dlv_scan", "flash_attn",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # each source's nvcc wall seconds, for the sources built in this process
+# (under _SECONDS_LOCK: load_variant builds without _LOCK)
 BUILD_SECONDS: Dict[str, float] = {}
+_SECONDS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -92,7 +94,8 @@ def _finish(name: str, job) -> None:
         return
     proc, tmp, out, t0 = job
     log, _ = proc.communicate()
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+    with _SECONDS_LOCK:
+        BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")

@@ -37,6 +37,7 @@ NUM_BUCKETS = 128
 ONE_CTA_MAX = 8192       # csrc/bfrt.cu ONE_MAX: one launch up to this N
 SELECT_CAP = 8192        # csrc/bfrt.cu CAP: bucket columns sorted at once
 launches = 0
+select_calls = 0         # Selector calls that launched the select kernel
 
 _SIG = {"bfrt_hist_f64": (_build.P, _build.P, _build.P, _build.I64,
                           _build.I64) + (_build.P,) * 5,
@@ -366,7 +367,7 @@ class Selector:
                 or (vector and t.dim() != 1))
 
     def __call__(self, ratio, cost, budget, rng=None):
-        global launches
+        global launches, select_calls
         N = self.N
         if self._bad(ratio, N) or self._bad(cost, N):
             raise ValueError(f"bfrt select: ratio and cost must be "
@@ -393,6 +394,7 @@ class Selector:
         args[9] = _build.stream_ptr(self.index)
         _build.check(self.fn(args), "bfrt_select")
         launches += self.per_call + (rng is None)
+        select_calls += 1
         return self.q, self.flips, self.has_cross
 
 

@@ -450,19 +450,22 @@ class LaneSolver:
         kernel's shared memory keep their per-row or per-column state
         there), and read the path the kernel takes for this class
         (``plan``: "warp" or "cta", lanes a CTA, ``(cf, A)`` staged in
-        shared memory, the CTA's dynamic shared bytes)."""
-        self.fn = lib.lp_batch_f64
+        shared memory, the CTA's dynamic shared bytes).  Under ``_lock``:
+        a rebind never swaps the workspace under a running call."""
         ws_bytes = lib.lp_batch_ws_lane_bytes
         ws_bytes.restype = ctypes.c_int64
         lane_bytes = ws_bytes(self.m_pad, self.N)
-        self.ws = torch.empty(self.K_pad * lane_bytes, dtype=torch.uint8,
-                              device=self.device) if lane_bytes else None
         out = (ctypes.c_int64 * 4)()
         _build.check(lib.lp_batch_plan(self.m_pad, self.N, self.K_pad, out),
                      "lp_batch_plan")
-        self.plan = {"path": "warp" if out[0] else "cta",
-                     "lanes_per_cta": int(out[1]), "staged": bool(out[2]),
-                     "smem_bytes": int(out[3])}
+        with self._lock:
+            self.fn = lib.lp_batch_f64
+            self.ws = torch.empty(self.K_pad * lane_bytes,
+                                  dtype=torch.uint8, device=self.device) \
+                if lane_bytes else None
+            self.plan = {"path": "warp" if out[0] else "cta",
+                         "lanes_per_cta": int(out[1]),
+                         "staged": bool(out[2]), "smem_bytes": int(out[3])}
 
     def _launch(self, cf, A, trip_limit: int) -> None:
         global launches

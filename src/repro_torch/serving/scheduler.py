@@ -149,7 +149,12 @@ class PackageScheduler:
                 ))
             budget = SolveBudget(deadline_s=self.time_limit_s).start()
             report = SolveReport(budget=budget, monitor=NumericalMonitor())
+            # The admission solve holds only _tick_lock (the
+            # whole-operation serializer), never the data lock.
             try:
+                # repro: allow[REPRO011] tick-exclusivity lock by
+                # design: _tick_lock serializes whole admission solves
+                # (rng confinement); the data lock _lock is NOT held
                 res = dual_reducer(query, cols, np.arange(n),
                                    q=min(500, n), rng=self.rng,
                                    budget=budget, report=report,
@@ -157,8 +162,8 @@ class PackageScheduler:
                                    ilp_kwargs=dict(
                                        max_nodes=200,
                                        wave_width=self.wave_width))
-            # containment by design: the tick contract is "never raises";
-            # a failure becomes an ERROR report and an empty admission
+            # repro: allow[REPRO004] containment rung by design: the tick
+            # contract is "never raises" — failures become an ERROR report
             except Exception as exc:   # pragma: no cover - containment
                 report.status = ERROR
                 report.note(f"scheduler tick contained: "

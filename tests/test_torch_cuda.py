@@ -2134,3 +2134,45 @@ def test_train_launcher_crash_resume_on_the_card(dev, tmp_path, monkeypatch):
     resumed = {}
     assert train.main(args + ck, resumed) == ref[4:]
     assert resumed["start"] == 4
+
+
+# ------------------------------------------- the static analysis on the card
+
+
+def test_analysis_card_grid_is_green(dev):
+    """``run_contracts("card")``: every hot path on CUDA at world 1 (NCCL)
+    within the port's declared counts, no violation."""
+    from repro_torch.analysis import contracts
+    viol, recs, _ = contracts.run_contracts("card")
+    assert viol == [], "\n".join(v.format() for v in viol)
+    twin = next(r for r in recs if r["hot_path"].startswith("lp_kernel."))
+    assert twin["pivots"] > 0
+    assert twin["host_reads_per_pivot"] == 1.0
+    assert twin["pricing_launches_per_pivot"] == 1.0
+    assert twin["select_calls_per_pivot"] == 1.0
+    pq = next(r for r in recs if r["hot_path"].startswith(
+        "distributed.pq_step"))
+    assert pq["pricing_launches_per_pivot"] == 1.0
+    assert int(pq["dense_passes"]) == contracts.PQ_PASSES
+
+
+@pytest.mark.parametrize("n", [3000, 10000])
+def test_device_lp_pivot_is_one_read_and_one_pricing_launch(dev, n):
+    """Each pivot of ``solve_lp_kernel`` on the card: exactly one host
+    read (the declared one), one pricing launch, one select call -- of
+    one select kernel up to ``ONE_CTA_MAX`` columns, three above."""
+    from repro_torch.analysis import contracts
+    from repro_torch.core.lp_kernel import solve_lp_kernel
+    from repro_torch.kernels.bfrt import ONE_CTA_MAX
+    lp = contracts.package_lp(n, 8, seed=3)
+    with contracts.OpTrace(dev) as tr:
+        res = solve_lp_kernel(*lp, device=dev)
+    P = tr.pivots["lp_kernel._solve"]
+    assert P == res.iters > 0
+    reads = [r for r in tr.reads if r.hot is not None]
+    assert [r.pivot for r in reads] == list(range(1, P + 1))
+    assert all(r.site.func == "_solve.<locals>.read" for r in reads)
+    price, launched, sel = tr.launches_per_pivot()
+    assert price == [1] * P
+    assert sel == [1] * P
+    assert launched == [1 if n + 8 <= ONE_CTA_MAX else 3] * P

@@ -201,3 +201,17 @@ def test_loaded_hierarchy_appends_and_registers_with_a_cache():
     want = built.append(rows)
     assert rep.tv_bar == want.tv_bar
     np.testing.assert_array_equal(rep.flagged, want.flagged)
+
+
+def test_loaded_hierarchy_refuses_a_streamed_table(tmp_path):
+    """``from_arrays`` stacks the layer-0 columns it is given: a streamed
+    relation raises ``TypeError`` rather than being loaded whole."""
+    from repro_torch.core.relation import MemmapRelation
+    table = _table(200)
+    npy = tmp_path / "t.npy"
+    np.save(npy, np.stack([table["a"], table["b"]], axis=1))
+    rel = MemmapRelation.from_npy(str(npy), ["a", "b"], chunk_rows=64)
+    assert not rel.in_memory
+    with pytest.raises(TypeError, match="in-memory table"):
+        Hierarchy.from_arrays(rel, ["a", "b"], [], d_f=20, alpha=150,
+                              device="cpu")
