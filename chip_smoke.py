@@ -3737,10 +3737,12 @@ def prefill_decode_agreement(m32, S: int, tol: float, label: str) -> float:
 
 
 def serve_once(model, *, seed: int = 0, requests: int = 16, ticks=None,
-               prompt=(64, 257), new=(16, 65)):
+               prompt=(64, 257), new=(8, 33)):
     """``requests`` requests (prompts of ``prompt`` tokens, 64-256 by
-    default, and ``new`` new ones, 16-64; both [lo, hi) ranges; 16
-    requests by default), max_batch 8, cache_len 1024, an HBM budget of
+    default, and ``new`` new ones, 8-32; both [lo, hi) ranges; 16
+    requests by default, two ticks of a choice among them: 16-64 new
+    tokens until the layout phase was added, cut for the run's time),
+    max_batch 8, cache_len 1024, an HBM budget of
     0.05 x the card's memory; ``ticks`` admission ticks, by default as
     many as answer every request."""
     import torch
@@ -4567,6 +4569,150 @@ def dist_mesh():
                             world_size=1,
                             timeout=datetime.timedelta(seconds=300))
     return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+LAYOUT_TRAIN = dict(arch="smollm-135m", B=8, S=2048)
+LAYOUT_DECODE = dict(cache_len=4096, index=100)
+
+
+def _clone_cache(cache) -> dict:
+    return {k: v.clone() if hasattr(v, "clone") else v
+            for k, v in cache.items()}
+
+
+def _local(t):
+    """A DTensor's local tensor (the whole tensor on a (1, 1) mesh)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _walls(fn, reps: int = 2) -> list:
+    import torch
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_layout(model, batch, dev):
+    """The multi-device layout (``repro_torch.distributed``) on an NCCL
+    world of one rank and its (1, 1) mesh: qwen2-1.5b's prefill (the
+    flash launches counted through ``local_map``) and one decode step
+    with its parameters ``shard_params``-ed and the rules active, each
+    bit-equal to the rules-free run from the same parameters; then
+    smollm-135m's train step (8 x 2,048; its flash backward on the tensor
+    cores) bit-equal in loss and updated parameters.  Walls with and
+    without rules.  Returns the prefill's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import use_rules
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import Model
+    from repro_torch.models.param import leaves
+    from repro_torch.training.step import init_train_state, make_train_step
+    cfg = model.cfg
+    B = batch["tokens"].shape[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    cache0 = model.init_cache(B, LAYOUT_DECODE["cache_len"])
+    for k in ("k", "v"):
+        cache0[k].normal_(generator=g)
+    cache0["index"] = LAYOUT_DECODE["index"]
+    tok1 = batch["tokens"][:, :1]
+    want = model.prefill_logits(batch)
+    c_want = _clone_cache(cache0)
+    d_want, _ = model.decode_step(c_want, tok1)
+    free_prefill = _walls(lambda: model.prefill_logits(batch))
+    free_decode = _walls(lambda: model.decode_step(_clone_cache(cache0),
+                                                   tok1), 3)
+    mesh = dist_mesh()
+    try:
+        rules = make_rules(mesh)
+        rules.shard_params(model)
+        with use_rules(rules):
+            kernels.reset_launches()
+            got = model.prefill_logits(batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            check(counts["flash_attention"] == flash_layers(cfg),
+                  f"layout prefill: {counts['flash_attention']} flash "
+                  f"launches, want {flash_layers(cfg)}")
+            check(torch.equal(_local(got), want),
+                  "layout prefill: logits under the rules differ from the "
+                  "rules-free prefill")
+            del got, want
+            c_got = _clone_cache(cache0)
+            d_got, c_got = model.decode_step(c_got, tok1)
+            check(torch.equal(_local(d_got), d_want),
+                  "layout decode: logits differ")
+            for k in ("k", "v"):
+                check(torch.equal(_local(c_got[k]), c_want[k]),
+                      f"layout decode: cache {k} differs")
+            rules_prefill = _walls(lambda: model.prefill_logits(batch))
+            rules_decode = _walls(lambda: model.decode_step(
+                _clone_cache(cache0), tok1), 3)
+        del c_got, c_want, cache0
+        torch.cuda.empty_cache()
+
+        tcfg = get_config(LAYOUT_TRAIN["arch"])
+        tb = train_batch(tcfg, dev, LAYOUT_TRAIN["B"], LAYOUT_TRAIN["S"])
+        res = {}
+        for mode in ("free", "rules"):
+            m = Model(tcfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(0))
+            if mode == "rules":
+                rules.shard_params(m)
+            st = init_train_state(m)
+            step = make_train_step(m)
+            with use_rules(rules if mode == "rules" else None):
+                bwd0 = (fa.bwd_launches, fa.bwd_tc_launches)
+                t0 = time.perf_counter()
+                st, met = step(st, tb)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                bwd = (fa.bwd_launches - bwd0[0],
+                       fa.bwd_tc_launches - bwd0[1])
+                t0 = time.perf_counter()
+                st2, met2 = step(st, tb)
+                torch.cuda.synchronize()
+                second = time.perf_counter() - t0
+            res[mode] = dict(
+                loss=_local(met["loss"]).clone(),
+                loss2=_local(met2["loss"]).clone(),
+                params={n: _local(p).detach().clone()
+                        for n, p in leaves(st2["params"])},
+                walls=[first, second], bwd=bwd)
+            del m, st, st2, step
+            torch.cuda.empty_cache()
+        a, b = res["free"], res["rules"]
+        check(b["bwd"][0] == tcfg.num_layers and b["bwd"][1] == b["bwd"][0],
+              f"layout train: flash backward launches {b['bwd']}, want "
+              f"{tcfg.num_layers} on the tensor cores")
+        check(torch.equal(a["loss"], b["loss"]) and
+              torch.equal(a["loss2"], b["loss2"]),
+              f"layout train: loss {float(b['loss'])} under the rules vs "
+              f"{float(a['loss'])}")
+        diff = [n for n in a["params"]
+                if not torch.equal(a["params"][n], b["params"][n])]
+        check(not diff, f"layout train: parameters differ after two steps: "
+                        f"{diff[:5]}")
+    finally:
+        dist.destroy_process_group()
+    say("layout", card=json.dumps(smi()), mesh="(1, 1) nccl",
+        arch=ARCH, prefill=f"{B}x{batch['tokens'].shape[1]}",
+        flash_launches=counts["flash_attention"],
+        prefill_free_s=free_prefill, prefill_rules_s=rules_prefill,
+        decode_free_s=free_decode, decode_rules_s=rules_decode,
+        train_arch=LAYOUT_TRAIN["arch"],
+        train=f"{LAYOUT_TRAIN['B']}x{LAYOUT_TRAIN['S']}",
+        train_free_s=a["walls"], train_rules_s=b["walls"],
+        train_loss=float(a["loss"]), bwd_launches=b["bwd"][0],
+        bit_equal=True)
+    return counts
 
 
 def dist_profile(mesh, device):
@@ -5803,6 +5949,7 @@ def main() -> None:
     serve_lp = phase("lm serve", phase_lm_serve, model)
     lm_main = phase("lm main-path inputs", phase_lm_main_inputs, model,
                     batch, lm_counts)
+    layout_counts = phase("layout", phase_layout, model, batch, dev)
     del model, batch
     torch.cuda.empty_cache()
     dist_counts, dist_nums = phase("dist", phase_dist, *full_cell)
@@ -5820,7 +5967,8 @@ def main() -> None:
 
     # flash's main paths: the seven prefills (mamba2's launches none),
     # numbers at the largest call (MLA's, at (192, 128))
-    prefills = {"lm prefill": lm_counts, "moe prefill": moe_counts,
+    prefills = {"lm prefill": lm_counts, "layout prefill": layout_counts,
+                "moe prefill": moe_counts,
                 "mla prefill": mla_counts, "ssm prefill": ssm_counts,
                 "hybrid prefill": hybrid_counts,
                 "encdec prefill": encdec_counts, "vlm prefill": vlm_counts}

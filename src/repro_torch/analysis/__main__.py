@@ -6,6 +6,7 @@
   python -m repro_torch.analysis                     # host grid + lint
   python -m repro_torch.analysis --grid none         # lint only
   python -m repro_torch.analysis --grid card         # contracts on CUDA
+  python -m repro_torch.analysis --grid pod          # production meshes
   python -m repro_torch.analysis \
       --baseline src/repro_torch/analysis/baseline.json
   python -m repro_torch.analysis --update-baseline ...  # shrink only
@@ -20,12 +21,14 @@ def _parse(argv):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="traced contract checks + project lint of the port")
-    ap.add_argument("--grid", choices=("host", "card", "none"),
+    ap.add_argument("--grid", choices=("host", "card", "pod", "none"),
                     default="host",
                     help="where the traced contracts run: 'host' = the "
                          "CPU (a world of one rank and a spawned gloo "
                          "world of two; default), 'card' = CUDA (a world "
-                         "of one rank on NCCL), 'none' = lint only")
+                         "of one rank on NCCL), 'pod' = the distributed "
+                         "steps on the production meshes (16x16, 2x16x16) "
+                         "over a fake process group, 'none' = lint only")
     ap.add_argument("--baseline", default=None,
                     help="baseline JSON (ratchet: new violations fail, "
                          "pinned ones must only shrink)")

@@ -4,7 +4,9 @@
 The reference parses post-SPMD HLO text: it splits the computations,
 recovers each while loop's trip count from its condition and weights the
 collectives in a loop body by it.  The port lowers to no HLO: its
-collectives are ``torch.distributed`` calls that the traced contracts
+collectives are ``torch.distributed`` calls (``c10d.*``) and the
+functional collectives that DTensor issues (``_c10d_functional.*``),
+which the traced contracts
 (:class:`repro_torch.analysis.contracts.OpTrace`) record as they run, one
 record a call with its kind, its output bytes and its group size.  The
 trip count is what the trace counts itself: the pivots between the
@@ -50,6 +52,30 @@ C10D_KINDS = {
     "send": "collective-permute",
     "broadcast_": "collective-permute",
 }
+
+
+# functional collectives (``_c10d_functional.<op>.default``), which
+# DTensor's redistributions and ``torch.distributed._functional_
+# collectives`` issue -> kind; the group is the op's group name
+FUNCOL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_tensor_out": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+    "broadcast_": "collective-permute",
+    "isend": "collective-permute",
+}
+# functional ops that move no bytes themselves: a wait on a collective,
+# the autograd wrapper of one's output, the receiving half of a send
+FUNCOL_NO_BYTES = ("wait_tensor", "_wrap_tensor_autograd", "irecv")
 
 
 def pq_collective_budget(p: int, m: int, num_buckets: int = 128,

@@ -42,8 +42,8 @@ Every finding is a :class:`Violation` whose ``path`` is
 made it.  ``run_contracts(grid)`` runs the grid: ``"host"`` on the CPU
 (a world of one rank in process and a gloo world of two spawned over
 loopback), ``"card"`` on CUDA (a world of one rank on NCCL; raises
-without a card).  The reference's ``"pod"`` grid needs the production
-mesh (``launch/mesh.py``), which the port does not have yet.
+without a card), ``"pod"`` the distributed steps on the reference's
+production meshes over a fake process group (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -273,6 +274,16 @@ def _tensors(x):
             yield from _tensors(y)
 
 
+def _funcol_group_size(args) -> int:
+    """The group size of a functional collective: its group name (the
+    last string argument) resolved to the process group."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = next((a for a in reversed(args) if isinstance(a, str)), None)
+    if name is None:
+        return dist.get_world_size() if dist.is_initialized() else 1
+    return _resolve_process_group(name).size()
+
+
 def _group_size(args) -> int:
     for a in args:
         if isinstance(a, torch.ScriptObject):
@@ -303,6 +314,11 @@ class _Dispatch(TorchDispatchMode):
         self.trace = trace
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # a DTensor op: let DTensor lower it to local ops and the
+        # functional collectives of its redistributions, which come back
+        # through here
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.trace._op(func, args, kwargs, out)
@@ -468,6 +484,19 @@ class OpTrace:
         self.n_ops += 1
         ins = list(_tensors((args, kwargs)))
         outs = list(_tensors(out))
+        if name.startswith("_c10d_functional."):
+            op = name.split(".")[1]
+            kind = collectives.FUNCOL_KINDS.get(op)
+            if kind is not None:
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in _tensors(out))
+                self.collectives.append((CollectiveRecord(
+                    kind, nbytes, _funcol_group_size(args), self.pivot),
+                    self._site()))
+            elif op not in collectives.FUNCOL_NO_BYTES:
+                raise ValueError(f"OpTrace: functional collective {name} "
+                                 "has no kind")
+            return
         if name.startswith("c10d."):
             op = name.split(".")[1]
             kind = collectives.C10D_KINDS.get(op)
@@ -1132,7 +1161,17 @@ def check_split_descent(device, batch: int = 1024) -> HotPathResult:
 # -------------------------------------------------------------- the grids
 
 
-GRID_SHAPES = {"host": (8, 1 << 12), "card": (8, 1 << 16)}
+GRID_SHAPES = {"host": (8, 1 << 12), "card": (8, 1 << 16),
+               "pod": (8, 1 << 20)}
+
+
+def pod_ctx(multi_pod: bool) -> Ctx:
+    """Rank 0's place on a production mesh ((16, 16), or (2, 16, 16) with
+    ``multi_pod``) over the process group that is up: the dry-run's fake
+    group of 256 or 512 ranks (``launch.dryrun.fake_world``)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+    return Ctx(mesh, torch.device("cpu"), mesh.size(), dist.get_rank())
 
 
 def _dist_checks(ctx: Ctx, grid: str, lp=None, max_iters: int = 500
@@ -1240,7 +1279,24 @@ def spawn_world(world: int = 2, checks: Callable = _host_checks
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def run_contracts(grid: str = "host", *, lp=None, max_iters: int = 500
+def _pod_checks(shape=None) -> List[HotPathResult]:
+    """The pq, update and refresh steps on both production meshes, each
+    over a fake process group of its size (rank 0's shard of ``n``
+    columns; its collectives return at once, so the values are not the
+    point: the trace is)."""
+    from repro_torch.launch.dryrun import fake_world
+    m, n = shape or GRID_SHAPES["pod"]
+    out: List[HotPathResult] = []
+    for multi_pod in (False, True):
+        with fake_world(multi_pod):
+            ctx = pod_ctx(multi_pod)
+            out += [check_pq_step(ctx, m, n), check_update_step(ctx, m, n),
+                    check_refresh_step(ctx, m, n)]
+    return out
+
+
+def run_contracts(grid: str = "host", *, lp=None, max_iters: int = 500,
+                  shape: Optional[Tuple[int, int]] = None
                   ) -> Tuple[List[Violation], List[dict], float]:
     """Every hot-path check over the requested grid.
 
@@ -1250,16 +1306,22 @@ def run_contracts(grid: str = "host", *, lp=None, max_iters: int = 500
     single-device paths.  ``lp`` (c, A_t, bl, bu, ub) is the LP the
     device LP and ``solve_lp_dist`` solve, with ``max_iters`` (default
     a package LP).
-    ``"none"``: nothing (the CLI's lint-only lane).  ``"pod"`` needs the
-    production mesh, which the port does not have (``ValueError``).
+    ``"pod"``: the distributed pq, update and refresh steps on the
+    production meshes (16 x 16 and 2 x 16 x 16) over a fake process group
+    of 256 and 512 ranks, at ``shape`` (m, n) (default
+    ``GRID_SHAPES["pod"]``, the reference's).
+    ``"none"``: nothing (the CLI's lint-only lane).
     Returns (violations, per-hot-path records, total wall seconds)."""
     t0 = time.time()
     results: List[HotPathResult] = []
     if grid == "none":
         return [], [], 0.0
     if grid == "pod":
-        raise ValueError("grid 'pod' needs the production mesh "
-                         "(launch/mesh.py), which the port does not have")
+        results = _pod_checks(shape)
+        violations = [v for r in results for v in r.violations]
+        records = [dict(r.record, wall_s=round(r.wall_s, 3))
+                   for r in results]
+        return violations, records, time.time() - t0
     if grid == "host":
         device, backend = "cpu", "gloo"
     elif grid == "card":

@@ -88,6 +88,17 @@ _BWD_SIG = {"flash_attn_bwd_dot": (_build.P,) * 3 + (_build.I64,) * 5
             "flash_attn_bwd_cuda_cores": (_build.P,) * 9 + _BWD_ARGS}
 
 
+def no_dtensor(where: str, *ts) -> None:
+    """Raise on a DTensor: a kernel wrapper takes local tensors only.
+    A sharded caller runs it on each rank's shard through ``local_map``
+    (``repro_torch.models.attention.chunked_attention``); no DTensor
+    falls back to the plain version."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{where}: a DTensor reached the kernel wrapper; "
+                        "run it on local shards through local_map")
+
+
 def mask(q_pos, k_pos, *, causal: bool, window: int, prefix_len):
     """(..., Sq, Sk) boolean mask. True = attend."""
     qp = q_pos[..., :, None]
@@ -116,6 +127,7 @@ def chunked_scan(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
     attended; the reference's padded last chunk is the caller's
     (``repro_torch.models.attention.chunked_attention``).
     """
+    no_dtensor("chunked_scan", q, k, v)
     B, Sq, H, _ = q.shape
     o_run, l_run, _ = _online_softmax(q, k, v, q_pos, k_pos, causal=causal,
                                       window=window, prefix_len=prefix_len,
@@ -401,6 +413,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, prefix):
+        no_dtensor("FlashAttentionFn", q, k, v)
         kw = dict(causal=causal, window=window, scale=scale, prefix=prefix)
         if q.device.type == "cuda":
             o, lse = flash_attention_fwd(q, k, v, want_lse=True, **kw)
@@ -426,6 +439,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``prefix`` attended by every query; (B, Sq, H, dv).  On CUDA with grad
     recorded for q, k or v: :class:`FlashAttentionFn`; otherwise one
     forward-only launch."""
+    no_dtensor("flash_attention", q, k, v)
     prefix = max(int(prefix), 0)
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

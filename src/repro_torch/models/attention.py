@@ -37,6 +37,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import current_rules, use_rules
+from repro_torch.distributed.ops import (flatten_last, is_dtensor, matmul,
+                                         unflatten)
+from repro_torch.distributed.sharding import P, local_extent
 from repro_torch.kernels.attention import NEG_INF, chunked_scan
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import apply_norm, rope
@@ -63,17 +67,55 @@ def gqa_spec(cfg: ArchConfig) -> Dict[str, ParamInfo]:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) by w (d, n, h) -> (..., n, h): einsum "bsd,dnh->bsnh"."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return unflatten(matmul(x, w.reshape(w.shape[0], -1)), -1, w.shape[1:])
 
 
 def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """o (..., n, h) by w (n, h, d) -> (..., d): einsum "bsnh,nhd->bsd"."""
-    return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
+    return matmul(flatten_last(o), w.reshape(-1, w.shape[-1]))
 
 
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
                       window: int = 0, prefix_len=None, chunk: int = 1024,
                       scale: Optional[float] = None) -> torch.Tensor:
+    """The attention entry (see :func:`_chunked_attention_local`).
+
+    Under sharding rules (q, k or v a DTensor) the call runs on each
+    rank's shard through ``local_map``: B over the data-parallel axes and
+    the heads over the model axis where both H and KV divide it (the
+    reference pins its scan's carries B over dp), the rest replicated.
+    The kernel, or the plain scan on the CPU, then sees plain local
+    tensors, and the gradient flows back through ``local_map``."""
+    if not is_dtensor(q, k, v):
+        return _chunked_attention_local(q, k, v, q_pos, k_pos, causal=causal,
+                                        window=window, prefix_len=prefix_len,
+                                        chunk=chunk, scale=scale)
+    from torch.distributed.tensor.experimental import local_map
+    rules = current_rules()
+    if rules is None:
+        raise TypeError("chunked_attention: DTensor inputs with no sharding "
+                        "rules active")
+    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    tp = rules.tp_size
+    heads = rules.tp_axis if H % tp == 0 and KV % tp == 0 and KV >= tp \
+        else None
+    spec = P(rules._dp_entry(B), None, heads, None)
+    pl = rules.placements(spec)
+    q, k, v = (rules.place(t, spec) for t in (q, k, v))
+
+    def local(q_, k_, v_):
+        with use_rules(None):
+            return _chunked_attention_local(
+                q_, k_, v_, q_pos, k_pos, causal=causal, window=window,
+                prefix_len=prefix_len, chunk=chunk, scale=scale)
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=rules.mesh)(q, k, v)
+
+
+def _chunked_attention_local(q, k, v, q_pos, k_pos, *, causal: bool,
+                             window: int = 0, prefix_len=None,
+                             chunk: int = 1024,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention.  q: (B, Sq, H, hd); k: (B, Sk, KV, hd);
     v: (B, Sk, KV, hdv).  Returns (B, Sq, H, hdv).
 
@@ -147,6 +189,32 @@ def gqa_project_kv(p, x: torch.Tensor, positions: torch.Tensor,
     return rope(k, positions, theta), v
 
 
+def write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place, cast to the cache's dtype.
+    A DTensor cache (S over the model axis, maybe B over dp) is written
+    on its local shard: ``new`` is placed like the cache with S whole,
+    and the rank whose S range holds ``slot`` writes its rows."""
+    if not is_dtensor(cache):
+        cache[:, slot:slot + 1] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    pl = [Replicate() if isinstance(p_, Shard) and p_.dim == 1 else p_
+          for p_ in cache.placements]
+    rules = current_rules()
+    if rules is None:
+        raise TypeError("write_slot: a DTensor cache with no sharding rules "
+                        "active")
+    if not is_dtensor(new):
+        new = rules.place(new, P(*([None] * new.dim())))
+    new = new.redistribute(mesh, pl)
+    shape, off = local_extent(cache.shape, mesh, cache.placements)
+    lo = off[1]
+    if lo <= slot < lo + shape[1]:
+        cache._local_tensor[:, slot - lo:slot - lo + 1] = \
+            new._local_tensor.to(cache.dtype)
+
+
 def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, index: int,
                window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
@@ -168,8 +236,8 @@ def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor, k_cache: torch.Tensor,
     q = rope(q, pos, cfg.rope_theta)
     k_new, v_new = gqa_project_kv(p, x, pos, cfg.rope_theta)
     slot = index % S_cache if window else min(index, S_cache - 1)
-    k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+    write_slot(k_cache, slot, k_new)
+    write_slot(v_cache, slot, v_new)
     # positions held in each cache slot
     slots = torch.arange(S_cache, dtype=torch.int64, device=dev)
     if window:
@@ -183,7 +251,7 @@ def gqa_decode(p, cfg: ArchConfig, x: torch.Tensor, k_cache: torch.Tensor,
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = H // KV
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, groups, hd).float() * scale
+    qg = unflatten(q[:, 0], 1, (KV, groups)).float() * scale
     s = torch.einsum("bkgh,bckh->bkgc", qg, k_cache.float())
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
@@ -217,12 +285,12 @@ def _mla_qkr(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     q_nope (B, S, H, nope), roped q_rope (B, S, H, rope), the normed latent
     c_kv (B, S, kv_lora) and the roped single-head k_rope (B, S, rope)."""
     nope = cfg.qk_nope_head_dim
-    q_lat = apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+    q_lat = apply_norm(p["q_norm"], matmul(x, p["wq_a"]), cfg.norm_eps)
     q = _proj(q_lat, p["wq_b"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
-    c_kv = apply_norm(p["kv_norm"], x @ p["wkv_a"], cfg.norm_eps)
-    k_rope = (x @ p["wk_rope"])[:, :, None, :]       # one head
+    c_kv = apply_norm(p["kv_norm"], matmul(x, p["wkv_a"]), cfg.norm_eps)
+    k_rope = matmul(x, p["wk_rope"])[:, :, None, :]  # one head
     k_rope = rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 
@@ -270,8 +338,8 @@ def mla_decode(p, cfg: ArchConfig, x: torch.Tensor, c_cache: torch.Tensor,
     pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
     q_nope, q_rope, c_new, r_new = _mla_qkr(p, cfg, x, pos)
     slot = min(index, S_cache - 1)
-    c_cache[:, slot:slot + 1] = c_new.to(c_cache.dtype)
-    r_cache[:, slot:slot + 1] = r_new.to(r_cache.dtype)
+    write_slot(c_cache, slot, c_new)
+    write_slot(r_cache, slot, r_new)
     q_eff = torch.einsum("bsnh,rnh->bsnr", q_nope, p["wk_b"])  # (B,1,H,r)
     s = (torch.einsum("bsnr,bcr->bnc", q_eff, c_cache.to(q_eff.dtype))
          + torch.einsum("bsnr,bcr->bnc", q_rope, r_cache.to(q_rope.dtype)))

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.ops import matmul
 from repro_torch.models.param import ParamInfo
 
 # ----------------------------------------------------------------- norms
@@ -60,12 +61,12 @@ def mlp_spec(cfg: ArchConfig, d_ff: int) -> Dict[str, ParamInfo]:
 
 
 def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p["wi"]
+    h = matmul(x, p["wi"])
     if act == "silu":
-        h = F.silu(h) * (x @ p["wg"])
+        h = F.silu(h) * matmul(x, p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wo"]
+    return matmul(h, p["wo"])
 
 
 # ----------------------------------------------------------------- embeddings
@@ -86,8 +87,8 @@ def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def logits_from(p, x: torch.Tensor) -> torch.Tensor:
     if "head" in p:
-        return x @ p["head"]
-    return x @ p["embedding"].T
+        return matmul(x, p["head"])
+    return matmul(x, p["embedding"].T)
 
 
 # ----------------------------------------------------------------- positions

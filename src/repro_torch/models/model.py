@@ -47,6 +47,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import (checkpoint_context_fn,
+                                             constrain, constrain_cache,
+                                             constrain_decode_act,
+                                             current_rules)
+from repro_torch.distributed.sharding import cache_kind
+from repro_torch.distributed.ops import is_dtensor, matmul, unflatten
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
@@ -99,6 +105,11 @@ class Model(nn.Module):
                                              d_ff=cfg.d_ff or cfg.moe_d_ff),
             }
         return s
+
+    def axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """{dotted parameter name: its logical axes} from the spec, which
+        the sharding rules map onto mesh axes."""
+        return {name: info.axes for name, info in leaves(self.spec())}
 
     def param_count(self) -> int:
         """From the spec alone: nothing is allocated."""
@@ -169,13 +180,17 @@ class Model(nn.Module):
                          self.dtype)
         prefix_len = None
         if cfg.num_prefix_tokens:
-            x = torch.cat([self._embeddings(batch["prefix"]), x], dim=1)
+            # under rules a vocab-sharded lookup is a partial sum: reduce
+            # it before the concatenation
+            x = torch.cat([self._embeddings(batch["prefix"]),
+                           constrain(x, ("dp", None, None))], dim=1)
             prefix_len = cfg.num_prefix_tokens
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=self.device)
         if cfg.rope_theta <= 0 and not cfg.is_ssm and not cfg.is_hybrid:
             x = x + sinusoidal_positions(S, cfg.d_model, x.dtype,
                                          self.device)[None]
+        x = constrain(x, ("dp", None, None))
         return x, positions, prefix_len
 
     def encode(self, batch) -> torch.Tensor:
@@ -232,11 +247,12 @@ class Model(nn.Module):
         cfg = self.cfg
         params = self.params
         p = params["mtp"]
-        emb_next = embed_tokens(params["embed"],
-                                self._tokens(batch["tokens"])[:, 1:],
-                                h.dtype)
+        emb_next = constrain(embed_tokens(params["embed"],
+                                          self._tokens(batch["tokens"])[:, 1:],
+                                          h.dtype), ("dp", None, None))
         z = torch.cat([apply_norm(p["ln"], h[:, :-1], cfg.norm_eps),
-                       emb_next], dim=-1) @ p["proj"]
+                       emb_next], dim=-1)
+        z = matmul(z, p["proj"])
         positions = torch.arange(z.shape[1], dtype=torch.int32,
                                  device=self.device)
         z, _ = tfm.apply_attn_block(p["block"], cfg, z, positions,
@@ -299,6 +315,13 @@ class Model(nn.Module):
         cfg = self.cfg
         params = self.params
         index = cache["index"] if index is None else int(index)
+        rules = current_rules()
+        if rules is not None:        # the caches on their placements
+            for key, t in cache.items():
+                kind = cache_kind(key)
+                if kind is not None:
+                    cache[key] = rules.place(
+                        t, rules.cache_pspec(tuple(t.shape), kind))
         x = embed_tokens(params["embed"], self._tokens(tokens), self.dtype)
         if cfg.rope_theta <= 0 and not cfg.is_ssm and not cfg.is_hybrid:
             pe = sinusoidal_positions(index + 1, cfg.d_model, x.dtype,
@@ -326,15 +349,18 @@ class Model(nn.Module):
             stack = dec["layers"]
             for i in range(tfm.depth(stack)):
                 lp = tfm.layer(stack, i)
+                x = constrain_decode_act(x)
                 a = apply_norm(lp["ln"], x, cfg.norm_eps)
                 a, _ = ssm_lib.ssm_decode(lp["ssm"], cfg, a, {
-                    "state": cache["state"][i], "conv": cache["conv"][i]})
+                    "state": constrain_cache(cache["state"][i], "state"),
+                    "conv": constrain_cache(cache["conv"][i], "conv")})
                 x = x + a
             return x
         if cfg.is_hybrid:
             stack = dec["layers"]
             for j in range(tfm.depth(stack)):
                 lp = tfm.layer(stack, j)
+                x = constrain_decode_act(x)
                 for i in range(cfg.attn_period):
                     x = self._sublayer_decode(lp[f"sub{i}"], cache, x, index,
                                               j, i)
@@ -350,16 +376,17 @@ class Model(nn.Module):
             stack = dec[name]
             for j in range(tfm.depth(stack)):
                 lp = tfm.layer(stack, j)
+                x = constrain_decode_act(x)
                 a = apply_norm(lp["ln1"], x, cfg.norm_eps)
                 if mla:
-                    a, _, _ = attn.mla_decode(lp["attn"], cfg, a,
-                                              cache["c"][i], cache["r"][i],
-                                              index)
+                    a, _, _ = attn.mla_decode(
+                        lp["attn"], cfg, a, constrain_cache(cache["c"][i], "mla"),
+                        constrain_cache(cache["r"][i], "mla"), index)
                 else:
-                    a, _, _ = attn.gqa_decode(lp["attn"], cfg, a,
-                                              cache["k"][i], cache["v"][i],
-                                              index,
-                                              window=cfg.sliding_window)
+                    a, _, _ = attn.gqa_decode(
+                        lp["attn"], cfg, a, constrain_cache(cache["k"][i], "kv"),
+                        constrain_cache(cache["v"][i], "kv"), index,
+                        window=cfg.sliding_window)
                 x = x + a
                 if cfg.is_encoder_decoder:
                     a = apply_norm(lp["ln_x"], x, cfg.norm_eps)
@@ -375,12 +402,14 @@ class Model(nn.Module):
         cfg = self.cfg
         a = apply_norm(sub["ln1"], x, cfg.norm_eps)
         if "attn" in sub:
-            a, _, _ = attn.gqa_decode(sub["attn"], cfg, a, cache["k"][j],
-                                      cache["v"][j], index,
-                                      window=cfg.sliding_window)
+            a, _, _ = attn.gqa_decode(
+                sub["attn"], cfg, a, constrain_cache(cache["k"][j], "kv"),
+                constrain_cache(cache["v"][j], "kv"), index,
+                window=cfg.sliding_window)
         else:
             a, _ = ssm_lib.ssm_decode(sub["ssm"], cfg, a, {
-                "state": cache[f"state{i}"][j], "conv": cache[f"conv{i}"][j]})
+                "state": constrain_cache(cache[f"state{i}"][j], "state"),
+                "conv": constrain_cache(cache[f"conv{i}"][j], "conv")})
         x, _ = tfm.ffn_residual(sub, cfg, x + a)
         return x
 
@@ -425,19 +454,79 @@ def _cross_decode(p, cfg: ArchConfig, x: torch.Tensor, xk: torch.Tensor,
     q = attn._proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    qg = q.reshape(B, KV, H // KV, hd).float() / math.sqrt(hd)
+    qg = unflatten(q[:, 0], 1, (KV, H // KV)).float() / math.sqrt(hd)
     s = torch.einsum("bkgh,bckh->bkgc", qg, xk.float())
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckh->bkgh", w, xv.float())
     return attn._out(o.reshape(B, 1, H, hd).to(x.dtype), p["wo"])
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim, spelled in the ops of its
+    composite forward (max, inf max -> 0, exp, sum, log, add) and its
+    backward formula, so that its bits are the same: on a DTensor whose
+    vocab is sharded over the model axis it reduces as partial max and
+    sum, which DTensor's ``logsumexp`` does not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(-1, keepdim=True)
+        m = torch.where(m.abs() == math.inf, 0.0, m)
+        out = (x - m).exp().sum(-1).log() + m[..., 0]
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * (x - out[..., None]).exp()
+
+
+def _pick(logits: torch.Tensor, labels: torch.Tensor,
+          lo: int = 0) -> torch.Tensor:
+    """``logits[..., label - lo]`` where the label falls in the vocab
+    slice [lo, lo + V) that ``logits`` holds, else 0."""
+    idx = labels - lo
+    v = logits.shape[-1]
+    t = logits.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.where((idx >= 0) & (idx < v), t, 0.0)
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor):
+    """The label's logit of each position.  Logits whose vocab is sharded
+    (a DTensor) are picked on each rank's shard through ``local_map``
+    (DTensor takes no gather over a sharded dim): a partial sum over the
+    shards, exact since one shard holds the label."""
+    if not is_dtensor(logits):
+        return _pick(logits, labels)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    v_dim = Shard(logits.dim() - 1)
+    pl = list(logits.placements)
+    lo, v = 0, logits.shape[-1]
+    for j, q in enumerate(pl):                    # major to minor
+        if q == v_dim:
+            v //= mesh.size(j)
+            lo += mesh.get_local_rank(j) * v
+    rows = [q if q == Shard(0) else Replicate() for q in pl]
+    return local_map(functools.partial(_pick, lo=lo),
+                     out_placements=[Partial() if q == v_dim else r
+                                     for q, r in zip(pl, rows)],
+                     in_placements=(pl, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
 def _ce_chunk(emb_params, h: torch.Tensor, labels: torch.Tensor):
     """(sum of -log p(label), labels counted) over one chunk of positions,
-    from its float32 logits; label -1 counts nothing."""
-    logits = logits_from(emb_params, h).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    from its float32 logits; label -1 counts nothing.  Under sharding
+    rules the logits are pinned (dp, None, tp) as in the reference."""
+    h = constrain(h, ("dp", None, None))
+    logits = constrain(logits_from(emb_params, h).float(),
+                       ("dp", None, "tp"))
+    logz = _LogSumExp.apply(logits)
+    tgt = _label_logits(logits, constrain(labels.clamp_min(0),
+                                          ("dp", None)))
     mask = (labels >= 0).float()
     return ((logz - tgt) * mask).sum(), mask.sum()
 
@@ -458,7 +547,9 @@ def _chunked_ce(emb_params, h: torch.Tensor, labels: torch.Tensor,
         labels = F.pad(labels, (0, pad), value=-1)
     one = functools.partial(_ce_chunk, emb_params)
     if torch.is_grad_enabled():
-        one = functools.partial(checkpoint, one, use_reentrant=False)
+        ctx = checkpoint_context_fn()
+        kw = {} if ctx is None else {"context_fn": ctx}
+        one = functools.partial(checkpoint, one, use_reentrant=False, **kw)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, h.shape[1], chunk):

@@ -2,9 +2,9 @@
 
 Every weight is declared as a ``ParamInfo(shape, axes, init)`` in a
 nested-dict *spec*; the same spec gives the parameter count and the
-initialised tensors.  The logical axes are kept for parity with the
-reference's specs (they name the sharding of a weight); the single-card
-port does not read them.
+initialised tensors.  The logical axes name how a weight is sharded:
+``Model.axes()`` hands them to the sharding rules
+(``repro_torch.distributed.sharding``), which map them onto mesh axes.
 
 ``init_params`` draws from one explicit ``torch.Generator``, leaf by leaf in
 the reference's flatten order (sorted keys).  The rules are the

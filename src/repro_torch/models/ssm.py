@@ -12,11 +12,14 @@ Python loop of two ops a chunk, in the reference's order: the state
 *before* a chunk is emitted, then ``h * decay + S_chunk``.  The quadratic
 intra-chunk tensors (decay, L, W) are built once, in place (out of
 place, with the same arithmetic, when autograd records: it keeps exp's
-output), in the (B, nC, nh, Q, Q) layout that the batched products take; the reference's
-``(B, nC, Q, Q, nh)`` einsums contract the same sums.  Decode writes both
-caches in place (the reference returns new arrays): the state (B, nh, N,
-hp) in float32 and the conv window (B, ck-1, d_inner + 2N) in the
-parameter dtype.
+output), in the (B, nC, nh, Q, Q) layout that the batched products take;
+the reference's ``(B, nC, Q, Q, nh)`` einsums contract the same sums.
+Decode writes both caches in place (the reference returns new arrays):
+the state (B, nh, N, hp) in float32 and the conv window (B, ck-1,
+d_inner + 2N) in the parameter dtype.  Under sharding rules the scan
+runs on each rank's rows and heads through ``local_map`` (B over dp,
+heads over the model axis, as the reference pins its initial state),
+and a decode step reads its state shard by shard.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import current_rules, use_rules
+from repro_torch.distributed.sharding import P
+from repro_torch.distributed.ops import is_dtensor, matmul
 from repro_torch.models.param import ParamInfo
 
 
@@ -58,11 +64,11 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 def _proj_conv(p, cfg: ArchConfig, x: torch.Tensor):
     """Shared projections. x: (B, S, D) -> z, xBC (pre-conv), dt (float32,
     softplus'd)."""
-    z = x @ p["wz"]
-    xs = x @ p["wx"]
-    Bv = x @ p["wB"]
-    Cv = x @ p["wC"]
-    dt = F.softplus((x @ p["wdt"] + p["dt_bias"]).float())
+    z = matmul(x, p["wz"])
+    xs = matmul(x, p["wx"])
+    Bv = matmul(x, p["wB"])
+    Cv = matmul(x, p["wC"])
+    dt = F.softplus((matmul(x, p["wdt"]) + p["dt_bias"]).float())
     return z, torch.cat([xs, Bv, Cv], dim=-1), dt
 
 
@@ -75,32 +81,46 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w32 = w.float()
     out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
     for i in range(ck):
-        out += pad[:, i:i + S].float() * w32[i]
+        out = out + pad[:, i:i + S].float() * w32[i]
     return F.silu(out).to(xBC.dtype)
 
 
 def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Chunked SSD scan over the full sequence. x: (B, S, D).  S must be a
     multiple of the chunk Q = min(ssm_chunk, S)."""
-    B, S, D = x.shape
-    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    S = x.shape[1]
+    di, N = cfg.d_inner, cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"SSD scan: sequence length S={S} is not a multiple "
                          f"of the chunk Q={Q}")
-    nC = S // Q
 
     z, xBC, dt = _proj_conv(p, cfg, x)
     xBC = _causal_conv(xBC, p["conv"])
     xs, Bv, Cv = torch.split(xBC, [di, N, N], dim=-1)
     del xBC
+    if is_dtensor(xs):
+        y = _ssd_sharded(cfg, Q, xs, Bv, Cv, dt, p["A_log"], p["D"])
+    else:
+        y = _ssd_core(cfg, Q, xs, Bv, Cv, dt, p["A_log"], p["D"])
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    return matmul(y.to(x.dtype), p["wout"])
+
+
+def _ssd_core(cfg: ArchConfig, Q: int, xs, Bv, Cv, dt, A_log, Dp
+              ) -> torch.Tensor:
+    """The scan of one rank's rows and heads: xs (B, S, nh*hp), Bv and Cv
+    (B, S, N), dt (B, S, nh), A_log and D (nh) -> y (B, S, nh*hp),
+    float32 (nh the heads given)."""
+    B, S, _ = xs.shape
+    N, hp, nh = Bv.shape[-1], cfg.ssm_head_dim, dt.shape[-1]
+    nC = S // Q
     xh = xs.reshape(B, nC, Q, nh, hp).float()
     Bc = Bv.reshape(B, nC, Q, N).float()
     Cc = Cv.reshape(B, nC, Q, N).float()
     dtc = dt.reshape(B, nC, Q, nh)
 
-    A = -torch.exp(p["A_log"].float())                       # (nh,)
+    A = -torch.exp(A_log.float())                            # (nh,)
     cum = torch.cumsum(dtc * A, dim=2)                       # within chunk
 
     # ---- intra-chunk (quadratic within chunk), as (B, nC, nh, q, k) ----
@@ -110,7 +130,7 @@ def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # mask BEFORE exp: the future branch (q - k >> 0) overflows to inf, and
     # inf * 0 would give NaN in W
     future = torch.ones((Q, Q), dtype=torch.bool,
-                        device=x.device).triu_(1)
+                        device=xs.device).triu_(1)
     dt_k = dtc.permute(0, 1, 3, 2)[:, :, :, None]
     if torch.is_grad_enabled():  # autograd keeps exp's output: out of place
         W = L.masked_fill(future, -1e30).exp() * scores[:, :, None] * dt_k
@@ -129,9 +149,9 @@ def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     del xw
     chunk_decay = torch.exp(last[:, :, 0, :])                # (B,nC,nh)
 
-    h = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, nh, N, hp), dtype=torch.float32, device=xs.device)
     h_prev = torch.empty((B, nC, N, nh, hp), dtype=torch.float32,
-                         device=x.device)
+                         device=xs.device)
     for c in range(nC):                       # emit the state *before* chunk
         h_prev[:, c] = h.transpose(1, 2)
         h = h * chunk_decay[:, c, :, None, None] \
@@ -143,10 +163,43 @@ def ssd_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     y_inter = y_inter * w_out[..., None]
     del h_prev
 
-    y = y_intra + y_inter + p["D"].float()[:, None] * xh
-    del y_intra, y_inter
-    y = _gated_norm(y.reshape(B, S, di), z, p["norm"], cfg.norm_eps)
-    return y.to(x.dtype) @ p["wout"]
+    y = y_intra + y_inter + Dp.float()[:, None] * xh
+    return y.reshape(B, S, nh * hp)
+
+
+def _ssd_sharded(cfg: ArchConfig, Q: int, xs, Bv, Cv, dt, A_log, Dp):
+    """:func:`_ssd_core` on each rank's rows and heads through
+    ``local_map``: B over the data-parallel axes and the heads over the
+    model axis where they divide (the reference pins its scan's initial
+    state so, ``constrain(h0, ("dp", "tp", None, None))``); B and C, shared
+    by every head, replicated over the model axis.  The gradients of the
+    per-head A and D and of B and C are partial sums over the axes whose
+    ranks hold other rows or heads."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    rules = current_rules()
+    tp = rules.tp_size
+    b = rules._dp_entry(xs.shape[0])
+    h = rules.tp_axis if cfg.ssm_heads % tp == 0 and \
+        cfg.ssm_heads >= tp else None
+    pl_x = rules.placements(P(b, None, h))        # xs (B,S,di), dt (B,S,nh)
+    pl_bc = rules.placements(P(b, None, None))    # Bv, Cv (B, S, N)
+    pl_h = rules.placements(P(h))                 # A_log, D (nh,)
+    split_b = rules.placements(P(b))
+    split_h = rules.placements(P(h))
+    g_h = [Partial() if sb != Replicate() else q
+           for sb, q in zip(split_b, pl_h)]       # other rows' sums
+    g_bc = [Partial() if sh != Replicate() else q
+            for sh, q in zip(split_h, pl_bc)]     # other heads' sums
+
+    def local(xs_, Bv_, Cv_, dt_, A_, D_):
+        with use_rules(None):
+            return _ssd_core(cfg, Q, xs_, Bv_, Cv_, dt_, A_, D_)
+    return local_map(local, out_placements=pl_x,
+                     in_placements=(pl_x, pl_bc, pl_bc, pl_x, pl_h, pl_h),
+                     in_grad_placements=(pl_x, g_bc, g_bc, pl_x, g_h, g_h),
+                     device_mesh=rules.mesh, redistribute_inputs=True)(
+        xs, Bv, Cv, dt, A_log, Dp)
 
 
 # ------------------------------------------------------------- decode
@@ -162,6 +215,26 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, dtype,
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * N),
                             dtype=dtype, device=device),
     }
+
+
+def _read_state(Cv: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """C . state per head: Cv (B, N), state (B, nh, N, hp) -> (B, nh,
+    hp).  A DTensor state (B over dp, heads over the model axis) is read
+    shard by shard through ``local_map``, Cv placed like its B (DTensor's
+    batched product cannot follow the heads' shard through the reshape
+    it makes)."""
+    if not is_dtensor(state):
+        return (Cv[:, None, None, :] @ state)[:, :, 0]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(state.placements)
+    if any(q != Replicate() and q not in (Shard(0), Shard(1)) for q in pl):
+        raise ValueError(f"SSM state placements {pl}: B and heads only")
+    c_pl = [q if q == Shard(0) else Replicate() for q in pl]
+    return local_map(lambda c, st: (c[:, None, None, :] @ st)[:, :, 0],
+                     out_placements=pl, in_placements=(c_pl, pl),
+                     device_mesh=state.device_mesh,
+                     redistribute_inputs=True)(Cv, state)
 
 
 def ssm_decode(p, cfg: ArchConfig, x: torch.Tensor,
@@ -184,10 +257,10 @@ def ssm_decode(p, cfg: ArchConfig, x: torch.Tensor,
     upd = Bv[:, None, :, None] * (dt1[..., None] * xhead)[:, :, None, :]
     state = cache["state"]                                    # (B,nh,N,hp)
     state.mul_(decay[..., None, None]).add_(upd)
-    y = (Cv[:, None, None, :] @ state)[:, :, 0]               # (B,nh,hp)
+    y = _read_state(Cv, state)                                # (B,nh,hp)
     y = y + p["D"].float()[:, None] * xhead
     y = _gated_norm(y.reshape(B, 1, di), z, p["norm"], cfg.norm_eps)
-    return y.to(x.dtype) @ p["wout"], cache
+    return matmul(y.to(x.dtype), p["wout"]), cache
 
 
 def ssd_reference(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

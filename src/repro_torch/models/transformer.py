@@ -13,10 +13,13 @@ Each layer's body is checkpointed by ``cfg.remat`` as the reference's
 it again in the backward, "dots" keeps the outputs of the matrix
 products (``aten.mm``/``aten.addmm``, the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest.  The
-reference's ``constrain`` calls (``distributed/context.py``) are sharding
-hints with no effect on one card and are left out, as is its
-sequence-parallel attention branch.  A VLM's prefix-LM mask reaches
-every block through ``apply_decoder``'s ``prefix_len``.
+reference's ``constrain`` calls sit at the same places
+(``repro_torch.distributed.context``): each block's input is pinned B
+over the data-parallel axes, and under ``seq_parallel_attn`` an
+attention block whose head count does not divide the model axis runs
+its attention input with S over that axis.  With no sharding rules
+active they return their input.  A VLM's prefix-LM mask reaches every
+block through ``apply_decoder``'s ``prefix_len``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import (checkpoint_context_fn,
+                                             constrain, current_rules)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -59,17 +64,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, mode: str):
     """One layer's body ``fn`` under ``cfg.remat``: itself for "none" or
     when autograd does not record, else checkpointed ("full": nothing
-    kept; "dots": the products' outputs kept)."""
+    kept; "dots": the products' outputs kept), its recomputation under
+    the sharding rules of the forward."""
     if mode == "none" or not torch.is_grad_enabled():
         return fn
-    if mode == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if mode == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_dots))
-    raise ValueError(f"remat: {mode!r} is not none, full or dots")
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat: {mode!r} is not none, full or dots")
+    inner = None if mode == "full" else functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)
+    ctx = checkpoint_context_fn(inner)
+    kw = {} if ctx is None else {"context_fn": ctx}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ------------------------------------------------------------------ blocks
@@ -86,12 +91,20 @@ def apply_attn_block(p, cfg: ArchConfig, x: torch.Tensor,
                      positions: torch.Tensor, use_moe: bool,
                      prefix_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm block: (x, the router's aux loss; 0 for a dense FFN)."""
+    x = constrain(x, ("dp", None, None))
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    rules = current_rules()
+    sp = (rules is not None and rules.seq_parallel_attn and cfg.num_heads
+          and cfg.num_heads % rules.tp_size != 0)
+    if sp:  # sequence-parallel attention: S over the idle model axis
+        h = constrain(h, ("dp", "tp", None))
     if cfg.attention == "mla":
         h = attn.mla_forward(p["attn"], cfg, h, positions)
     else:
         h = attn.gqa_forward(p["attn"], cfg, h, positions, causal=True,
                              prefix_len=prefix_len)
+    if sp:
+        h = constrain(h, ("dp", None, None))
     x = x + h
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
     if use_moe:
@@ -120,6 +133,7 @@ def ssm_block_spec(cfg: ArchConfig) -> Dict:
 
 
 def apply_ssm_block(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("dp", None, None))
     h = apply_norm(p["ln"], x, cfg.norm_eps)
     return x + ssm_lib.ssd_forward(p["ssm"], cfg, h)
 
@@ -211,6 +225,7 @@ def _apply_jamba_block(p, cfg: ArchConfig, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.attn_period):
         sub = p[f"sub{i}"]
+        x = constrain(x, ("dp", None, None))
         h = apply_norm(sub["ln1"], x, cfg.norm_eps)
         if "attn" in sub:
             h = attn.gqa_forward(sub["attn"], cfg, h, positions, causal=True)
@@ -245,6 +260,7 @@ def apply_encoder(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _encoder_block(lp, cfg: ArchConfig, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("dp", None, None))
     h = apply_norm(lp["ln1"], x, cfg.norm_eps)
     x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=False)
     h = apply_norm(lp["ln2"], x, cfg.norm_eps)
@@ -279,6 +295,7 @@ def apply_xdecoder(p, cfg: ArchConfig, x: torch.Tensor,
 def _xdecoder_block(lp, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor, enc_out: torch.Tensor,
                     enc_pos: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("dp", None, None))
     h = apply_norm(lp["ln1"], x, cfg.norm_eps)
     x = x + attn.gqa_forward(lp["attn"], cfg, h, positions, causal=True)
     h = apply_norm(lp["ln_x"], x, cfg.norm_eps)

@@ -54,7 +54,7 @@ def schedule(h: OptHyper, step: torch.Tensor) -> torch.Tensor:
 
 def adamw_init(params: Dict[str, Any], opt_dtype: str) -> Dict[str, Any]:
     dt = getattr(torch, opt_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)   # a DTensor's too
     dev = next(t for _, t in leaves(params)).device
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

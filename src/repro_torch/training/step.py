@@ -99,8 +99,7 @@ def make_train_step(model: Model, hyper: Optional[OptHyper] = None,
         if microbatches <= 1:
             loss, metrics, gs = one(batch)
         else:
-            gs = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for p in flat]
+            gs = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
             for i in range(microbatches):
                 l, metrics, g = one(_split(batch, i, microbatches))

@@ -320,8 +320,8 @@ def test_trace_sees_the_declared_sites():
 
 def test_grids():
     assert C.run_contracts("none") == ([], [], 0.0)
-    with pytest.raises(ValueError, match="production mesh"):
-        C.run_contracts("pod")
+    with pytest.raises(ValueError, match="unknown grid"):
+        C.run_contracts("nowhere")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             C.run_contracts("card")
@@ -344,3 +344,53 @@ def test_any_rank_agrees_on_an_int_flag():
     src = inspect.getsource(D._any_rank)
     assert "torch.int32" in src and "float64" not in src
     assert np.isfinite(D.big_sentinel(torch.float32).item())
+
+
+def test_functional_collective_is_counted_with_its_kind_and_bytes(world):
+    """DTensor's redistributions issue ``_c10d_functional`` ops: the trace
+    records each with its kind, its output's bytes and its group's size,
+    and a wait moves nothing."""
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.analysis import collectives
+    t = torch.arange(6, dtype=torch.float32)
+    with C.OpTrace("cpu") as tr:
+        out = funcol.all_gather_tensor(t, 0, dist.group.WORLD)
+        out = funcol.all_reduce(out, "sum", dist.group.WORLD)
+        out.wait() if hasattr(out, "wait") else None
+    recs = [r for r, _ in tr.collectives]
+    assert [r.kind for r in recs] == ["all-gather", "all-reduce"]
+    assert [r.out_bytes for r in recs] == [24, 24]
+    assert [r.group for r in recs] == [1, 1]
+    assert set(collectives.FUNCOL_KINDS.values()) <= set(collectives.FACTORS)
+    st = tr.collective_stats()
+    assert st.count_by_kind == {"all-gather": 1, "all-reduce": 1}
+    # the ring model at a group of 16: all-gather (n-1)/n of the output
+    assert collectives.link_bytes("all-gather", 24, 16) == 24 * 15 / 16
+
+
+def test_pod_grid_is_green_at_a_reduced_n():
+    """``run_contracts("pod")``: the pq, update and refresh steps on both
+    production meshes over a fake group (a subprocess: the group is
+    process-wide), at n = 2^14."""
+    import subprocess
+    import sys
+    code = ("import json, sys\n"
+            "from repro_torch.analysis import contracts as C\n"
+            "v, recs, _ = C.run_contracts('pod', shape=(8, 1 << 14))\n"
+            "sys.stdout.write('RESULT ' + json.dumps([[x.format() for x in v],"
+            " recs]) + '\\n')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    line = next(ln for ln in p.stdout.splitlines()
+                if ln.startswith("RESULT "))
+    viol, recs = json.loads(line[len("RESULT "):])
+    assert viol == []
+    by = {r["hot_path"]: r for r in recs}
+    assert set(by) == {f"distributed.{s}@w{p}" for s in
+                       ("pq_step", "update_step", "refresh_step")
+                       for p in (256, 512)}
+    for p_ in (256, 512):
+        assert by[f"distributed.update_step@w{p_}"]["collectives"] == 0
+        assert 0 < by[f"distributed.pq_step@w{p_}"]["budget_used_frac"] <= 1

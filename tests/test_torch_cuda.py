@@ -2176,3 +2176,54 @@ def test_device_lp_pivot_is_one_read_and_one_pricing_launch(dev, n):
     assert price == [1] * P
     assert sel == [1] * P
     assert launched == [1 if n + 8 <= ONE_CTA_MAX else 3] * P
+
+
+def test_layout_on_a_one_rank_nccl_mesh_is_bit_equal(dev):
+    """The multi-device layout on a (1, 1) NCCL mesh: smollm-135m-smoke's
+    prefill logits and one decode step (logits, cache) bit-equal with
+    the sharding rules active and without, flash launched through
+    ``local_map`` once a layer."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import use_rules
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    if dist.is_initialized():
+        pytest.skip("a process group is up already")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        cfg = dataclasses.replace(get_config("smollm-135m-smoke"),
+                                  head_dim=64)
+        model = Model(cfg, device=dev).init(seed=0)
+        g = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(1, cfg.vocab_size, (2, 256), generator=g,
+                             device=dev)
+        want = model.prefill_logits({"tokens": toks})
+        cache0 = model.init_cache(2, 64)
+        for k in ("k", "v"):
+            cache0[k].normal_(generator=g)
+        cache0["index"] = 5
+        c_want = {k: v.clone() if torch.is_tensor(v) else v
+                  for k, v in cache0.items()}
+        d_want, _ = model.decode_step(c_want, toks[:, :1])
+        rules = make_rules(make_local_mesh(1, 1, device="cuda"))
+        rules.shard_params(model)
+        c_got = {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in cache0.items()}
+        before = attention.launches
+        with use_rules(rules):
+            got = model.prefill_logits({"tokens": toks})
+            assert attention.launches == before + cfg.num_layers
+            d_got, c_got = model.decode_step(c_got, toks[:, :1])
+        torch.cuda.synchronize()
+        assert torch.equal(got.to_local(), want)
+        assert torch.equal(d_got.to_local(), d_want)
+        for k in ("k", "v"):
+            assert torch.equal(c_got[k].to_local(), c_want[k])
+    finally:
+        dist.destroy_process_group()

@@ -98,10 +98,16 @@ def _rank_main(rank: int, world: int, store_path: str, cases,
         raise
 
 
-def spawn(world: int, cases, out_dir) -> list:
+def spawn(world: int, cases, out_dir, join_s: float = JOIN_S) -> list:
     """``cases`` on a spawned gloo world of ``world`` ranks: each rank's
     results, in rank order.  Raises with the ranks' tracebacks if one
-    fails or the world is not done within ``JOIN_S`` seconds."""
+    fails or the world is not done within ``join_s`` seconds."""
+    return join(start(world, cases, out_dir), join_s)
+
+
+def start(world: int, cases, out_dir):
+    """:func:`spawn`'s world started and left running: a handle for
+    :func:`join`."""
     import multiprocessing as mp
     out_dir = str(out_dir)
     ctx = mp.get_context("spawn")
@@ -111,7 +117,16 @@ def spawn(world: int, cases, out_dir) -> list:
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + JOIN_S
+    return procs, out_dir, time.monotonic()
+
+
+def join(handle, join_s: float = JOIN_S) -> list:
+    """The results of a world that :func:`start` started, in rank order,
+    once it is done; raises as :func:`spawn` does, ``join_s`` counted
+    from the start."""
+    procs, out_dir, t0 = handle
+    world = len(procs)
+    deadline = t0 + join_s
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.0))
     hung = [p for p in procs if p.is_alive()]
@@ -258,7 +273,65 @@ def case_hierarchy(m, table, attrs, **kw):
                                         **kw))}
 
 
-CASES = {"step": case_step, "update": case_update, "refresh": case_refresh,
+def _full(t):
+    """A DTensor gathered whole (every rank calls it), as numpy."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().numpy()
+
+
+def layout_run(m, cfg, params, batch, decode_steps=2, cache_len=32,
+               train=False, rules=True, flags=None):
+    """The port's model of ``cfg`` on ``params`` (numpy tree) with the
+    sharding rules of mesh ``m`` active (``rules``; ``flags`` their
+    perf flags, ``ShardingRules`` fields) or none: the prefill logits and
+    ``decode_steps`` decode steps' logits and cache, or with ``train``
+    the loss and every parameter's gradient; all gathered to numpy."""
+    import torch
+    from repro_torch.distributed.context import use_rules
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.param import leaves
+    model = from_jax_params(params, cfg, device="cpu")
+    r = None
+    if rules:
+        r = make_rules(m, **(flags or {}))
+        r.shard_params(model)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with use_rules(r):
+        if train:
+            model.requires_grad_(True)
+            loss, _ = model.loss_fn(b)
+            flat = [q for _, q in leaves(model.params)]
+            grads = torch.autograd.grad(loss, flat)
+            return {"loss": _full(loss),
+                    "grads": {n: _full(g) for (n, _), g in
+                              zip(leaves(model.params), grads)}}
+        out = {"prefill": _full(model.prefill_logits(b))}
+        enc = b["enc_inputs"].shape[1] if "enc_inputs" in b else None
+        cache = model.init_cache(b["tokens"].shape[0], cache_len,
+                                 enc_len=enc)
+        for t in range(decode_steps):
+            logits, cache = model.decode_step(cache, b["tokens"][:, t:t + 1])
+            out[f"decode{t}"] = _full(logits)
+        out["cache"] = {k: _full(v) for k, v in cache.items()
+                        if k != "index"}
+    return out
+
+
+def case_layout(m, arch, params, batch, cfg_kw=None, **kw):
+    """:func:`layout_run` of the float32 smoke config of ``arch``
+    (``cfg_kw`` replaced in it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch + "-smoke"),
+                              param_dtype="float32", **(cfg_kw or {}))
+    return layout_run(m, cfg, params, batch, **kw)
+
+
+CASES = {"layout": case_layout, "step": case_step, "update": case_update,
+         "refresh": case_refresh,
          "solve": case_solve, "shard_fault": case_shard_fault,
          "group_stats": case_group_stats,
          "streaming_stats": case_streaming_stats,
